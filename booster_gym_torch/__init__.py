@@ -1,0 +1,24 @@
+"""Booster Gym on PyTorch and CUDA: the port of booster_gym_tpu to one
+NVIDIA H100.
+
+The JAX package booster_gym_tpu stays beside this one as the reference.
+This package imports torch, numpy and yaml, and nothing of JAX.  Layout
+mirrors the JAX package:
+
+    train.py / runner.py   CLI and training loop
+    algo/                  actor-critic and PPO (xla-update path)
+    envs/                  T1 task, plane terrain
+    physics/               eager substep (plain version) and the CUDA
+                           substep kernel (K1, csrc/substep.cu)
+    terrain/               plane terrain
+    model/                 URDF parser
+    math/                  quaternion and spatial algebra
+"""
+
+import torch as _torch
+
+# Physics is f32 small-matrix algebra; TF32 keeps ~3 decimal digits, far
+# too coarse for contact dynamics.  The JAX package forces highest matmul
+# precision for the same reason.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,182 @@
+"""Robots built in code and the main path's configuration, for the tests,
+chip_smoke.py and profile_iteration.py only.
+
+The training path never imports this module.  The vendor T1 URDF
+(resources/T1/T1_locomotion.urdf) is not in the repository, so the port's
+tests and its smoke run use a T1-shaped stand-in with the T1's names and
+exactly the T1's widths: after fixed-joint collapsing it has 13 bodies,
+12 DoF and, at cylinder_rim_points 4, 56 contact points (8 trunk-box
+corners, 4 cylinders x 8 rim points, 2 foot boxes x 8 corners).  Masses and
+lengths are those of a ~30 kg humanoid whose feet touch the ground when the
+trunk stands at init_state.pos z = 0.72 with the T1.yaml default angles,
+and its link inertias keep every joint stable under the T1.yaml PD gains
+at the 2 ms substep.
+"""
+
+import os
+import subprocess
+
+import numpy as np
+
+from booster_gym_torch.model.urdf import RobotModel
+from booster_gym_torch.utils.config import load_task_cfg
+
+
+def _box_inertia(m, sx, sy, sz):
+    return (m * (sy * sy + sz * sz) / 12, m * (sx * sx + sz * sz) / 12,
+            m * (sx * sx + sy * sy) / 12)
+
+
+def _cyl_inertia(m, r, length):
+    side = m * (3 * r * r + length * length) / 12
+    return side, side, 0.5 * m * r * r
+
+
+def _inertial(m, com, diag):
+    return (f'<inertial><origin xyz="{com[0]} {com[1]} {com[2]}" rpy="0 0 0"/>'
+            f'<mass value="{m}"/><inertia ixx="{diag[0]:.6g}" ixy="0" ixz="0" '
+            f'iyy="{diag[1]:.6g}" iyz="0" izz="{diag[2]:.6g}"/></inertial>')
+
+
+def _link(name, m, com, diag, collision=""):
+    return f'<link name="{name}">{_inertial(m, com, diag)}{collision}</link>'
+
+
+def _box(xyz, size):
+    return (f'<collision><origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" rpy="0 0 0"/>'
+            f'<geometry><box size="{size[0]} {size[1]} {size[2]}"/></geometry>'
+            f'</collision>')
+
+
+def _cylinder(xyz, r, length):
+    return (f'<collision><origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" rpy="0 0 0"/>'
+            f'<geometry><cylinder radius="{r}" length="{length}"/></geometry>'
+            f'</collision>')
+
+
+def _joint(name, kind, parent, child, xyz, axis=None, limit=None):
+    out = (f'<joint name="{name}" type="{kind}"><parent link="{parent}"/>'
+           f'<child link="{child}"/><origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" '
+           f'rpy="0 0 0"/>')
+    if axis is not None:
+        out += f'<axis xyz="{axis[0]} {axis[1]} {axis[2]}"/>'
+    if limit is not None:
+        lo, hi, effort, vel = limit
+        out += (f'<limit lower="{lo}" upper="{hi}" effort="{effort}" '
+                f'velocity="{vel}"/>')
+    return out + "</joint>"
+
+
+def t1_shaped_urdf_text():
+    """URDF text of the T1-shaped stand-in robot."""
+    links = [
+        _link("Trunk", 8.0, (0.0, 0.0, 0.1), _box_inertia(8.0, 0.15, 0.2, 0.3),
+              _box((0.0, 0.0, 0.15), (0.15, 0.2, 0.3))),
+        _link("H1", 0.5, (0.0, 0.0, 0.03), _cyl_inertia(0.5, 0.03, 0.06)),
+        _link("H2", 1.5, (0.0, 0.0, 0.08), _box_inertia(1.5, 0.15, 0.15, 0.16)),
+        _link("AL", 2.0, (0.0, 0.0, -0.2), _cyl_inertia(2.0, 0.04, 0.45)),
+        _link("AR", 2.0, (0.0, 0.0, -0.2), _cyl_inertia(2.0, 0.04, 0.45)),
+        _link("Waist", 2.5, (0.0, 0.0, -0.03), _box_inertia(2.5, 0.15, 0.22, 0.08)),
+    ]
+    joints = [
+        _joint("Head_Neck", "fixed", "Trunk", "H1", (0.0, 0.0, 0.3)),
+        _joint("Head_Top", "fixed", "H1", "H2", (0.0, 0.0, 0.06)),
+        _joint("Left_Shoulder", "fixed", "Trunk", "AL", (0.0, 0.15, 0.25)),
+        _joint("Right_Shoulder", "fixed", "Trunk", "AR", (0.0, -0.15, 0.25)),
+        _joint("Waist_Fixed", "fixed", "Trunk", "Waist", (0.0, 0.0, -0.05)),
+    ]
+    for side, sign in (("Left", 1.0), ("Right", -1.0)):
+        s = side
+        links += [
+            _link(f"Hip_Pitch_{s}", 1.0, (0.0, 0.0, -0.01), _box_inertia(1.0, 0.06, 0.06, 0.04)),
+            _link(f"Hip_Roll_{s}", 1.0, (0.0, 0.0, -0.04), _box_inertia(1.0, 0.06, 0.06, 0.08)),
+            _link(f"Hip_Yaw_{s}", 2.5, (0.0, 0.0, -0.1), _cyl_inertia(2.5, 0.05, 0.2),
+                  _cylinder((0.0, 0.0, -0.1), 0.05, 0.2)),
+            _link(f"Shank_{s}", 1.8, (0.0, 0.0, -0.14), _cyl_inertia(1.8, 0.04, 0.24),
+                  _cylinder((0.0, 0.0, -0.14), 0.04, 0.24)),
+            _link(f"Ankle_Cross_{s}", 0.1, (0.0, 0.0, 0.0), _box_inertia(0.1, 0.03, 0.03, 0.03)),
+            # the foot's roll inertia must exceed dt * kd / 2 = 1e-3 kg m^2
+            # (ankle damping 1.0 N m s/rad, dt 2 ms), or the explicit joint
+            # damping over-corrects every substep and the ankle roll chatters
+            _link(f"{s.lower()}_foot_link", 0.6, (0.01, 0.0, -0.015), (0.003, 0.005, 0.006),
+                  _box((0.01, 0.0, -0.01), (0.223, 0.1, 0.04))),
+        ]
+        roll = (-0.2, 1.57) if sign > 0 else (-1.57, 0.2)
+        joints += [
+            _joint(f"{s}_Hip_Pitch", "revolute", "Trunk", f"Hip_Pitch_{s}",
+                   (0.0, sign * 0.106, -0.12), (0, 1, 0), (-1.8, 1.57, 45.0, 12.5)),
+            _joint(f"{s}_Hip_Roll", "revolute", f"Hip_Pitch_{s}", f"Hip_Roll_{s}",
+                   (0.0, 0.0, -0.02), (1, 0, 0), (*roll, 30.0, 10.9)),
+            _joint(f"{s}_Hip_Yaw", "revolute", f"Hip_Roll_{s}", f"Hip_Yaw_{s}",
+                   (0.0, 0.0, -0.08), (0, 0, 1), (-1.0, 1.0, 30.0, 10.9)),
+            _joint(f"{s}_Knee_Pitch", "revolute", f"Hip_Yaw_{s}", f"Shank_{s}",
+                   (0.0, 0.0, -0.2), (0, 1, 0), (0.0, 2.34, 60.0, 11.7)),
+            _joint(f"{s}_Ankle_Pitch", "revolute", f"Shank_{s}", f"Ankle_Cross_{s}",
+                   (0.0, 0.0, -0.28), (0, 1, 0), (-0.87, 0.35, 24.0, 18.8)),
+            _joint(f"{s}_Ankle_Roll", "revolute", f"Ankle_Cross_{s}",
+                   f"{s.lower()}_foot_link", (0.0, 0.0, 0.0), (1, 0, 0),
+                   (-0.44, 0.44, 15.0, 12.4)),
+        ]
+    return ('<?xml version="1.0"?>\n<robot name="T1_shaped">\n'
+            + "\n".join(links + joints) + "\n</robot>\n")
+
+
+def write_t1_shaped_urdf(directory):
+    """Write the stand-in URDF into `directory`; returns its absolute path."""
+    path = os.path.abspath(os.path.join(directory, "T1_shaped.urdf"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(t1_shaped_urdf_text())
+    return path
+
+
+def toy_model():
+    """Floating base + 2-link chain ending in a 'foot' body, 8 contact
+    points across 3 shapes (the toy robot of the JAX package's small
+    substep-kernel tests)."""
+    eye = np.eye(3)
+    return RobotModel(
+        body_names=("base", "thigh", "foot"),
+        dof_names=("hip", "knee"),
+        parent=np.array([-1, 0, 1]),
+        joint_pos=np.array([[0.0, 0, 0], [0, 0.05, -0.2], [0, 0, -0.25]]),
+        joint_rot=np.stack([eye, eye, eye]),
+        joint_axis=np.array([[0.0, 0, 1], [0, 1, 0], [1, 0, 0]]),
+        body_mass=np.array([3.0, 1.0, 0.4]),
+        body_com=np.array([[0.0, 0, 0], [0, 0, -0.1], [0.02, 0, -0.02]]),
+        body_inertia=np.stack([0.05 * eye, 0.01 * eye, 0.002 * eye]),
+        dof_lower=np.array([-1.5, -2.0]),
+        dof_upper=np.array([1.5, 2.0]),
+        dof_vel_limit=np.array([20.0, 20.0]),
+        dof_effort=np.array([30.0, 30.0]),
+        point_body=np.array([0, 0, 0, 0, 1, 1, 2, 2]),
+        point_pos=np.array([
+            [0.1, 0.1, -0.1], [0.1, -0.1, -0.1], [-0.1, 0.1, -0.1],
+            [-0.1, -0.1, -0.1], [0, 0, -0.1], [0, 0, -0.2],
+            [0.05, 0, -0.05], [-0.05, 0, -0.05],
+        ]),
+        point_radius=np.full(8, 0.02),
+        point_shape=np.array([0, 0, 0, 0, 1, 1, 2, 2]),
+        shape_body=np.array([0, 1, 2]),
+    )
+
+
+def main_path_cfg(urdf):
+    """The T1 task config of the port's main path on the stand-in robot at
+    `urdf`: flat terrain, 4096 envs, update_backend xla, seed 0, 3
+    iterations; horizon 24 and 20 mini-epochs as T1.yaml has them."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = 4096
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = urdf
+    cfg["algorithm"]["update_backend"] = "xla"
+    cfg["basic"]["max_iterations"] = 3
+    cfg["basic"]["seed"] = 0
+    return cfg
+
+
+def card_line():
+    """The first card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]

@@ -1,0 +1,199 @@
+"""The port's T1 env (plane terrain) against the JAX package's, on the
+T1-shaped stand-in robot.
+
+Both sides start from the same EnvParams / EnvState (the JAX side's,
+carried across by booster_gym_torch.convert) and take three control steps
+with the same actions.  The config draws no randomness that matters inside
+step: noise ranges are zero, kicks and pushes come after the horizon, and
+command resampling lies seconds away.  Envs that reset on either side are
+left out of the comparison (a reset draws a new state).  Tolerance: rtol =
+atol = 2e-3 on observations, rewards and reward terms, the physics
+tolerance of tests/test_torch_physics.py.
+"""
+
+import copy
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from booster_gym_tpu.envs.t1 import T1 as JaxT1
+from booster_gym_tpu.utils.config import load_task_cfg as jax_load_task_cfg
+
+from booster_gym_torch.convert import env_params_from_jax, env_state_from_jax
+from booster_gym_torch.envs.randomize import apply_randomization
+from booster_gym_torch.envs.t1 import T1
+from booster_gym_torch.testing import write_t1_shaped_urdf
+from booster_gym_torch.utils.config import load_task_cfg
+
+TOL = 2e-3
+B = 32
+
+
+def quiet_cfg(urdf, num_envs=B):
+    cfg = jax_load_task_cfg("T1")
+    cfg["env"]["num_envs"] = num_envs
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = urdf
+    for spec in cfg["noise"].values():
+        spec["range"] = [0.0, 0.0]
+    cfg["randomization"]["kick_interval_s"] = 1000.0
+    cfg["randomization"]["push_interval_s"] = 1000.0
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    urdf = write_t1_shaped_urdf(tmp_path_factory.mktemp("urdf"))
+    cfg = quiet_cfg(urdf)
+    jenv = JaxT1(copy.deepcopy(cfg))
+    tenv = T1(copy.deepcopy(cfg), device="cpu")
+    jparams = jenv.init_params(jax.random.PRNGKey(0))
+    jstate, jobs, jinfo = jenv.reset_all(jparams, jax.random.PRNGKey(1))
+    host = lambda x: jax.tree.map(np.asarray, x)
+    tparams = env_params_from_jax(host(jparams), "cpu")
+    tstate = env_state_from_jax(host(jstate), "cpu")
+    return jenv, tenv, jparams, jstate, jobs, jinfo, tparams, tstate
+
+
+def close(a, b, keep, label):
+    a, b = np.asarray(a)[keep], np.asarray(b)[keep]
+    np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=label)
+
+
+def test_env_dims_and_registry(pair):
+    jenv, tenv = pair[0], pair[1]
+    assert tenv.model.num_points == 56 and tenv.model.num_bodies == 13
+    assert list(tenv.reward_scales) == list(jenv.reward_scales)
+    assert len(tenv.reward_scales) == 23
+    np.testing.assert_allclose(tenv.default_dof_pos.numpy(), np.asarray(jenv.default_dof_pos))
+    np.testing.assert_allclose(tenv.env_origins.numpy(), np.asarray(jenv.env_origins))
+    assert tenv.penalized_contact_indices == list(jenv.penalized_contact_indices)
+    assert tenv.feet_indices == list(jenv.feet_indices)
+    assert tenv.foot_shape_indices == list(jenv.foot_shape_indices)
+
+
+def test_three_steps_match_jax(pair):
+    jenv, tenv, jparams, jstate, _, _, tparams, tstate = pair
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    compared = 0
+    for step in range(3):
+        actions = (0.3 * rng.standard_normal((B, 12))).astype(np.float32)
+        jstate, jobs, jrew, jdone, jinfo = jstep(jparams, jstate, jax.numpy.asarray(actions))
+        tstate, tobs, trew, tdone, tinfo = tenv.step(tparams, tstate, torch.as_tensor(actions),
+                                                     gen)
+        keep = ~(np.asarray(jdone) | tdone.numpy())
+        assert keep.sum() >= B // 2, "too many resets to compare"
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        np.testing.assert_array_equal(tinfo["time_outs"].numpy(), np.asarray(jinfo["time_outs"]))
+        close(tobs.numpy(), jobs, keep, f"obs, step {step}")
+        close(tinfo["privileged_obs"].numpy(), jinfo["privileged_obs"], keep,
+              f"privileged obs, step {step}")
+        close(trew.numpy(), jrew, keep, f"reward, step {step}")
+        assert set(tinfo["rew_terms"]) == set(jinfo["rew_terms"])
+        for name, val in tinfo["rew_terms"].items():
+            close(val.numpy(), jinfo["rew_terms"][name], keep, f"{name}, step {step}")
+        compared += int(keep.sum())
+    assert compared > 0
+
+
+def test_apply_randomization_statistics():
+    gen = torch.Generator().manual_seed(3)
+    x = torch.full((200_000,), 2.0)
+    g = apply_randomization(gen, x, {"range": [0.5, 0.2], "operation": "additive",
+                                     "distribution": "gaussian"})
+    assert abs(float(g.mean()) - 2.5) < 3e-3 and abs(float(g.std()) - 0.2) < 3e-3
+    u, noise = apply_randomization(gen, x, {"range": [0.8, 1.2], "operation": "scaling",
+                                            "distribution": "uniform"}, return_noise=True)
+    assert float(u.min()) >= 1.6 and float(u.max()) <= 2.4
+    assert abs(float(u.mean()) - 2.0) < 3e-3
+    assert abs(float(noise.mean()) - 0.5) < 3e-3 and abs(float(noise.var()) - 1 / 12) < 2e-3
+    assert apply_randomization(gen, x, None) is x
+
+
+def test_reset_and_init_samplers_statistics(tmp_path):
+    """The port's own draws (torch.Generator) by their distributions."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = 4096
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = write_t1_shaped_urdf(tmp_path)
+    env = T1(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    params = env.init_params(gen)
+    state, obs, info = env.reset_all(params, gen)
+    n = env.num_envs
+    assert obs.shape == (n, 47) and info["privileged_obs"].shape == (n, 14)
+
+    ratio = params.dof_stiffness / env.base_stiffness
+    assert float(ratio.min()) >= 0.95 and float(ratio.max()) <= 1.05
+    assert abs(float(ratio.mean()) - 1.0) < 2e-3
+    mass_ratio = params.dyn.body_mass[:, 0] / float(env.model.body_mass[0])
+    assert float(mass_ratio.min()) >= 0.8 and float(mass_ratio.max()) <= 1.2
+    foot = params.dyn.shape_friction[:, env.foot_shape_indices]
+    assert float(foot.min()) >= 0.1 and float(foot.max()) <= 2.0
+    assert abs(float(foot.mean()) - 1.05) < 0.02
+    others = [s for s in range(len(env.model.shape_body)) if s not in env.foot_shape_indices]
+    assert bool((params.dyn.shape_friction[:, others] == 1.0).all())
+
+    counts = torch.bincount(state.delay_steps, minlength=env.decimation)
+    assert len(counts) == env.decimation and int(counts.min()) > 0.7 * n / env.decimation
+    yaw = 2 * torch.atan2(state.sim.root_quat[:, 3], state.sim.root_quat[:, 0])
+    yaw = torch.remainder(yaw, 2 * np.pi)
+    assert abs(float(yaw.mean()) - np.pi) < 0.1
+    still = state.gait_frequency == 0.0
+    assert abs(float(still.float().mean()) - 0.1) < 0.02
+    moving = state.commands[~still]
+    assert float(moving.min()) >= -1.0 and float(moving.max()) <= 1.0
+    assert abs(float(moving.mean())) < 0.05
+    gf = state.gait_frequency[~still]
+    assert float(gf.min()) >= 1.0 and float(gf.max()) <= 2.0
+    lo, hi = (int(t / env.dt) for t in cfg["commands"]["resampling_time_s"])
+    assert int(state.cmd_resample_time.min()) >= lo and int(state.cmd_resample_time.max()) < hi
+
+
+def test_curriculum_update_and_sampling(tmp_path):
+    """The curriculum grid: a success at level (0, 0) diffuses to its four
+    neighbours; sampled commands follow the grid's categorical."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = 8
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = write_t1_shaped_urdf(tmp_path)
+    cfg["commands"]["curriculum"] = True
+    env = T1(cfg, device="cpu")
+    state = env._zero_state()
+    state = state.replace(episode_length=torch.full((8,), 10_000))
+    mask = torch.zeros(8, dtype=torch.bool)
+    mask[0] = True
+    prob = env._update_curriculum(state, mask)
+    c = cfg["commands"]
+    x, y = c["lin_vel_levels"], c["ang_vel_levels"]
+    assert float(prob[x, y]) == 1.0   # clamped
+    for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        assert float(prob[x + dx, y + dy]) == pytest.approx(c["update_rate"])
+    assert float(prob.sum()) == pytest.approx(1.0 + 4 * c["update_rate"])
+    gen = torch.Generator().manual_seed(0)
+    cmds, levels = env._sample_curriculum_commands(state.replace(curriculum_prob=prob), gen)
+    assert cmds.shape == (8, 3) and levels.shape == (8, 2)
+    assert int(levels.abs().max()) <= 1
+
+
+def test_still_mode_exact_fraction(tmp_path):
+    """still_mode exact_fraction: of the k envs resampling a command, exactly
+    floor(still_proportion * k) go still."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = 1000
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = write_t1_shaped_urdf(tmp_path)
+    cfg["commands"]["still_mode"] = "exact_fraction"
+    env = T1(cfg, device="cpu")
+    state = env._zero_state()
+    resample = torch.arange(1000) < 730
+    state = state.replace(cmd_resample_time=torch.where(resample, 0, 5))
+    out = env._resample_commands(state, torch.Generator().manual_seed(0))
+    still = (out.gait_frequency == 0.0) & resample
+    assert int(still.sum()) == int(0.1 * 730)
+    assert bool((out.gait_frequency[~resample] == 0.0).all())   # untouched: zeros
+    assert bool((out.cmd_resample_time[~resample] == 5).all())

@@ -1,0 +1,117 @@
+"""The port's training entry point on the CPU, its refusals, and the rule
+that the port imports nothing of JAX."""
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from booster_gym_torch.convert import env_params_from_jax, env_state_from_jax
+from booster_gym_torch.envs.t1 import T1
+from booster_gym_torch.physics.engine import make_fk, make_substep
+from booster_gym_torch.physics.substep_kernel import SubstepKernel
+from booster_gym_torch.runner import Runner
+from booster_gym_torch.testing import main_path_cfg, write_t1_shaped_urdf
+from booster_gym_torch.utils.config import build_cfg, parse_args
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_train_cli_on_cpu(tmp_path):
+    urdf = write_t1_shaped_urdf(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-m", "booster_gym_torch.train", "--task=T1", "--terrain=plane",
+         "--device", "cpu", "--num_envs", "16", "--max_iterations", "2",
+         "--asset_file", urdf],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "epoch: 2/2" in out.stdout
+    (run,) = os.listdir(tmp_path / "logs")
+    rows = [json.loads(line) for line in open(tmp_path / "logs" / run / "scalars.jsonl")]
+    assert [r["it"] for r in rows] == [0, 1]
+    for r in rows:
+        assert all(np.isfinite(v) for v in r.values()), r
+        assert r["iter_ms"] > 0 and r["env_steps_per_sec"] > 0
+        assert r["substep_kernel_launches"] == 0   # the CPU runs the plain version
+    ckpt = torch.load(tmp_path / "logs" / run / "nn" / "model_2.pt")
+    assert ckpt["iteration"] == 2 and ckpt["adam_count"] == 2 * 20
+    assert ckpt["params"]["actor.layers.0.weight"].shape == (256, 47)
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port, and chip_smoke.py, loads neither
+    jax nor booster_gym_tpu (checked in a fresh interpreter)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import booster_gym_torch\n"
+        "for m in pkgutil.walk_packages(booster_gym_torch.__path__, 'booster_gym_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'booster_gym_tpu'))\n"
+        "print(len([n for n in sys.modules if n.startswith('booster_gym_torch')]), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and bad == "[]", out.stdout
+
+
+def _cfg(tmp_path, *extra):
+    return build_cfg(parse_args(["--task=T1", "--terrain=plane", "--num_envs", "4",
+                                 "--asset_file", write_t1_shaped_urdf(tmp_path), *extra]))
+
+
+def test_cli_forces_the_xla_update_and_defaults_to_cuda(tmp_path):
+    cfg = _cfg(tmp_path)
+    assert cfg["algorithm"]["update_backend"] == "xla"
+    assert parse_args(["--task=T1"]).device == "cuda"
+
+
+@pytest.mark.parametrize("fn", [T1, SubstepKernel, make_substep, make_fk,
+                                env_params_from_jax, env_state_from_jax])
+def test_device_is_a_required_argument(fn):
+    """Below the runner nothing picks a device for the caller: a caller that
+    leaves it out gets a TypeError, never the plain physics on the host."""
+    assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
+    assert inspect.signature(Runner).parameters["device"].default == "cuda"
+
+
+def test_main_path_cfg():
+    cfg = main_path_cfg("/nonexistent/T1_shaped.urdf")
+    assert cfg["env"]["num_envs"] == 4096 and cfg["terrain"]["type"] == "plane"
+    assert (cfg["runner"]["horizon_length"], cfg["runner"]["mini_epochs"]) == (24, 20)
+    assert cfg["algorithm"]["update_backend"] == "xla"
+    assert cfg["asset"]["file"] == "/nonexistent/T1_shaped.urdf"
+
+
+def test_cuda_default_raises_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        Runner(_cfg(tmp_path), device="cuda")
+
+
+def test_unported_paths_raise(tmp_path):
+    cfg = _cfg(tmp_path)
+    cfg["terrain"]["type"] = "trimesh"
+    with pytest.raises(NotImplementedError, match="plane"):
+        Runner(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        Runner(_cfg(tmp_path, "--checkpoint", "-1"), device="cpu")
+    cfg = _cfg(tmp_path)
+    cfg["asset"]["file"] = "resources/T1/T1_locomotion.urdf"
+    if not os.path.exists(os.path.join(REPO, cfg["asset"]["file"])):
+        with pytest.raises(FileNotFoundError):
+            Runner(cfg, device="cpu")
