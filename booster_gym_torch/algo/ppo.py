@@ -1,8 +1,10 @@
-"""PPO trainer, xla-update path (port of booster_gym_tpu/algo/ppo.py with
-algorithm.update_backend: xla).
+"""PPO trainer (port of booster_gym_tpu/algo/ppo.py).
 
 One train iteration is a 24-step rollout with on-device episode sums,
-then the mini-epochs, each a full-batch gradient of the loss by autograd:
+then the mini-epochs on the whole batch.  algorithm.update_backend picks
+how a mini-epoch is computed: "fused" (the default) through the three CUDA
+kernels of algo/update_kernel.py, "xla" by autograd of the loss.  Both
+compute:
   * timeout rewards bootstrapped with the current value estimate;
   * GAE under no-grad by discount_values;
   * advantages normalized with the Bessel-corrected std;
@@ -18,10 +20,11 @@ each side half the gradient, and jnp.clip is maximum-then-minimum, so a
 ratio sitting exactly on a clip bound passes half its gradient.
 torch.maximum splits ties the same way; torch.clamp passes the whole
 gradient at its bounds, so the surrogate's clip is written out as
-jax_clip().  The fused update (the Pallas kernels K2-K4) is not ported yet.
+jax_clip().  The fused kernels carry the same rules in their own backward.
 """
 
 import dataclasses
+import math
 
 import torch
 
@@ -31,8 +34,7 @@ from booster_gym_torch.algo.networks import (
     normal_kl,
     normal_log_prob,
 )
-
-FUSED_NOT_PORTED = "fused update: K2–K4 not ported yet"
+from booster_gym_torch.algo.update_kernel import FusedUpdate
 
 
 def jax_clip(x, lo, hi):
@@ -97,8 +99,9 @@ class PPO:
         self.cfg = cfg
         self.device = torch.device(device)
         acfg = cfg["algorithm"]
-        if acfg.get("update_backend", "fused") != "xla":
-            raise NotImplementedError(FUSED_NOT_PORTED)
+        self.update_backend = acfg.get("update_backend", "fused")
+        if self.update_backend not in ("fused", "xla"):
+            raise ValueError(f"unknown update_backend {self.update_backend!r}")
         self.gamma = acfg["gamma"]
         self.lam = acfg["lam"]
         self.clip_ratio = acfg.get("clip_ratio", 0.2)
@@ -115,11 +118,9 @@ class PPO:
             env.num_actions, env.num_obs, env.num_privileged_obs,
             compute_dtype=acfg.get("compute_dtype", "bf16"),
             init_logstd=acfg.get("init_logstd", -2.0)).to(self.device)
-        offset = 0
-        for name, prm in self.network.named_parameters():
-            if name == "logstd":
-                self._logstd_slice = slice(offset, offset + prm.numel())
-            offset += prm.numel()
+        self.fused = FusedUpdate(self.network, clip_ratio=self.clip_ratio,
+                                 bound_coef=self.bound_coef)
+        self._logstd_slice = self.fused.logstd_slice
 
     # -- optimizer --------------------------------------------------------
     def flat_adam(self, g, p, m, v, cnt, lr):
@@ -196,6 +197,8 @@ class PPO:
         """The mini-epochs on a rollout's buffers.  Updates the network in
         place; returns (OptState, lr, per-epoch stats [mini_epochs] each of
         value_loss, actor_loss, bound_loss, entropy, kl_mean)."""
+        if self.update_backend == "fused":
+            return self._update_fused(ts, carry, buf)
         obs_last, priv_last = carry[1], carry[2]
         obs_buf, priv_buf, act_buf, mu_buf, std_buf, rew_buf, done_buf, timeout_buf = buf
         net = self.network
@@ -239,6 +242,66 @@ class PPO:
                 lr = self._adapt_lr(lr, kl_mean)
                 stats.append(torch.stack([value_loss, actor_loss, bound_loss, entropy,
                                           kl_mean]).detach())
+        return OptState(m=m, v=v, count=cnt), lr, torch.stack(stats)
+
+    @torch.no_grad()
+    def _update_fused(self, ts, carry, buf):
+        """update() through the fused kernels.  Per mini-epoch: K2 (values,
+        GAE, advantage sums), the mean and rstd of the advantages, K3
+        (gradients and metric sums), the loss statistics from the sums, K4
+        (clip, Adam, staged weights), the logstd clamp, the KL rule.
+        Nothing in the loop reads a device value on the host."""
+        obs_last, priv_last = carry[1], carry[2]
+        obs_buf, priv_buf, act_buf, mu_buf, std_buf, rew_buf, done_buf, timeout_buf = buf
+        fused, net = self.fused, self.network
+        T, B = rew_buf.shape
+        N, na = T * B, fused.num_act
+        # epoch-invariant inputs, built once
+        nonterm = 1.0 - (done_buf | timeout_buf).float()
+        timeout_f = timeout_buf.float()
+        prep = fused.prepare(obs_buf, priv_buf, act_buf, mu_buf,
+                             normal_log_prob(mu_buf, std_buf, act_buf), obs_last, priv_last)
+        std_old = std_buf[0, 0]                          # state-independent
+        p = flat_params(net)
+        m, v, cnt, lr = ts.opt.m, ts.opt.v, ts.opt.count, ts.lr
+        staged = fused.stage(p)
+        stats = []
+        for epoch in range(self.mini_epochs):
+            adv_raw, returns, s_a, s_a2 = fused.gae(
+                staged, prep["obsc"], rew_buf, nonterm, timeout_f, self.gamma, self.lam)
+            # Bessel-corrected std from the one-pass sums; K3 normalizes
+            mean = s_a / N
+            var = (s_a2 - N * mean * mean) / (N - 1)
+            rstd = 1.0 / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-8)
+            # epoch 0: K3's own forward is the old policy, kept for the rest
+            g, st, mu_out, logp_out = fused.grads_stats(
+                staged, p, prep, adv_raw, returns, mean, rstd, self_old=epoch == 0)
+            if epoch == 0:
+                prep = {**prep, "mu_old": mu_out, "old_logp": logp_out}
+
+            logstd = p[self._logstd_slice]
+            std = torch.exp(logstd)
+            value_loss = st["vl"] / N
+            actor_loss = st["al"] / N
+            bound_loss = st["bhi"] / (N * na) + st["blo"] / (N * na)
+            entropy = torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + logstd)
+            # analytic KL against the rollout policy: per-dim constants plus
+            # K3's sums of (mu_new - mu_old)^2
+            kl_mean = (torch.sum(torch.log(std / std_old)
+                                 + 0.5 * torch.square(std_old) / torch.square(std) - 0.5)
+                       + 0.5 * torch.sum(st["klsq"] / (N * torch.square(std))))
+            stats.append(torch.stack([value_loss, actor_loss, bound_loss, entropy, kl_mean]))
+
+            p, m, v, staged = fused.opt_stage(
+                g, p, m, v, cnt, lr, entropy_coef=self.entropy_coef, b1=self.adam_b1,
+                b2=self.adam_b2, eps=self.adam_eps, max_norm=self.grad_norm_clip)
+            if self.min_logstd is not None:
+                # K3 reads logstd from p, so the clamped value is what the
+                # next mini-epoch sees
+                p[self._logstd_slice].clamp_(min=self.min_logstd)
+            cnt = min(cnt + 1, 2 ** 31 - 1)
+            lr = self._adapt_lr(lr, kl_mean)
+        set_flat_params(net, p)
         return OptState(m=m, v=v, count=cnt), lr, torch.stack(stats)
 
     # -- one iteration ----------------------------------------------------

@@ -1,0 +1,400 @@
+"""The fused PPO update: K2, K3 and K4 as hand-written CUDA kernels
+(csrc/update.cu), replacing the Pallas kernels of
+booster_gym_tpu/algo/update_kernel.py.
+
+  K2  gae          critic values on the T + 1 observation planes, timeout
+                   bootstrap, the GAE recurrence, returns, sum(adv) and
+                   sum(adv^2)                       (replaces _gae_kernel)
+  K3  grads_stats  actor and critic forward, advantage normalisation, the
+                   clipped-surrogate, value and bound loss gradients, the
+                   backward through both MLPs into one flat f32 gradient,
+                   five metric sums, and the forward's mu and logp
+                                             (replaces _grads_stats_kernel)
+  K4  opt_stage    entropy gradient on logstd, global-norm clip, Adam, and
+                   the compute-type copy of the new parameters
+                                               (replaces _opt_stage_kernel)
+
+Each wrapper runs its plain PyTorch version (the *_plain method beside it)
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.  A wrapper call launches two device kernels (K2: values, then the
+time scan; K3: the tile pass, then the sum of the blocks' partials; K4: the
+norm's partial sums, then the update) and counts as one launch.
+
+No torch.autograd.Function is involved: K3 computes the backward pass
+itself, as the reference does, which has no custom_vjp around its kernel.
+
+Layouts.  Everything is batch-major.  Parameters, gradients and both Adam
+moments are flat f32 vectors in the order of ActorCritic.parameters(),
+weights [out, in] as nn.Linear keeps them.  `staged` is that vector in the
+compute type, so K4's staging is a cast and no transpose.  `prepare()`
+builds `obsc`, the [T + 1, B, num_obs + num_priv] compute-type plane of
+[obs || privileged obs] whose row T is the observation after the rollout:
+K2 reads all of it, K3 its first T * B rows, the actor its first num_obs
+columns.
+
+Roundings, in the kernels and the plain versions alike: a dense layer is
+operands in the compute type, f32 accumulation, the product rounded to the
+compute type, then the bias added in the compute type; ELU and its
+derivative are computed in f32 from the compute-type pre-activation as
+z > 0 ? z : exp(z) - 1 and z > 0 ? 1 : exp(z) and rounded back; the loss
+arithmetic is f32; dmu, dvalue and every input gradient are rounded to the
+compute type before they go on; weight gradients accumulate f32.  In f32
+mode the products are f32 FMAs, never TF32.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from booster_gym_torch import kernel_build
+
+SOURCE = "update.cu"
+_LOG2PI = math.log(2.0 * math.pi)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FUNCTIONS = {
+    "bg_update_tile": [_I],
+    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                       _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                     _P, _P, _P, _P, _P, _P],
+}
+STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
+
+
+def param_layout(network):
+    """name -> (offset, shape) of each parameter in the flat vector."""
+    out, offset = {}, 0
+    for name, prm in network.named_parameters():
+        out[name] = (offset, tuple(prm.shape))
+        offset += prm.numel()
+    return out
+
+
+class FusedUpdate:
+    """The three kernels for one ActorCritic geometry.
+
+    gae_launches, grads_stats_launches and opt_stage_launches count kernel
+    launches; each moves only where its CUDA kernel is launched."""
+
+    def __init__(self, network, clip_ratio, bound_coef):
+        self.dtype = network.actor.dtype
+        self.bf16 = int(self.dtype == torch.bfloat16)
+        self.clip_ratio = float(clip_ratio)
+        self.bound_coef = float(bound_coef)
+        self.layout = param_layout(network)
+        self.n_params = sum(int(np.prod(s)) for _, s in self.layout.values())
+        self.layers = {}
+        for net in ("actor", "critic"):
+            mlp = getattr(network, net)
+            self.layers[net] = [(self.layout[f"{net}.layers.{i}.weight"][0],
+                                 self.layout[f"{net}.layers.{i}.bias"][0],
+                                 layer.out_features, layer.in_features)
+                                for i, layer in enumerate(mlp.layers)]
+        if len(self.layers["actor"]) != 4 or len(self.layers["critic"]) != 4:
+            raise ValueError("the update kernels take MLPs of three hidden layers")
+        self.num_obs = self.layers["actor"][0][3]
+        self.num_crit = self.layers["critic"][0][3]
+        self.num_act = self.layers["actor"][3][2]
+        self.logstd_off = self.layout["logstd"][0]
+        self.logstd_slice = slice(self.logstd_off, self.logstd_off + self.num_act)
+        a, c = self.layers["actor"], self.layers["critic"]
+        self.sizes = dict(NOBS=self.num_obs, NPRIV=self.num_crit - self.num_obs,
+                          NACT=self.num_act, AH1=a[0][2], AH2=a[1][2], AH3=a[2][2],
+                          CH1=c[0][2], CH2=c[1][2], CH3=c[2][2])
+        offs = ([l[0] for l in a] + [l[1] for l in a] + [l[0] for l in c]
+                + [l[1] for l in c] + [self.logstd_off])
+        self._offs = (ctypes.c_int * 17)(*offs)
+        self.gae_launches = 0
+        self.grads_stats_launches = 0
+        self.opt_stage_launches = 0
+        self._lib = None
+        self._scratch = {}
+        self._sms = {}
+
+    # -- build ------------------------------------------------------------
+    def build(self):
+        """Build (if needed) and load the library; returns nvcc's report."""
+        path, report = kernel_build.build(SOURCE, self.sizes)
+        self._lib = kernel_build.load(path, _FUNCTIONS)
+        return report
+
+    def _library(self):
+        if self._lib is None:
+            self.build()
+        return self._lib
+
+    def _grid(self, device, rows):
+        """Blocks of a tile pass: one per SM, at most one per tile."""
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+            self._tile = self._library().bg_update_tile(self.bf16)
+        return max(1, min(self._sms[device], -(-rows // self._tile)))
+
+    def _check(self, name, t, shape, dtype=torch.float32):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, the other tensors on a CUDA device")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    @staticmethod
+    def _raise_on(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+    # -- layouts ----------------------------------------------------------
+    def stage(self, p):
+        """The flat parameter vector in the compute type (what K4 hands from
+        one mini-epoch to the next; this is mini-epoch 0's)."""
+        return p.to(self.dtype)
+
+    def prepare(self, obs, priv, act, mu_old, old_logp, obs_last, priv_last):
+        """The epoch-invariant inputs, built once per iteration: obs, priv,
+        act, mu_old [T, B, dim], old_logp [T, B], obs_last, priv_last
+        [B, dim]."""
+        obsc = torch.cat([torch.cat([obs, priv], dim=-1),
+                          torch.cat([obs_last, priv_last], dim=-1)[None]], dim=0)
+        return {"obsc": obsc.to(self.dtype).contiguous(), "act": act.contiguous(),
+                "mu_old": mu_old.contiguous(), "old_logp": old_logp.contiguous()}
+
+    def _mlp(self, staged, net):
+        """([W [out, in]], [b [out]]) views of a flat vector."""
+        Ws = [staged[w:w + o * i].view(o, i) for w, _, o, i in self.layers[net]]
+        bs = [staged[b:b + o] for _, b, o, _ in self.layers[net]]
+        return Ws, bs
+
+    # -- the shared arithmetic of the plain versions ------------------------
+    def _elu(self, z):
+        zf = z.float()
+        return torch.where(zf > 0, zf, torch.exp(zf) - 1.0).to(z.dtype)
+
+    def _elu_grad(self, z):
+        zf = z.float()
+        return torch.where(zf > 0, torch.ones_like(zf), torch.exp(zf)).to(z.dtype)
+
+    def _mlp_fwd(self, x, Ws, bs):
+        """Dense + ELU stack on x [n, in]: (layer inputs, pre-activations)."""
+        xs, zs = [x], []
+        for i, (W, b) in enumerate(zip(Ws, bs)):
+            z = (x.float() @ W.float().T).to(self.dtype) + b
+            zs.append(z)
+            if i + 1 < len(Ws):
+                x = self._elu(z)
+                xs.append(x)
+        return xs, zs
+
+    def _mlp_bwd(self, xs, zs, Ws, dz):
+        """Backward from the last layer's dz [n, out] (compute type):
+        ([dW [out, in] f32], [db [out] f32])."""
+        dWs, dbs = [None] * len(Ws), [None] * len(Ws)
+        for i in reversed(range(len(Ws))):
+            dWs[i] = dz.float().T @ xs[i].float()
+            dbs[i] = dz.float().sum(0)
+            if i > 0:
+                dh = (dz.float() @ Ws[i].float()).to(self.dtype)
+                dz = dh * self._elu_grad(zs[i - 1])
+        return dWs, dbs
+
+    # -- K2 ---------------------------------------------------------------
+    def gae(self, staged, obsc, rew, nonterm, timeout_f, gamma, lam):
+        """(adv_raw [T, B], returns [T, B], sum(adv), sum(adv^2)) from the
+        staged weights, the [T + 1, B, dim] observation plane and the [T, B]
+        f32 rewards, nonterm = 1 - (done | timeout) and timeout in {0, 1}."""
+        if staged.device.type == "cpu":
+            return self.gae_plain(staged, obsc, rew, nonterm, timeout_f, gamma, lam)
+        T, B = rew.shape
+        self._check("staged", staged, (self.n_params,), self.dtype)
+        self._check("obsc", obsc, (T + 1, B, self.num_crit), self.dtype)
+        for name, t in (("rew", rew), ("nonterm", nonterm), ("timeout_f", timeout_f)):
+            self._check(name, t, (T, B))
+        dev = staged.device
+        values = torch.empty((T + 1) * B, dtype=torch.float32, device=dev)
+        adv = torch.empty((T, B), dtype=torch.float32, device=dev)
+        ret = torch.empty((T, B), dtype=torch.float32, device=dev)
+        sums = torch.empty(2, dtype=torch.float32, device=dev)
+        err = self._library().bg_gae(
+            self.bf16, staged.data_ptr(), self._offs, obsc.data_ptr(), rew.data_ptr(),
+            nonterm.data_ptr(), timeout_f.data_ptr(), values.data_ptr(), adv.data_ptr(),
+            ret.data_ptr(), sums.data_ptr(), T, B, float(gamma), float(lam),
+            self._grid(dev, (T + 1) * B), torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "gae")
+        self.gae_launches += 1
+        return adv, ret, sums[0], sums[1]
+
+    def gae_plain(self, staged, obsc, rew, nonterm, timeout_f, gamma, lam):
+        T, B = rew.shape
+        cW, cb = self._mlp(staged, "critic")
+        _, zs = self._mlp_fwd(obsc.reshape((T + 1) * B, self.num_crit), cW, cb)
+        values = zs[-1].float()[:, 0].view(T + 1, B)
+        nextv, carry = values[T], torch.zeros_like(values[T])
+        adv, ret = torch.empty_like(rew), torch.empty_like(rew)
+        for t in reversed(range(T)):
+            v = values[t]
+            rwd = timeout_f[t] * v + (1.0 - timeout_f[t]) * rew[t]
+            delta = rwd + gamma * nonterm[t] * nextv - v
+            carry = delta + gamma * lam * nonterm[t] * carry
+            nextv = v
+            adv[t] = carry
+            ret[t] = v + carry
+        return adv, ret, adv.sum(), (adv * adv).sum()
+
+    # -- K3 ---------------------------------------------------------------
+    def grads_stats(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd, self_old):
+        """(g, stats, mu, logp): the flat f32 gradient of value loss + actor
+        loss + bound_coef * bound loss in the parameters' order (the entropy
+        term is K4's), stats = {vl, al, bhi, blo, klsq [num_act]} as sums
+        over the batch, and the forward's mu [N, num_act] and logp [N].
+
+        adv_raw and returns hold N values; the first N rows of prep's
+        tensors are read.  adv_mean and adv_rstd are 0-dim tensors.  p gives
+        logstd in f32.  self_old marks the first mini-epoch: the old policy
+        is this forward itself, so the ratio is exactly 1 and klsq exactly
+        0, and the caller keeps mu and logp as the old policy."""
+        if staged.device.type == "cpu":
+            return self.grads_stats_plain(staged, p, prep, adv_raw, returns, adv_mean,
+                                          adv_rstd, self_old)
+        n, na = adv_raw.numel(), self.num_act
+        obsc = prep["obsc"]
+        self._check("staged", staged, (self.n_params,), self.dtype)
+        self._check("p", p, (self.n_params,))
+        if obsc.numel() < n * self.num_crit or obsc.shape[-1] != self.num_crit:
+            raise ValueError(f"obsc {tuple(obsc.shape)} holds fewer than {n} rows of "
+                             f"{self.num_crit}")
+        self._check("obsc", obsc, obsc.shape, self.dtype)
+        for name, t, k in (("act", prep["act"], na), ("mu_old", prep["mu_old"], na),
+                           ("old_logp", prep["old_logp"], 1), ("adv_raw", adv_raw, 1),
+                           ("returns", returns, 1)):
+            if t.numel() != n * k:
+                raise ValueError(f"{name} must hold {n * k} values, got {t.numel()}")
+            self._check(name, t, t.shape)
+        dev = staged.device
+        norm = torch.stack([adv_mean, adv_rstd]).float()
+        self._check("adv_mean, adv_rstd", norm, (2,))
+        nblk = self._grid(dev, n)
+        stride = -(-self.n_params // 32) * 32
+        key = (dev, nblk)
+        if key not in self._scratch:
+            # the blocks' gradient partials and stat partials; every slot
+            # that is read is written first by each launch
+            self._scratch[key] = (
+                torch.empty(nblk * stride, dtype=torch.float32, device=dev),
+                torch.empty(nblk * 32, dtype=torch.float32, device=dev))
+        part, part_stats = self._scratch[key]
+        g = torch.empty(self.n_params, dtype=torch.float32, device=dev)
+        stats = torch.empty(4 + na, dtype=torch.float32, device=dev)
+        mu = torch.empty((n, na), dtype=torch.float32, device=dev)
+        logp = torch.empty(n, dtype=torch.float32, device=dev)
+        err = self._library().bg_grads_stats(
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
+            prep["act"].data_ptr(), prep["mu_old"].data_ptr(), prep["old_logp"].data_ptr(),
+            adv_raw.data_ptr(), returns.data_ptr(), norm.data_ptr(), int(bool(self_old)), n,
+            1.0 - self.clip_ratio, 1.0 + self.clip_ratio, self.bound_coef / (n * na),
+            part.data_ptr(), part_stats.data_ptr(), stride, self.n_params, g.data_ptr(),
+            stats.data_ptr(), mu.data_ptr(), logp.data_ptr(), nblk,
+            torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "grads_stats")
+        self.grads_stats_launches += 1
+        st = {k: stats[i] for i, k in enumerate(STAT_NAMES)}
+        st["klsq"] = stats[4:]
+        return g, st, mu, logp
+
+    def grads_stats_plain(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
+                          self_old):
+        n, na = adv_raw.numel(), self.num_act
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=staged.device)
+        x = prep["obsc"].reshape(-1, self.num_crit)[:n]
+        act = prep["act"].reshape(n, na)
+        aW, ab = self._mlp(staged, "actor")
+        cW, cb = self._mlp(staged, "critic")
+        xa, za = self._mlp_fwd(x[:, :self.num_obs], aW, ab)
+        xc, zc = self._mlp_fwd(x, cW, cb)
+        mu, val = za[-1].float(), zc[-1].float()[:, 0]
+
+        adv = (adv_raw.reshape(n) - adv_mean) * adv_rstd
+        ret = returns.reshape(n)
+        logstd = p[self.logstd_slice]
+        var = torch.exp(2.0 * logstd)
+        diff = act - mu
+        logp = torch.sum(-0.5 * diff * diff / var - logstd - 0.5 * _LOG2PI, dim=1)
+        if self_old:
+            old_logp, mu_old = logp, mu
+        else:
+            old_logp, mu_old = prep["old_logp"].reshape(n), prep["mu_old"].reshape(n, na)
+        ratio = torch.exp(logp - old_logp)
+        lo, hi = f32(1.0 - self.clip_ratio), f32(1.0 + self.clip_ratio)
+        one, half, zero = f32(1.0), f32(0.5), f32(0.0)
+        surr = -adv * ratio
+        surr_c = -adv * torch.minimum(torch.maximum(ratio, lo), hi)
+        # d max(s, sc)/ds: 1 where s > sc, 0.5 at ties
+        gs = torch.where(surr > surr_c, one, torch.where(surr < surr_c, zero, half))
+        # d clip(r)/dr = d min(max(r, lo), hi)/dr: 0.5 on either bound
+        cg = (torch.where(ratio > lo, one, torch.where(ratio == lo, half, zero))
+              * torch.where(ratio < hi, one, torch.where(ratio == hi, half, zero)))
+        inv_n = one / n
+        dlogp = ((gs + (1.0 - gs) * cg) * (-adv) * inv_n * ratio)[:, None]
+        dmu = dlogp * diff / var
+        dlogstd = torch.sum(dlogp * (diff * diff / var - 1.0), dim=0)
+        b_hi = torch.clamp(mu - 1.0, min=0.0)
+        b_lo = torch.clamp(mu + 1.0, max=0.0)
+        dmu = dmu + (2.0 * b_hi + 2.0 * b_lo) * (self.bound_coef / (n * na))
+        dval = 2.0 * (val - ret) * inv_n
+        stats = {"vl": torch.sum(torch.square(val - ret)),
+                 "al": torch.sum(torch.maximum(surr, surr_c)),
+                 "bhi": torch.sum(torch.square(b_hi)), "blo": torch.sum(torch.square(b_lo)),
+                 "klsq": torch.sum(torch.square(mu - mu_old), dim=0)}
+
+        g = torch.zeros(self.n_params, dtype=torch.float32, device=staged.device)
+        for net, xs, zs, Ws, dz in (("actor", xa, za, aW, dmu.to(self.dtype)),
+                                    ("critic", xc, zc, cW, dval.to(self.dtype)[:, None])):
+            dWs, dbs = self._mlp_bwd(xs, zs, Ws, dz)
+            for (w, b, o, i), dW, db in zip(self.layers[net], dWs, dbs):
+                g[w:w + o * i] = dW.reshape(-1)
+                g[b:b + o] = db
+        g[self.logstd_slice] = dlogstd
+        return g, stats, mu, logp
+
+    # -- K4 ---------------------------------------------------------------
+    def opt_stage(self, g, p, m, v, cnt, lr, entropy_coef, b1, b2, eps, max_norm):
+        """One optimizer step on the flat vectors: the entropy gradient
+        (entropy_coef per logstd dim) added before the global-norm clip,
+        then Adam with optax's formulas at step cnt + 1.  lr is a 0-dim
+        tensor, read on the device.  Returns new tensors (p', m', v',
+        staged'); staged' is p' in the compute type."""
+        if g.device.type == "cpu":
+            return self.opt_stage_plain(g, p, m, v, cnt, lr, entropy_coef, b1, b2, eps,
+                                        max_norm)
+        for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+            self._check(name, t, (self.n_params,))
+        self._check("lr", lr, ())
+        dev = g.device
+        p2, m2, v2 = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+        staged = torch.empty(self.n_params, dtype=self.dtype, device=dev)
+        part = torch.empty(64, dtype=torch.float32, device=dev)
+        err = self._library().bg_opt_stage(
+            self.bf16, g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), lr.data_ptr(),
+            int(cnt), self.logstd_off, self.n_params, float(entropy_coef), float(b1),
+            1.0 - b1, float(b2), 1.0 - b2, math.log(b1), math.log(b2), float(eps),
+            float(max_norm), part.data_ptr(), p2.data_ptr(), m2.data_ptr(), v2.data_ptr(),
+            staged.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "opt_stage")
+        self.opt_stage_launches += 1
+        return p2, m2, v2, staged
+
+    def opt_stage_plain(self, g, p, m, v, cnt, lr, entropy_coef, b1, b2, eps, max_norm):
+        g = g.clone()
+        g[self.logstd_slice] += entropy_coef
+        g_norm = torch.sqrt(torch.sum(g * g))
+        g = g * torch.where(g_norm < max_norm, torch.ones_like(g_norm), max_norm / g_norm)
+        cnt2 = torch.tensor(float(cnt + 1), dtype=torch.float32, device=g.device)
+        bc1 = 1.0 - torch.exp(cnt2 * math.log(b1))
+        bc2 = 1.0 - torch.exp(cnt2 * math.log(b2))
+        m2 = b1 * m + (1.0 - b1) * g
+        v2 = b2 * v + (1.0 - b2) * (g * g)
+        p2 = p + (-lr) * ((m2 / bc1) / (torch.sqrt(v2 / bc2) + eps))
+        return p2, m2, v2, p2.to(self.dtype)

@@ -1,4 +1,4 @@
-"""Carry weights and env state across from the JAX package.
+"""Carry weights, optimizer state and env state across from the JAX package.
 
 Inputs are the JAX package's objects with their leaves already turned
 into numpy arrays (for example `jax.tree.map(np.asarray, x)`); this module
@@ -34,6 +34,47 @@ def params_from_flax(tree, num_layers=(4, 4)):
                 np.asarray(layer["bias"], np.float32).copy())
     out["logstd"] = torch.as_tensor(np.asarray(p["logstd"], np.float32).copy())
     return out
+
+
+def flat_from_flax(network, tree):
+    """A flax-shaped tree (params, gradients or an Adam moment) as one f32
+    vector in the order of network.parameters()."""
+    sd = params_from_flax(tree)
+    return torch.cat([sd[name].reshape(-1) for name, _ in network.named_parameters()])
+
+
+def _leaf_names(network):
+    """The parameter name of each leaf of the JAX fused update's canonical
+    list: aW0.., ab0.., cW0.., cb0.., logstd."""
+    names = []
+    for net in ("actor", "critic"):
+        n = len(getattr(network, net).layers)
+        names += [f"{net}.layers.{i}.weight" for i in range(n)]
+        names += [f"{net}.layers.{i}.bias" for i in range(n)]
+    return names + ["logstd"]
+
+
+def flat_from_leaves(network, leaves):
+    """The JAX fused update's canonical leaf list (FusedUpdate.param_leaves:
+    weights [in, out], biases [out, 1], logstd [num_act, 1]; params,
+    gradients or an Adam moment, as numpy arrays) -> one f32 vector in the
+    order of network.parameters()."""
+    by_name = {}
+    for name, leaf in zip(_leaf_names(network), leaves, strict=True):
+        leaf = np.asarray(leaf, np.float32)
+        by_name[name] = leaf.T if name.endswith("weight") else leaf.reshape(-1)
+    return torch.cat([torch.as_tensor(by_name[name].copy()).reshape(-1)
+                      for name, _ in network.named_parameters()])
+
+
+def leaves_from_flat(network, flat):
+    """Inverse of flat_from_leaves: the canonical leaf list as numpy arrays."""
+    by_name, offset = {}, 0
+    for name, prm in network.named_parameters():
+        by_name[name] = flat[offset:offset + prm.numel()].detach().cpu().numpy().reshape(prm.shape)
+        offset += prm.numel()
+    return [by_name[name].T.copy() if name.endswith("weight") else by_name[name].reshape(-1, 1)
+            for name in _leaf_names(network)]
 
 
 def sim_state_from_jax(sim, device):

@@ -2,8 +2,8 @@
 
 csrc/substep.cu replaces the JAX package's Pallas kernel
 (physics/pallas_engine.py, make_substep_pallas(plane=True)).  This module
-builds it with nvcc into a shared library with a plain C interface, loads
-it with ctypes and wraps it.  Layout at the kernel: every tensor is
+wraps it; kernel_build.py builds it with nvcc into a shared library with a
+plain C interface and loads it with ctypes.  Layout at the kernel: every tensor is
 component-major [comp, B] f32:
 
     state  [13 + 2 nd, B]  root_pos(3) root_quat(4) root_lin_vel(3)
@@ -18,22 +18,16 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import numpy as np
 import torch
 
+from booster_gym_torch import kernel_build
 from booster_gym_torch.physics import engine
 from booster_gym_torch.physics.types import SimState
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "substep.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = "substep.cu"
+CSRC = kernel_build.source_path(SOURCE)
 
 
 def model_tables(model, cfg, feet_indices):
@@ -63,52 +57,6 @@ def model_tables(model, cfg, feet_indices):
 def kernel_sizes(model, feet_indices):
     return dict(NB=model.num_bodies, ND=model.num_dofs, NPT=model.num_points,
                 NS=len(model.shape_body), NF=len(feet_indices))
-
-
-def library_path(sizes):
-    """Build output for these sizes; the name carries the sizes and a hash
-    of the source, so a changed source never loads an old library."""
-    with open(CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:10]
-    tag = "_".join(f"{k.lower()}{v}" for k, v in sizes.items())
-    return os.path.join(BUILD_DIR, f"substep_{tag}_{digest}.so")
-
-
-def start_build(sizes):
-    """Start nvcc for these sizes; returns (path, proc, tmp), proc None if
-    the library is already built.  Several builds may run at once; each
-    writes a temporary file that finish_build renames into place."""
-    path = library_path(sizes)
-    if os.path.exists(path):
-        return path, None, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *[f"-D{k}={v}" for k, v in sizes.items()],
-           "-o", tmp, CSRC]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return path, proc, tmp
-
-
-def finish_build(path, proc, tmp):
-    """Wait for a build from start_build; returns nvcc's output (the
-    -Xptxas -v register and spill report).  Raises if nvcc failed."""
-    if proc is None:
-        return ""
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {path}:\n{out}")
-    os.replace(tmp, path)
-    return out
-
-
-def load_library(path):
-    lib = ctypes.CDLL(path)
-    fn = lib.bg_substep
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 class SubstepKernel:
@@ -169,9 +117,9 @@ class SubstepKernel:
     # -- kernel ---------------------------------------------------------
     def build(self):
         """Build (if needed) and load the library; returns nvcc's report."""
-        path, proc, tmp = start_build(self.sizes)
-        report = finish_build(path, proc, tmp)
-        self._lib = load_library(path)
+        path, report = kernel_build.build(SOURCE, self.sizes)
+        self._lib = kernel_build.load(path, {
+            "bg_substep": [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]})
         return report
 
     def _check(self, name, t, rows, B):

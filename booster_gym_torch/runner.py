@@ -77,11 +77,20 @@ class Runner:
             "curriculum": cpu(ts.env_state.curriculum_prob),
         }
 
+    def _kernel_launches(self):
+        fused = self.ppo.fused
+        return {"substep_kernel_launches": self.env.substep.launches,
+                "gae_launches": fused.gae_launches,
+                "grads_stats_launches": fused.grads_stats_launches,
+                "opt_stage_launches": fused.opt_stage_launches}
+
     def train(self):
         """Run max_iterations train iterations; returns one record per
         iteration (metrics as floats plus rollout_ms, update_ms, iter_ms,
-        env_steps_per_sec and substep_kernel_launches, the CUDA substep
-        kernel's launches in the iteration: 0 on the CPU)."""
+        env_steps_per_sec and the CUDA kernels' launches in the iteration,
+        all 0 on the CPU: substep_kernel_launches for K1, and gae_launches,
+        grads_stats_launches and opt_stage_launches for the fused update's
+        K2, K3 and K4)."""
         recorder = Recorder(self.cfg)
         env_params, ts = self.ppo.init(self.gen)
         max_iterations = self.cfg["basic"]["max_iterations"]
@@ -90,7 +99,7 @@ class Runner:
         records = []
         for it in range(max_iterations):
             timer = _Timer(self.device)
-            launches0 = self.env.substep.launches
+            launches0 = self._kernel_launches()
             ts, metrics = self.ppo.train_iteration(env_params, ts, self.gen, timer)
             names = list(metrics)
             values = torch.stack([metrics[k].float() for k in names]).tolist()
@@ -99,7 +108,8 @@ class Runner:
             rec["update_ms"] = timer.ms("update", "end")
             rec["iter_ms"] = timer.ms("rollout", "end")
             rec["env_steps_per_sec"] = steps_per_iter / (rec["iter_ms"] / 1e3)
-            rec["substep_kernel_launches"] = self.env.substep.launches - launches0
+            for name, count in self._kernel_launches().items():
+                rec[name] = count - launches0[name]
             records.append(rec)
             if not all(np.isfinite(v) for v in values):
                 bad = [k for k, v in zip(names, values) if not np.isfinite(v)]

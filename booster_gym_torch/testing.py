@@ -1,5 +1,5 @@
-"""Robots built in code and the main path's configuration, for the tests,
-chip_smoke.py and profile_iteration.py only.
+"""Robots built in code, update inputs made from a seed and the main path's
+configuration, for the tests, chip_smoke.py and profile_iteration.py only.
 
 The training path never imports this module.  The vendor T1 URDF
 (resources/T1/T1_locomotion.urdf) is not in the repository, so the port's
@@ -162,16 +162,78 @@ def toy_model():
 
 def main_path_cfg(urdf):
     """The T1 task config of the port's main path on the stand-in robot at
-    `urdf`: flat terrain, 4096 envs, update_backend xla, seed 0, 3
-    iterations; horizon 24 and 20 mini-epochs as T1.yaml has them."""
+    `urdf`: flat terrain, 4096 envs, seed 0, 3 iterations; horizon 24, 20
+    mini-epochs and update_backend fused as T1.yaml has them."""
     cfg = load_task_cfg("T1")
     cfg["env"]["num_envs"] = 4096
     cfg["terrain"]["type"] = "plane"
     cfg["asset"]["file"] = urdf
-    cfg["algorithm"]["update_backend"] = "xla"
     cfg["basic"]["max_iterations"] = 3
     cfg["basic"]["seed"] = 0
     return cfg
+
+
+def update_inputs(network, T, B, device, seed):
+    """A rollout's buffers for the PPO update, made with numpy from a seed
+    and moved to `device`: buf = (obs, priv, act, mu, std, rew, done,
+    timeout) at [T, B, ...] with actions drawn around the network's policy,
+    the observation after the rollout, and raw advantages and returns for
+    a gradient pass taken on its own."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32), device=device)
+    no = network.actor.layers[0].in_features
+    npriv = network.critic.layers[0].in_features - no
+    na = network.actor.layers[-1].out_features
+    obs, priv = f32(T, B, no), f32(T, B, npriv)
+    with torch.no_grad():
+        mu, std = network.act(obs)
+    act = mu + std * f32(T, B, na)
+    done = torch.as_tensor(rng.random((T, B)) < 0.05, device=device)
+    timeout = torch.as_tensor(rng.random((T, B)) < 0.05, device=device)
+    buf = (obs, priv, act, mu, std.contiguous(), f32(T, B), done, timeout)
+    return {"buf": buf, "obs_last": f32(B, no), "priv_last": f32(B, npriv),
+            "adv": 0.3 + 2.0 * f32(T, B), "ret": f32(T, B)}
+
+
+def update_case(compute_dtype, T, B, device, seed=0):
+    """One gradient-pass case for K2-K4 against their plain versions:
+    (FusedUpdate, flat params p, staged, prep, inputs of update_inputs).
+
+    The network is drawn from the seed.  The old policy sits a little off
+    the current one, with the importance ratios spread over [0.6, 0.75],
+    [0.85, 1.15] and [1.25, 1.4]: below, inside and above the clip range,
+    and at least 0.05 from its bounds, where the clip's gradient jumps and
+    one sample's rounding would move a visible share of the gradient."""
+    import torch
+
+    from booster_gym_torch.algo.networks import ActorCritic
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.algo.update_kernel import FusedUpdate
+
+    gen = torch.Generator().manual_seed(seed)
+    net = ActorCritic(12, 47, 14, compute_dtype=compute_dtype)
+    net.reset_parameters(gen)
+    with torch.no_grad():
+        net.logstd.add_(0.1 * torch.randn(net.logstd.shape, generator=gen))
+    net = net.to(device)
+    fused = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
+    p = flat_params(net)
+    staged = fused.stage(p)
+    d = update_inputs(net, T, B, device, seed=seed + 1)
+    obs, priv, act, mu, std = d["buf"][:5]
+    prep = fused.prepare(obs, priv, act, mu + 0.02, torch.zeros((T, B), device=device),
+                         d["obs_last"], d["priv_last"])
+    zero = torch.zeros((), device=device)
+    logp = fused.grads_stats_plain(staged, p, prep, d["adv"], d["ret"], zero, zero + 1.0,
+                                   True)[3]
+    rng = np.random.default_rng(seed + 2)
+    band = rng.integers(0, 3, T * B)
+    ratio = (np.array([0.6, 0.85, 1.25])[band]
+             + np.array([0.15, 0.3, 0.15])[band] * rng.random(T * B)).astype(np.float32)
+    prep["old_logp"] = (logp - torch.log(torch.as_tensor(ratio, device=device))).view(T, B)
+    return fused, p, staged, prep, d
 
 
 def card_line():

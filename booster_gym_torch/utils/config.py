@@ -1,9 +1,8 @@
 """Config loading and CLI overrides (port of
 booster_gym_tpu/utils/config.py plus --device and --asset_file).
 
-The port reads its own copy of envs/configs/<task>.yaml.  build_cfg sets
-algorithm.update_backend to "xla": the fused update (K2-K4) is not ported,
-and PPO raises on any other value.
+The port reads its own copy of envs/configs/<task>.yaml, and follows its
+algorithm.update_backend (T1.yaml: fused) as the JAX package does.
 """
 
 import argparse
@@ -48,6 +47,5 @@ def build_cfg(args):
         cfg["terrain"]["type"] = args.terrain
     if getattr(args, "asset_file", None) is not None:
         cfg["asset"]["file"] = args.asset_file
-    cfg["algorithm"]["update_backend"] = "xla"
     cfg["basic"]["task"] = args.task
     return cfg

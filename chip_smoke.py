@@ -5,18 +5,26 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); CUDA must be available;
-  2. build the CUDA substep kernel K1 (csrc/substep.cu) for the toy robot
-     and the T1-shaped robot, the two nvcc runs in parallel;
-  3. K1 against its plain PyTorch version on the card, both robots, B = 4096
-     and B = 1000 (a ragged last block), several substeps;
+  2. build the CUDA kernels, the nvcc runs in parallel: the substep kernel
+     K1 (csrc/substep.cu) for the toy robot and the T1-shaped robot, and the
+     fused update's K2, K3 and K4 (csrc/update.cu);
+  3. each kernel against its plain PyTorch version on the card: K1 on both
+     robots at B = 4096 and B = 1000 (a ragged last block), several
+     substeps; K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
+     (N = 98,304) and B = 1000 (ragged tiles), K3 and K4 launched twice to
+     show that they repeat bitwise; then the whole fused update() against
+     the xla (autograd) update() from the same parameters and rollout
+     buffers, f32, 3 mini-epochs;
   4. the main path: booster_gym_torch.train's Runner on flat T1 (the
      T1-shaped stand-in URDF), 4096 envs, horizon 24, 20 mini-epochs,
-     update_backend xla, 3 iterations; K1's launch count must be 24 x 10 per
-     iteration;
+     update_backend fused as T1.yaml has it, 3 iterations; per iteration
+     K1 must be launched 24 x 10 times and K2, K3 and K4 20 times each.  Then
+     the xla update on the same configuration, 2 iterations, for its times
+     beside the fused path's from the same run;
   5. one control step of the env on the card against the same step on the
      CPU (plain substep) from the same state, a small batch;
-  6. K1's time per substep at 4096 envs beside its bound and the plain
-     version's time, printed as a `kernels` JSON line.
+  6. each kernel's time at the main path's shapes beside its bound and the
+     plain version's time, printed as a `kernels` JSON line.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -37,8 +45,24 @@ TOL_STATE = 2e-3
 TOL_FORCE_RTOL, TOL_FORCE_ATOL = 5e-2, 1.0
 TOL_ENV = 2e-3
 
+# K2-K4 against their plain versions, as relative errors of the norm.  f32:
+# the same products summed in another order.  bf16: both round to bf16 at the
+# same places, and another f32 summation order lands some values one bf16
+# ulp (2^-8 relative) apart; the gradient agrees to 2.5 ulps of its norm.
+# K4 is elementwise in f32 after one norm: rtol 1e-5 / atol 1e-7, the JAX
+# package's tolerance for its optimizer kernel; its staged copy is bitwise.
+TOL_UPDATE = {"f32": dict(val=2e-4, grad=1e-4, stat=1e-4),
+              "bf16": dict(val=2.0 ** -7, grad=2.5 * 2.0 ** -8, stat=1e-2)}
+TOL_K4_RTOL, TOL_K4_ATOL = 1e-5, 1e-7
+# fused update() against the xla update(), f32: the CPU test's tolerances
+TOL_PARAM_RTOL, TOL_PARAM_ATOL, TOL_STAT_RTOL, TOL_STAT_ATOL = 1e-4, 1e-6, 1e-4, 1e-6
+
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM
 H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12    # bf16 tensor cores, dense: what K2's and K3's
+                                # bf16 products could use
+ADAM = dict(entropy_coef=-0.01, b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+GAMMA, LAM = 0.995, 0.95
 
 
 def log(*args):
@@ -199,6 +223,208 @@ def to_device(obj, device):
     return obj
 
 
+def rel_err(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def gae_inputs(d):
+    rew, done, timeout = d["buf"][5:]
+    return rew, 1.0 - (done | timeout).float(), timeout.float()
+
+
+def adam_inputs(p, seed):
+    import torch
+
+    gen = torch.Generator(device=p.device).manual_seed(seed)
+    rand = lambda scale: scale * torch.randn(p.shape, generator=gen, device=p.device)
+    return rand(0.3), rand(1e-2), rand(1e-3).abs(), torch.tensor(1e-3, device=p.device)
+
+
+def compare_update_kernels(dtype, B, T=24):
+    """K2, K3 (both old-policy modes) and K4 against their plain versions
+    on the card at [T, B].  Returns {kernel: max abs error}."""
+    import torch
+
+    from booster_gym_torch.testing import update_case
+
+    tol = TOL_UPDATE[dtype]
+    tag = f"{dtype} N={T * B}"
+    fused, p, staged, prep, d = update_case(dtype, T, B, "cuda", seed=B)
+    worst = {}
+
+    rew, nonterm, tf = gae_inputs(d)
+    out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+    ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(out, ref)]
+    log(f"  K2 {tag}: rel err adv {errs[0]:.2e} returns {errs[1]:.2e} (tol {tol['val']:.1e}) "
+        f"sum {errs[2]:.2e} sum^2 {errs[3]:.2e} (tol {tol['stat']:.1e})")
+    require(max(errs[:2]) <= tol["val"] and max(errs[2:]) <= tol["stat"],
+            f"K2 disagrees with its plain version ({tag})")
+    worst["K2"] = max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2]))
+
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    worst["K3"] = 0.0
+    for self_old in (False, True):
+        args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, self_old)
+        g, st, mu, logp = fused.grads_stats(*args)
+        g2, st2, _, _ = fused.grads_stats(*args)
+        g_p, st_p, mu_p, logp_p = fused.grads_stats_plain(*args)
+        torch.cuda.synchronize()
+        rerun = float((g - g2).abs().max())
+        e_g = max(rel_err(g[w:w + o * i], g_p[w:w + o * i])
+                  for net in ("actor", "critic") for w, _, o, i in fused.layers[net])
+        e_b = max(rel_err(g[b:b + o], g_p[b:b + o])
+                  for net in ("actor", "critic") for _, b, o, _ in fused.layers[net])
+        e_ls = rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice])
+        e_mu, e_lp = rel_err(mu, mu_p), rel_err(logp, logp_p)
+        # the actor-loss sum cancels (normalised advantages, and with
+        # self_old the ratio is 1), so it is held to a share of sum |terms|
+        e_st = max((abs(float(st[k]) - float(st_p[k]))
+                    - (1e-2 * tol["stat"] * T * B if k == "al" else 1e-6))
+                   / max(abs(float(st_p[k])), 1e-30) for k in ("vl", "al", "bhi", "blo"))
+        kl = float(st["klsq"].abs().max()) if self_old else rel_err(st["klsq"], st_p["klsq"])
+        log(f"  K3 {tag} self_old={int(self_old)}: rel err per leaf: weights {e_g:.2e} biases "
+            f"{e_b:.2e} (tol {tol['grad']:.1e}) dlogstd {e_ls:.2e}; mu {e_mu:.2e} logp "
+            f"{e_lp:.2e} (tol {tol['val']:.1e}); sums, past their atol, {max(e_st, 0.0):.2e} "
+            f"(tol {tol['stat']:.1e}); "
+            f"klsq {'max abs' if self_old else 'rel err'} {kl:.2e}; run-to-run max abs "
+            f"diff {rerun:.1e}")
+        require(max(e_g, e_b) <= tol["grad"] and e_ls <= 10 * tol["grad"]
+                and e_mu <= tol["val"] and e_lp <= 10 * tol["val"] and e_st <= tol["stat"],
+                f"K3 disagrees with its plain version ({tag}, self_old={self_old})")
+        require(kl == 0.0 if self_old else kl <= 10 * tol["stat"], f"K3 klsq ({tag})")
+        require(rerun == 0.0, f"K3 does not repeat bitwise ({tag})")
+        worst["K3"] = max(worst["K3"], float((g - g_p).abs().max()))
+
+    gr, m, v, lr = adam_inputs(p, seed=B)
+    out = fused.opt_stage(gr, p, m, v, 7, lr, **ADAM)
+    out2 = fused.opt_stage(gr, p, m, v, 7, lr, **ADAM)
+    ref = fused.opt_stage_plain(gr, p, m, v, 7, lr, **ADAM)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(out[:3], ref[:3])]
+    ok = all(bool(((a - b).abs() <= TOL_K4_ATOL + TOL_K4_RTOL * b.abs()).all())
+             for a, b in zip(out[:3], ref[:3]))
+    rerun = max(float((a - b).abs().max()) for a, b in zip(out[:3], out2[:3]))
+    staged_ok = bool(torch.equal(out[3], out[0].to(fused.dtype)))
+    log(f"  K4 {tag.split()[0]} n={fused.n_params}: max abs p {errs[0]:.2e} m {errs[1]:.2e} v "
+        f"{errs[2]:.2e} (tol rtol {TOL_K4_RTOL}/atol {TOL_K4_ATOL}); staged is the cast "
+        f"bitwise: {staged_ok}; run-to-run max abs diff {rerun:.1e}")
+    require(ok and staged_ok and rerun == 0.0, f"K4 disagrees with its plain version ({tag})")
+    worst["K4"] = max(errs)
+    return worst
+
+
+def compare_fused_with_xla(urdf, mini_epochs=3):
+    """The whole fused update() against the xla update() on the card, f32,
+    from the same parameters, Adam state and rollout buffers."""
+    import types
+
+    import torch
+
+    from booster_gym_torch.algo.ppo import PPO, OptState, flat_params
+    from booster_gym_torch.testing import main_path_cfg, update_inputs
+
+    env = types.SimpleNamespace(num_actions=12, num_obs=47, num_privileged_obs=14)
+    out = {}
+    for backend in ("fused", "xla"):
+        cfg = main_path_cfg(urdf)
+        cfg["algorithm"].update(update_backend=backend, compute_dtype="f32")
+        cfg["runner"]["mini_epochs"] = mini_epochs
+        ppo = PPO(env, cfg, "cuda")
+        ppo.network.reset_parameters(torch.Generator(device="cuda").manual_seed(11))
+        d = update_inputs(ppo.network, 24, 4096, "cuda", seed=12)
+        _, m, v, lr = adam_inputs(flat_params(ppo.network), seed=13)
+        ts = types.SimpleNamespace(opt=OptState(m=m.abs() * 0.1, v=v * 0.01, count=7), lr=lr)
+        opt, lr2, stats = ppo.update(ts, (None, d["obs_last"], d["priv_last"]), d["buf"])
+        torch.cuda.synchronize()
+        out[backend] = (flat_params(ppo.network), opt, lr2, stats)
+        if backend == "fused":
+            require(ppo.fused.grads_stats_launches == mini_epochs, "fused update launches")
+    (p_f, opt_f, lr_f, st_f), (p_x, opt_x, lr_x, st_x) = out["fused"], out["xla"]
+    dp, ds = (p_f - p_x).abs(), (st_f - st_x).abs()
+    ok_p = bool((dp <= TOL_PARAM_ATOL + TOL_PARAM_RTOL * p_x.abs()).all())
+    ok_s = bool((ds <= TOL_STAT_ATOL + TOL_STAT_RTOL * st_x.abs()).all())
+    log(f"fused update() vs xla update() on the card (f32, N=98304, {mini_epochs} mini-epochs): "
+        f"params max abs {float(dp.max()):.2e} (rtol {TOL_PARAM_RTOL}/atol {TOL_PARAM_ATOL}) "
+        f"{'ok' if ok_p else 'FAIL'}; statistics max abs {float(ds.max()):.2e} (rtol "
+        f"{TOL_STAT_RTOL}/atol {TOL_STAT_ATOL}) {'ok' if ok_s else 'FAIL'}; lr {float(lr_f):.6g} "
+        f"vs {float(lr_x):.6g}; count {opt_f.count} vs {opt_x.count}")
+    require(ok_p and ok_s and float(lr_f) == float(lr_x) and opt_f.count == opt_x.count == 10,
+            "the fused update disagrees with the xla update on the card")
+
+
+def update_bounds(fused, T, B):
+    """{kernel: (bytes, operations)} of one call at [T, B]: each input read
+    once, each output written once; a multiply-add is 2 operations."""
+    n, rows = T * B, (T + 1) * B
+    ct = 2 if fused.bf16 else 4
+    macs = {net: [o * i for _, _, o, i in fused.layers[net]] for net in ("actor", "critic")}
+    n_net = {net: sum(o * i + o for _, _, o, i in fused.layers[net]) for net in macs}
+    na, nc = fused.num_act, fused.num_crit
+    k2_bytes = rows * nc * ct + 3 * n * 4 + n_net["critic"] * ct + 2 * n * 4 + 8
+    k2_ops = rows * 2 * sum(macs["critic"])
+    k3_bytes = (n * nc * ct + 2 * n * na * 4 + 3 * n * 4 + 8 + fused.n_params * ct + na * 4
+                + fused.n_params * 4 + (4 + na) * 4 + n * na * 4 + n * 4)
+    # forward, weight gradient, and input gradient of every layer but the first
+    k3_ops = n * 2 * sum(3 * sum(m) - m[0] for m in macs.values())
+    k4_bytes = fused.n_params * (4 * 4 + 3 * 4 + ct) + 4
+    k4_ops = fused.n_params * 20
+    return {"K2": (k2_bytes, k2_ops), "K3": (k3_bytes, k3_ops), "K4": (k4_bytes, k4_ops)}
+
+
+def time_update_kernels(card, launches, max_err):
+    """K2-K4 at the main path's shapes (bf16, T = 24, B = 4096): time per
+    call beside the plain version's and the bound.  Returns the `kernels`
+    entries."""
+    import torch
+
+    from booster_gym_torch.testing import update_case
+
+    T, B = 24, 4096
+    fused, p, staged, prep, d = update_case("bf16", T, B, "cuda", seed=1)
+    rew, nonterm, tf = gae_inputs(d)
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    gr, m, v, lr = adam_inputs(p, seed=2)
+    calls = {
+        "K2": (lambda f: f(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
+               fused.gae, fused.gae_plain),
+        "K3": (lambda f: f(staged, p, prep, d["adv"], d["ret"], mean, rstd, False),
+               fused.grads_stats, fused.grads_stats_plain),
+        "K4": (lambda f: f(gr, p, m, v, 7, lr, **ADAM), fused.opt_stage, fused.opt_stage_plain),
+    }
+    meta = {"K2": ("K2 gae (values + GAE)", "booster_gym_tpu/algo/update_kernel.py:217"),
+            "K3": ("K3 grads_stats (gradients + metric sums)",
+                   "booster_gym_tpu/algo/update_kernel.py:381"),
+            "K4": ("K4 opt_stage (clip + Adam + staging)",
+                   "booster_gym_tpu/algo/update_kernel.py:488")}
+    bounds = update_bounds(fused, T, B)
+    entries = []
+    for k, (call, kernel, plain) in calls.items():
+        ms = time_cuda(lambda: call(kernel), 20)
+        plain_ms = time_cuda(lambda: call(plain), 5)
+        nbytes, nops = bounds[k]
+        peak = H100_F32_OPS_PER_S if k == "K4" else H100_BF16_OPS_PER_S
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / peak * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        log(f"{k} at N={T * B} bf16 [{card}]: {ms:.4f} ms/call; plain version {plain_ms:.3f} "
+            f"ms; bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} "
+            f"us at 3.35 TB/s, {nops / 1e9:.3f} Gop -> {t_ops * 1e3:.2f} us at "
+            f"{'67 TFLOP/s f32' if k == 'K4' else '989 TFLOP/s bf16 tensor cores'}); "
+            f"library: none")
+        entries.append({
+            "name": meta[k][0], "route": "cuda", "source": "booster_gym_torch/csrc/update.cu",
+            "replaces": meta[k][1], "launches": launches[k], "max_abs_err": max_err[k],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
+    return entries
+
+
 # ---------------------------------------------------------------------------
 def main():
     if not os.path.isdir(os.path.join(ROOT, "booster_gym_torch")):
@@ -214,6 +440,9 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from booster_gym_torch import kernel_build
+    from booster_gym_torch.algo import update_kernel
+    from booster_gym_torch.algo.networks import ActorCritic
     from booster_gym_torch.model import load_urdf
     from booster_gym_torch.physics import SimConfig
     from booster_gym_torch.physics import substep_kernel as sk
@@ -233,7 +462,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build K1 -----------------------------------------------------
+    # -- 2. build the kernels, every nvcc at once ---------------------------
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     urdf = write_t1_shaped_urdf(workdir)
     models = {"toy": toy_model(), "t1": load_urdf(urdf, cylinder_rim_points=4)}
@@ -243,16 +472,21 @@ def main():
         feet = [i for i, n in enumerate(model.body_names) if "foot" in n]
         kernels[name] = sk.SubstepKernel(model, cfg, feet, "cuda")
         plains[name] = make_substep(model, cfg, feet, "cuda")
+    update_sizes = update_kernel.FusedUpdate(ActorCritic(12, 47, 14), 0.2, 10.0).sizes
     t0 = time.perf_counter()
-    builds = {n: sk.start_build(k.sizes) for n, k in kernels.items()}
+    builds = {f"K1 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
+              for n, k in kernels.items()}
+    builds["K2-K4"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
     for name, (path, proc, tmp) in builds.items():
-        report = sk.finish_build(path, proc, tmp)
-        log(f"built K1 for {name}: {os.path.basename(path)}")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                log(f"  ptxas: {line.strip()}")
-        kernels[name].build()   # loads the library just built
-    log(f"K1 build: {time.perf_counter() - t0:.1f} s (set-up)")
+        report = kernel_build.finish_build(path, proc, tmp)
+        log(f"built {name}: {os.path.basename(path)}")
+        lines = report.splitlines()
+        for i, line in enumerate(lines):
+            if "registers" in line:
+                log(f"  ptxas: {lines[i - 1].strip()}; {line.strip().replace('ptxas info    : ', '')}")
+    for k in kernels.values():
+        k.build()   # loads the library just built
+    log(f"kernel builds: {time.perf_counter() - t0:.1f} s (set-up)")
 
     # -- 3. K1 against its plain version -----------------------------------
     max_err = 0.0
@@ -262,37 +496,79 @@ def main():
                                                   models[name], B))
     log(f"K1 matches its plain version: max abs err {max_err:.3e}")
 
+    # -- 3b. K2-K4 against their plain versions, then the whole update -----
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 products
+    update_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    for dtype in ("bf16", "f32"):
+        for B in (4096, 1000):
+            for k, e in compare_update_kernels(dtype, B).items():
+                update_err[k] = max(update_err[k], e)
+    log("K2, K3 and K4 match their plain versions: max abs err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in update_err.items()))
+    compare_fused_with_xla(urdf)
+
     # -- 4. main path ----------------------------------------------------
     tcfg = main_path_cfg(urdf)
     horizon, mini_epochs = tcfg["runner"]["horizon_length"], tcfg["runner"]["mini_epochs"]
-    if (horizon, mini_epochs) != (24, 20):
-        raise AssertionError(f"T1.yaml horizon/mini-epochs are {horizon}/{mini_epochs}")
+    if (horizon, mini_epochs) != (24, 20) or tcfg["algorithm"]["update_backend"] != "fused":
+        raise AssertionError(f"T1.yaml horizon/mini-epochs/update are {horizon}/{mini_epochs}/"
+                             f"{tcfg['algorithm']['update_backend']}")
     os.chdir(workdir)   # run logs and checkpoints go to the scratch directory
     runner = Runner(tcfg, device="cuda")
+    fused = runner.ppo.fused
     runner.env.substep.launches = 0
+    fused.gae_launches = fused.grads_stats_launches = fused.opt_stage_launches = 0
     records = runner.train()
     torch.cuda.synchronize()
-    launches = runner.env.substep.launches
-    expect = 3 * horizon * runner.env.decimation
-    for rec in records:
-        bad = [k for k, v in rec.items() if not np.isfinite(v)]
-        if bad:
-            raise AssertionError(f"non-finite metrics: {bad}")
-        log(f"main path [{card}] iter: {rec['iter_ms']:.2f} ms (rollout "
-            f"{rec['rollout_ms']:.2f} ms, update {rec['update_ms']:.2f} ms), "
-            f"{rec['env_steps_per_sec']:,.0f} env-steps/s, reward {rec['reward']:.4f}, "
-            f"value_loss {rec['value_loss']:.4f}, kl {rec['kl_mean']:.5f}")
-    per_iter = [int(rec["substep_kernel_launches"]) for rec in records]
-    log(f"main path K1 launches: {launches} (expected {expect}), per iteration {per_iter}")
-    if launches != expect or per_iter != [horizon * runner.env.decimation] * 3:
-        raise AssertionError(f"K1 launched {launches} times on the main path ({per_iter} "
-                             f"per iteration), expected {expect}")
+    launches = {"K1": runner.env.substep.launches, "K2": fused.gae_launches,
+                "K3": fused.grads_stats_launches, "K4": fused.opt_stage_launches}
+    k1_per_iter = horizon * runner.env.decimation
+    expect = {"K1": 3 * k1_per_iter, "K2": 3 * mini_epochs, "K3": 3 * mini_epochs,
+              "K4": 3 * mini_epochs}
+
+    def log_records(label, records):
+        for rec in records:
+            bad = [k for k, v in rec.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite metrics: {bad}")
+            log(f"{label} [{card}] iter: {rec['iter_ms']:.2f} ms (rollout "
+                f"{rec['rollout_ms']:.2f} ms, update {rec['update_ms']:.2f} ms), "
+                f"{rec['env_steps_per_sec']:,.0f} env-steps/s, reward {rec['reward']:.4f}, "
+                f"value_loss {rec['value_loss']:.4f}, kl {rec['kl_mean']:.5f}")
+
+    log_records("main path (fused update)", records)
+    per_iter = [[int(rec[k]) for k in ("substep_kernel_launches", "gae_launches",
+                                       "grads_stats_launches", "opt_stage_launches")]
+                for rec in records]
+    log(f"main path launches: {launches} (expected {expect}), per iteration K1/K2/K3/K4 "
+        f"{per_iter}")
+    if launches != expect or per_iter != [[k1_per_iter] + [mini_epochs] * 3] * 3:
+        raise AssertionError(f"kernel launches on the main path: {launches} ({per_iter} per "
+                             f"iteration), expected {expect}")
     ts = runner.train_state
     if ts.obs.shape != (4096, 47) or ts.privileged_obs.shape != (4096, 14):
         raise AssertionError(f"observation shapes {tuple(ts.obs.shape)}, "
                              f"{tuple(ts.privileged_obs.shape)}")
     if not bool(torch.isfinite(ts.obs).all()):
         raise AssertionError("non-finite observations after training")
+    if runner.ppo.network.actor.dtype != torch.bfloat16:
+        raise AssertionError("the main path's compute type is not bf16")
+
+    # the earlier xla update on the same configuration, for its times
+    xcfg = main_path_cfg(urdf)
+    xcfg["algorithm"]["update_backend"] = "xla"
+    xcfg["basic"]["max_iterations"] = 2
+    xrunner = Runner(xcfg, device="cuda")
+    xrecords = xrunner.train()
+    torch.cuda.synchronize()
+    log_records("same path, xla update", xrecords)
+    if xrunner.ppo.fused.grads_stats_launches != 0 or [
+            int(r["substep_kernel_launches"]) for r in xrecords] != [k1_per_iter] * 2:
+        raise AssertionError("the xla run's kernel launches")
+    f, x = records[-1], xrecords[-1]
+    log(f"last iteration, fused vs xla update [{card}]: update {f['update_ms']:.2f} vs "
+        f"{x['update_ms']:.2f} ms, rollout {f['rollout_ms']:.2f} vs {x['rollout_ms']:.2f} ms, "
+        f"iteration {f['iter_ms']:.2f} vs {x['iter_ms']:.2f} ms")
 
     # -- 5. env step on the card against the CPU ---------------------------
     from booster_gym_torch.envs.t1 import T1
@@ -343,9 +619,9 @@ def main():
         "name": "K1 substep (plane)", "route": "cuda",
         "source": "booster_gym_torch/csrc/substep.cu",
         "replaces": "booster_gym_tpu/physics/pallas_engine.py:267",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": launches["K1"], "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}]}
+        "library_ms": None}] + time_update_kernels(card, launches, update_err)}
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""K1's wrapper (booster_gym_torch/physics/substep_kernel.py).
+"""The kernels' wrappers: K1 (booster_gym_torch/physics/substep_kernel.py)
+and K2-K4 (booster_gym_torch/algo/update_kernel.py).
 
-The CUDA kernel itself runs only on a card: the tests marked `cuda` hold
-it against its plain version there and skip without one (chip_smoke.py
-runs the same check).  The rest run here: the component-major layout, the
+The CUDA kernels run only on a card: the tests marked `cuda` hold each
+against its plain version there and skip without one (chip_smoke.py runs
+the same checks).  This file imports nothing of JAX, so the marked tests
+run on the card with `pytest --noconftest -m cuda`.  The rest run here: the component-major layout, the
 model table against the offsets csrc/substep.cu declares, and the CPU
 path, which must be the plain version exactly and count no launch.
 """
@@ -13,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from booster_gym_torch import kernel_build
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics import substep_kernel as sk
 from booster_gym_torch.physics.engine import make_substep
-from booster_gym_torch.testing import toy_model, write_t1_shaped_urdf
+from booster_gym_torch.algo import update_kernel
+from booster_gym_torch.testing import toy_model, update_case, write_t1_shaped_urdf
 
 
 @pytest.fixture(scope="module", params=["toy", "t1"])
@@ -103,7 +107,7 @@ def test_cpu_path_is_the_plain_version(robot, B):
 
 def test_library_name_carries_sizes_and_source_hash(robot):
     model, feet = robot
-    path = sk.library_path(sk.kernel_sizes(model, feet))
+    path = kernel_build.library_path(sk.SOURCE, sk.kernel_sizes(model, feet))
     assert f"nb{model.num_bodies}_nd{model.num_dofs}_npt{model.num_points}" in path
     assert path.endswith(".so") and "build" in path
 
@@ -133,3 +137,120 @@ def test_kernel_matches_plain_on_card(gpu, robot, B):
     with pytest.raises(ValueError):
         k.packed_call(k.pack_sim(args[0]).double(), k.pack_dyn(args[1]),
                       args[2].T.contiguous(), torch.zeros(6, B, device=gpu))
+
+
+# ---------------------------------------------------------------------------
+# K2-K4
+def test_update_wrappers_run_the_plain_versions_on_the_cpu():
+    fused, p, staged, prep, d = update_case("bf16", 3, 16, "cpu")
+    *_, rew, done, timeout = d["buf"]
+    nonterm, tf = 1.0 - (done | timeout).float(), timeout.float()
+    out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    args = (staged, p, prep, d["adv"], d["ret"], torch.tensor(0.3), torch.tensor(0.5), False)
+    g, st, mu, logp = fused.grads_stats(*args)
+    g_ref, st_ref, mu_ref, logp_ref = fused.grads_stats_plain(*args)
+    assert torch.equal(g, g_ref) and torch.equal(logp, logp_ref)
+    assert g.shape == (fused.n_params,) and mu.shape == (48, 12) and st["klsq"].shape == (12,)
+    kw = dict(entropy_coef=-0.01, b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+    out = fused.opt_stage(g, p, torch.zeros_like(p), torch.zeros_like(p), 0, torch.tensor(1e-3),
+                          **kw)
+    assert out[3].dtype == torch.bfloat16 and torch.equal(out[3], out[0].bfloat16())
+    assert (fused.gae_launches, fused.grads_stats_launches, fused.opt_stage_launches) == (0, 0, 0)
+
+
+def test_update_library_name_carries_the_network_sizes():
+    fused = update_case("f32", 2, 4, "cpu")[0]
+    assert fused.sizes == dict(NOBS=47, NPRIV=14, NACT=12, AH1=256, AH2=128, AH3=128,
+                               CH1=256, CH2=256, CH3=128)
+    path = kernel_build.library_path("update.cu", fused.sizes)
+    assert "update_nobs47_npriv14_nact12" in path and path.endswith(".so")
+    src = open(kernel_build.source_path("update.cu")).read()
+    for name, argtypes in update_kernel._FUNCTIONS.items():
+        (decl,) = re.findall(rf"int {name}\(([^)]*)\)", src)
+        assert len(decl.split(",")) == len(argtypes), name
+
+
+def rel_err(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+# bf16: the kernel and the plain version round to bf16 at the same places and
+# sum f32 in another order, which lands some values one bf16 ulp apart
+TOL = {"f32": dict(val=2e-4, grad=1e-4, stat=1e-4), "bf16": dict(val=2.0 ** -7, grad=2.5 * 2.0 ** -8,
+                                                                 stat=1e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B", [256, 1000])      # 1000: ragged last tiles
+def test_gae_kernel_matches_plain_on_card(gpu, dtype, B):
+    T = 24
+    fused, p, staged, prep, d = update_case(dtype, T, B, gpu)
+    *_, rew, done, timeout = d["buf"]
+    nonterm, tf = 1.0 - (done | timeout).float(), timeout.float()
+    adv, ret, sa, sa2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    adv_p, ret_p, sa_p, sa2_p = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    torch.cuda.synchronize()
+    assert fused.gae_launches == 1
+    tol = TOL[dtype]["val"]
+    assert rel_err(adv, adv_p) <= tol and rel_err(ret, ret_p) <= tol
+    torch.testing.assert_close(sa, adv.sum(), rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(sa2, (adv * adv).sum(), rtol=1e-4, atol=1e-2)
+    with pytest.raises(ValueError):
+        fused.gae(staged, prep["obsc"], rew.double(), nonterm, tf, 0.995, 0.95)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("T,B", [(24, 256), (7, 1000)])   # 7000: a ragged last tile
+@pytest.mark.parametrize("self_old", [False, True])
+def test_grads_stats_kernel_matches_plain_on_card(gpu, dtype, T, B, self_old):
+    fused, p, staged, prep, d = update_case(dtype, T, B, gpu)
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, self_old)
+    g, st, mu, logp = fused.grads_stats(*args)
+    g2 = fused.grads_stats(*args)[0]
+    g_p, st_p, mu_p, logp_p = fused.grads_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert fused.grads_stats_launches == 2
+    assert torch.equal(g, g2)                  # fixed summation order: repeatable
+    tol = TOL[dtype]
+    assert rel_err(mu, mu_p) <= tol["val"] and rel_err(logp, logp_p) <= 10 * tol["val"]
+    for net in ("actor", "critic"):
+        for w, b, o, i in fused.layers[net]:
+            assert rel_err(g[w:w + o * i], g_p[w:w + o * i]) <= tol["grad"], (net, o, i)
+            assert rel_err(g[b:b + o], g_p[b:b + o]) <= tol["grad"], (net, o, "bias")
+    assert rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice]) <= 10 * tol["grad"]
+    for k in ("vl", "bhi", "blo"):
+        torch.testing.assert_close(st[k], st_p[k], rtol=tol["stat"], atol=1e-6)
+    # the actor-loss sum cancels: held to a share of sum |terms|
+    torch.testing.assert_close(st["al"], st_p["al"], rtol=tol["stat"],
+                               atol=1e-2 * tol["stat"] * T * B)
+    if self_old:
+        assert float(st["klsq"].abs().max()) == 0.0
+    else:
+        torch.testing.assert_close(st["klsq"], st_p["klsq"], rtol=10 * tol["stat"], atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_opt_stage_kernel_matches_plain_on_card(gpu, dtype):
+    fused, p, staged, prep, d = update_case(dtype, 2, 8, gpu)
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    rand = lambda scale: scale * torch.randn(p.shape, generator=gen, device=gpu)
+    g, m, v = rand(0.3), rand(1e-2), rand(1e-3).abs()
+    lr = torch.tensor(1e-3, device=gpu)
+    kw = dict(entropy_coef=-0.01, b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+    out = fused.opt_stage(g, p, m, v, 7, lr, **kw)
+    out2 = fused.opt_stage(g, p, m, v, 7, lr, **kw)
+    ref = fused.opt_stage_plain(g, p, m, v, 7, lr, **kw)
+    torch.cuda.synchronize()
+    assert fused.opt_stage_launches == 2
+    for a, a2, b in zip(out[:3], out2[:3], ref[:3]):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    assert torch.equal(out[3], out[0].to(fused.dtype))   # staged: the cast, bitwise
+    with pytest.raises(ValueError):
+        fused.opt_stage(g[:-1], p, m, v, 7, lr, **kw)

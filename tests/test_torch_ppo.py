@@ -1,4 +1,5 @@
-"""The port's actor-critic and xla-path PPO update against the JAX package.
+"""The port's actor-critic and xla-path PPO update against the JAX package
+(the fused update is in tests/test_torch_update.py).
 
 Tolerances: f32 forward 1e-5 (same products, other summation order);
 bf16 forward one bf16 ulp, 8e-3 relative (both round each layer's product
@@ -22,14 +23,13 @@ from booster_gym_tpu.utils.config import load_task_cfg as jax_load_task_cfg
 
 from booster_gym_torch.algo.networks import ActorCritic
 from booster_gym_torch.algo.ppo import (
-    FUSED_NOT_PORTED,
     PPO,
     OptState,
     discount_values,
     flat_params,
     jax_clip,
 )
-from booster_gym_torch.convert import params_from_flax
+from booster_gym_torch.convert import flat_from_flax, params_from_flax
 
 NA, NO, NP = 12, 47, 14
 ENV = types.SimpleNamespace(num_actions=NA, num_obs=NO, num_privileged_obs=NP)
@@ -40,10 +40,7 @@ def host(tree):
 
 
 def flat_like_torch(net, tree):
-    """A flax-shaped tree (params or Adam moments) as one vector in the
-    port's parameter order."""
-    sd = params_from_flax(host(tree))
-    return torch.cat([sd[name].reshape(-1) for name, _ in net.named_parameters()])
+    return flat_from_flax(net, host(tree))
 
 
 def nets(dtype):
@@ -261,9 +258,10 @@ def test_update_matches_jax_xla_update(min_logstd):
         assert float(net.logstd.detach().min()) >= min_logstd
 
 
-def test_fused_update_is_refused():
+def test_update_backend_is_read_from_the_config():
     cfg = jax_load_task_cfg("T1")
     assert cfg["algorithm"]["update_backend"] == "fused"
-    with pytest.raises(NotImplementedError, match="K2–K4"):
+    assert PPO(ENV, cfg, "cpu").update_backend == "fused"
+    cfg["algorithm"]["update_backend"] = "pallas"
+    with pytest.raises(ValueError, match="update_backend"):
         PPO(ENV, cfg, "cpu")
-    assert "not ported" in FUSED_NOT_PORTED

@@ -43,7 +43,8 @@ def test_train_cli_on_cpu(tmp_path):
     for r in rows:
         assert all(np.isfinite(v) for v in r.values()), r
         assert r["iter_ms"] > 0 and r["env_steps_per_sec"] > 0
-        assert r["substep_kernel_launches"] == 0   # the CPU runs the plain version
+        assert r["substep_kernel_launches"] == 0   # the CPU runs the plain versions
+        assert r["gae_launches"] == r["grads_stats_launches"] == r["opt_stage_launches"] == 0
     ckpt = torch.load(tmp_path / "logs" / run / "nn" / "model_2.pt")
     assert ckpt["iteration"] == 2 and ckpt["adam_count"] == 2 * 20
     assert ckpt["params"]["actor.layers.0.weight"].shape == (256, 47)
@@ -74,9 +75,32 @@ def _cfg(tmp_path, *extra):
 
 
 def test_cli_forces_the_xla_update_and_defaults_to_cuda(tmp_path):
+    """The name is from when build_cfg overrode the task file.  Now the CLI
+    follows T1.yaml's update_backend (fused), and still defaults to cuda."""
     cfg = _cfg(tmp_path)
-    assert cfg["algorithm"]["update_backend"] == "xla"
+    assert cfg["algorithm"]["update_backend"] == "fused"
     assert parse_args(["--task=T1"]).device == "cuda"
+
+
+@pytest.mark.parametrize("backend", ["fused", "xla"])
+def test_runner_on_cpu_with_either_update(tmp_path, monkeypatch, backend):
+    """Two tiny iterations through Runner: finite metrics, the network
+    moves, and on the CPU no kernel is launched."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(tmp_path, "--num_envs", "8", "--max_iterations", "2")
+    cfg["algorithm"]["update_backend"] = backend
+    cfg["runner"]["mini_epochs"] = 3
+    runner = Runner(cfg, device="cpu")
+    assert runner.ppo.update_backend == backend
+    before = torch.cat([p.detach().reshape(-1).clone() for p in runner.ppo.network.parameters()])
+    records = runner.train()
+    after = torch.cat([p.detach().reshape(-1) for p in runner.ppo.network.parameters()])
+    assert len(records) == 2 and float((after - before).abs().max()) > 0
+    for rec in records:
+        assert all(np.isfinite(v) for v in rec.values()), rec
+        assert [rec[k] for k in ("substep_kernel_launches", "gae_launches",
+                                 "grads_stats_launches", "opt_stage_launches")] == [0] * 4
+    assert runner.train_state.opt.count == 2 * 3
 
 
 @pytest.mark.parametrize("fn", [T1, SubstepKernel, make_substep, make_fk,
@@ -92,7 +116,7 @@ def test_main_path_cfg():
     cfg = main_path_cfg("/nonexistent/T1_shaped.urdf")
     assert cfg["env"]["num_envs"] == 4096 and cfg["terrain"]["type"] == "plane"
     assert (cfg["runner"]["horizon_length"], cfg["runner"]["mini_epochs"]) == (24, 20)
-    assert cfg["algorithm"]["update_backend"] == "xla"
+    assert cfg["algorithm"]["update_backend"] == "fused"
     assert cfg["asset"]["file"] == "/nonexistent/T1_shaped.urdf"
 
 
