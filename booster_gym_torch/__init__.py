@@ -6,11 +6,14 @@ This package imports torch, numpy and yaml, and nothing of JAX.  Layout
 mirrors the JAX package:
 
     train.py / runner.py   CLI and training loop
-    algo/                  actor-critic and PPO (xla-update path)
-    envs/                  T1 task, plane terrain
+    algo/                  actor-critic and PPO (fused update K2-K4,
+                           csrc/update.cu, or the xla update)
+    envs/                  T1 task, plane or heightfield (trimesh) terrain
     physics/               eager substep (plain version) and the CUDA
-                           substep kernel (K1, csrc/substep.cu)
-    terrain/               plane terrain
+                           substep kernels (K1 plane, K5 general terrain,
+                           csrc/substep.cu)
+    terrain/               heightfield generation and queries, and the CUDA
+                           terrain sampler (K6 + K7, csrc/terrain_sample.cu)
     model/                 URDF parser
     math/                  quaternion and spatial algebra
 """

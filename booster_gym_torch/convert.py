@@ -90,8 +90,8 @@ def dyn_params_from_jax(dyn, device):
 
 
 def env_params_from_jax(params, device):
-    """JAX EnvParams -> the port's EnvParams (plane terrain: the height
-    field and sampler table placeholders are not carried)."""
+    """JAX EnvParams -> the port's EnvParams (the TPU sampler's pre-sheared
+    table has no counterpart)."""
     from booster_gym_torch.envs.state import EnvParams
 
     return EnvParams(
@@ -100,13 +100,13 @@ def env_params_from_jax(params, device):
         dof_damping=_t(params.dof_damping, device),
         dof_friction=_t(params.dof_friction, device),
         base_mass_scaled=_t(params.base_mass_scaled, device),
-        env_origins=_t(params.env_origins, device))
+        env_origins=_t(params.env_origins, device),
+        height_field=_t(params.height_field, device))
 
 
 def env_state_from_jax(state, device):
     """JAX EnvState -> the port's EnvState.  The PRNG key has no
-    counterpart (the port passes a torch.Generator), and the per-point
-    terrain carry of the trimesh path is not ported."""
+    counterpart (the port passes a torch.Generator)."""
     import dataclasses
 
     from booster_gym_torch.envs.state import EnvState

@@ -1,8 +1,12 @@
-// K1: one plane-terrain physics substep per env, for Hopper (sm_90a).
+// K1 and K5: one physics substep per env, for Hopper (sm_90a).  One source,
+// two builds: -DPLANE=1 (the default) is K1, the plane-terrain substep;
+// -DPLANE=0 is K5, the general-terrain substep.
 //
 // Replaces the TPU kernel booster_gym_tpu/physics/pallas_engine.py ::
-// make_substep_pallas(model, cfg, feet_indices, plane=True), inner `kernel`
-// (lines 267-720, launched at line 811).  Same steps in the same order:
+// make_substep_pallas(model, cfg, feet_indices, plane=...), inner `kernel`
+// (lines 267-720, launched at line 811): K1 its plane=True specialization,
+// K5 its plane=False branches (lines 507-512, 596-606, 636-664, 715-720).
+// Same steps in the same order:
 //   1. FK down the static tree;
 //   2. spatial inertias about the base origin;
 //   3. CRBA mass matrix plus the diagonal regularizer;
@@ -14,8 +18,19 @@
 //   8. Jacobi sweeps with the friction cone about +z;
 //   9. quaternion-exponential integration and joint-limit projection;
 //  10. feet poses from the start-of-substep FK.
+// K5 takes a terrain height h [NPT, B] and a unit normal n [3 NPT, B] per
+// contact point, constant over the substep: the depth is h + radius - z,
+// the approach speed and the push-out target lie along n, the friction cone
+// opens about n, and the points' world xy from step 1's FK go out as
+// ptxy [2 NPT, B] for the caller's next terrain query.  h and n are read
+// from global memory where they are used (L1 holds them between the
+// sweeps) and ptxy is written as each point is placed, so K5 adds no
+// per-point local array to K1's.  On plane inputs (h = 0, n = +z) every
+// K5 formula reduces to K1's by exact multiplications by 0 and 1, and
+// chip_smoke.py holds the two builds to a difference of 0 there.
 // All arithmetic is f32.  The plain PyTorch version of the same function is
-// booster_gym_torch/physics/engine.py::make_substep.
+// booster_gym_torch/physics/engine.py::make_substep (its `step` for K1,
+// its `step.terrain_form` for K5).
 //
 // Design (first version: simple and right).  One thread per env; the
 // TPU's [comp, G, 8, 128] tiles are not carried over.  Every input and
@@ -35,7 +50,10 @@
 // 1196 bytes; at 4096 envs 4.9 MB, 1.46 us at 3.35 TB/s.  Its arithmetic
 // is ~5.8e4 f32 operations per env (chip_smoke.py counts them from the
 // loop trip counts of this file), 2.4e8 at 4096 envs, 3.5 us at
-// 67 TFLOP/s.  So the operations bound it, at 3.5 us.  Known weaknesses,
+// 67 TFLOP/s.  So the operations bound it, at 3.5 us.  K5 reads 4 NPT and
+// writes 2 NPT more floats per env (2,540 bytes, 10.4 MB at 4096 envs,
+// 3.1 us) and does ~6.4e4 operations per env (2.6e8, 3.9 us): the
+// operations bound it too.  Known weaknesses,
 // left for later work: 4096 threads fill far less than one wave of 132
 // SMs; the 18x18 mass matrix, its inverse and the per-point blocks live in
 // local memory (ptxas: 255 registers and an 11.6 KB stack frame per thread
@@ -46,6 +64,10 @@
 
 #if !defined(NB) || !defined(ND) || !defined(NPT) || !defined(NS) || !defined(NF)
 #error "compile with -DNB=.. -DND=.. -DNPT=.. -DNS=.. -DNF=.."
+#endif
+
+#ifndef PLANE
+#define PLANE 1
 #endif
 
 #define NV (6 + ND)
@@ -200,6 +222,10 @@ __device__ __forceinline__ void wrench_and_du(const float* mdl, const float (*la
 __global__ void __launch_bounds__(BLOCK)
 substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
                const float* __restrict__ tau_in, const float* __restrict__ ext_in,
+#if !PLANE
+               const float* __restrict__ h_in, const float* __restrict__ n_in,
+               float* __restrict__ ptxy_out,
+#endif
                const float* __restrict__ mdl, float* __restrict__ s_out,
                float* __restrict__ f_out, float* __restrict__ feet_out, int B) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -469,7 +495,13 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
       wp[k] += P[b][k];
       pr[p][k] = wp[k] - p0[k];
     }
+#if PLANE
     pdepth[p] = mdl[OFF_PRAD + p] - wp[2];
+#else
+    pdepth[p] = IN(h_in, p) + mdl[OFF_PRAD + p] - wp[2];
+    IN(ptxy_out, 2 * p) = wp[0];
+    IN(ptxy_out, 2 * p + 1) = wp[1];
+#endif
     pact[p] = pdepth[p] > -cfg[CFG_MARGIN] ? 1.0f : 0.0f;
     counts[b] += pact[p];
   }
@@ -523,14 +555,20 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
     const float rest = 0.5f * (IN(dyn, 10 * NB + NS + sh) + cfg[CFG_TREST]);
     float wxr[3];
     cross3(bw[b], r, wxr);
+#if PLANE
     const float vn_pre = bv[b][2] + wxr[2];
+#else
+    const float vz = bv[b][2] + wxr[2];
+    const float vn_pre = (bv[b][0] + wxr[0]) * IN(n_in, 3 * p)
+                         + (bv[b][1] + wxr[1]) * IN(n_in, 3 * p + 1) + vz * IN(n_in, 3 * p + 2);
+#endif
     const float pushout = fminf(cfg[CFG_BAUMGARTE] * fmaxf(pdepth[p] - cfg[CFG_SLOP], 0.0f) / dt,
                                 cfg[CFG_MAX_PUSHOUT]);
     const float bounce = vn_pre < -cfg[CFG_BOUNCE] ? -rest * vn_pre : 0.0f;
-    vtz[p] = fmaxf(pushout, bounce);
+    vtz[p] = fmaxf(pushout, bounce);  // K5: the target's length along n
   }
 
-  // ---------------- 8. Jacobi sweeps, friction cone about +z -------------
+  // ---------------- 8. Jacobi sweeps, friction cone about +z (K5: n) -----
   float lam[NPT][3], wt[NB][3], wf[NB][3], du[NV], un[NV];
   for (int p = 0; p < NPT; ++p) lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
   const int iters = (int)cfg[CFG_ITERS];
@@ -545,18 +583,42 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
       const int b = (int)mdl[OFF_PBODY + p];
       float wxr[3];
       cross3(bw[b], pr[p], wxr);
+#if PLANE
       const float dv[3] = {-(bv[b][0] + wxr[0]), -(bv[b][1] + wxr[1]), vtz[p] - (bv[b][2] + wxr[2])};
+#else
+      const float nrm[3] = {IN(n_in, 3 * p), IN(n_in, 3 * p + 1), IN(n_in, 3 * p + 2)};
+      // The target vtz n minus the point velocity v, in K1's shape
+      // (-vx, -vy, vtz - vz) with the target's part off +z, vtz (n - z),
+      // taken out of v first.  nvcc sums D^-1 dv in another order when dv's
+      // x and y are not negations, which breaks the bitwise equality with
+      // K1; in this shape they are, and on plane inputs that part is
+      // exactly 0.
+      const float dv[3] = {-((bv[b][0] + wxr[0]) - __fmul_rn(nrm[0], vtz[p])),
+                           -((bv[b][1] + wxr[1]) - __fmul_rn(nrm[1], vtz[p])),
+                           vtz[p] - ((bv[b][2] + wxr[2]) + __fmul_rn(1.0f - nrm[2], vtz[p]))};
+#endif
       const float* Di = Dinv[p];
       float ln[3];
       for (int k = 0; k < 3; ++k)
         ln[k] = lam[p][k] + relax * (Di[3 * k] * dv[0] + Di[3 * k + 1] * dv[1] + Di[3 * k + 2] * dv[2]);
+      const float a = pact[p];
+#if PLANE
       const float lz = fmaxf(ln[2], 0.0f);
       const float lt = sqrtf(ln[0] * ln[0] + ln[1] * ln[1] + 1e-18f);
       const float scale = fminf(1.0f, pmu[p] * lz / lt);
-      const float a = pact[p];
       lam[p][0] = ln[0] * scale * a;
       lam[p][1] = ln[1] * scale * a;
       lam[p][2] = lz * a;
+#else
+      // cone about the terrain normal: normal part clamped at 0, tangential
+      // part scaled into the cone
+      const float ldn = ln[0] * nrm[0] + ln[1] * nrm[1] + ln[2] * nrm[2];
+      const float lz = fmaxf(ldn, 0.0f);
+      const float ltv[3] = {ln[0] - ldn * nrm[0], ln[1] - ldn * nrm[1], ln[2] - ldn * nrm[2]};
+      const float lt = sqrtf(ltv[0] * ltv[0] + ltv[1] * ltv[1] + ltv[2] * ltv[2] + 1e-18f);
+      const float scale = fminf(1.0f, pmu[p] * lz / lt);
+      for (int k = 0; k < 3; ++k) lam[p][k] = (nrm[k] * lz + ltv[k] * scale) * a;
+#endif
     }
   }
   wrench_and_du(mdl, lam, pr, phw, phv, G, wt, wf, du);
@@ -611,6 +673,7 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
 
 // Plain C entry point for ctypes.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it never synchronizes.
+#if PLANE
 extern "C" int bg_substep(const float* s_in, const float* dyn, const float* tau,
                           const float* ext, const float* mdl, float* s_out, float* f_out,
                           float* feet_out, int B, void* stream) {
@@ -620,3 +683,16 @@ extern "C" int bg_substep(const float* s_in, const float* dyn, const float* tau,
                                                            feet_out, B);
   return (int)cudaGetLastError();
 }
+#else
+extern "C" int bg_substep_terrain(const float* s_in, const float* dyn, const float* tau,
+                                  const float* ext, const float* h_in, const float* n_in,
+                                  const float* mdl, float* s_out, float* f_out,
+                                  float* feet_out, float* ptxy_out, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  substep_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(s_in, dyn, tau, ext, h_in, n_in,
+                                                           ptxy_out, mdl, s_out, f_out,
+                                                           feet_out, B);
+  return (int)cudaGetLastError();
+}
+#endif

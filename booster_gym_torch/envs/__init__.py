@@ -1,4 +1,4 @@
-"""Task registry (the flat T1 walk task is the only ported task)."""
+"""Task registry (the T1 walk task is the only ported task)."""
 
 from booster_gym_torch.envs.t1 import T1
 

@@ -1,7 +1,7 @@
 """Env state and per-env parameters as dataclasses of batch-leading
-tensors (the flax pytrees of booster_gym_tpu/envs/state.py, plane
-terrain: the height-field operands and the per-point terrain carry of the
-trimesh path are not ported)."""
+tensors (the flax pytrees of booster_gym_tpu/envs/state.py).  The JAX
+package's pre-sheared sampler table is a TPU layout and has no field here:
+the port's sampler reads the height field itself."""
 
 import dataclasses
 
@@ -20,6 +20,7 @@ class EnvParams:
     dof_friction: torch.Tensor      # [B, nd] Coulomb joint friction torque
     base_mass_scaled: torch.Tensor  # [B, 4] raw noise -> privileged obs
     env_origins: torch.Tensor       # [B, 3]
+    height_field: torch.Tensor      # [R, C] terrain heights ([1, 1] zeros on plane)
 
 
 @dataclasses.dataclass
@@ -58,6 +59,10 @@ class EnvState:
     base_ang_vel: torch.Tensor         # [B, 3]
     projected_gravity: torch.Tensor    # [B, 3]
     terrain_height_root: torch.Tensor  # [B] (zeros on plane terrain)
+    # terrain under each collision point, sampled once per control step and
+    # carried into the next step's substeps (kernel path on trimesh)
+    point_heights: torch.Tensor        # [B, npt]
+    point_normals: torch.Tensor        # [B, npt, 3]
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

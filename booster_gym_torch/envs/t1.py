@@ -1,5 +1,5 @@
-"""T1 humanoid locomotion task on plane terrain, batch-leading PyTorch
-(port of booster_gym_tpu/envs/t1.py, plane path).
+"""T1 humanoid locomotion task on plane or heightfield (trimesh) terrain,
+batch-leading PyTorch (port of booster_gym_tpu/envs/t1.py).
 
 step(params, state, actions, gen) -> (state', obs, rew, reset_mask, info)
 is the JAX package's pure step with the PRNG key replaced by an explicit
@@ -11,12 +11,18 @@ index -> (lin, ang) unless `curriculum_transpose_quirk`, still commands are
 per-env Bernoulli unless `still_mode: exact_fraction`, and pushes act on
 the first substep of a control step.
 
-The decimation loop keeps the sim state in the substep kernel's
-component-major layout across its 10 substeps and packs DynParams once per
-control step; physics/substep_kernel.py launches K1 on the GPU and runs
-the plain substep on the CPU.
+sim.backend is the JAX package's key.  By default the decimation loop keeps
+the sim state in the substep kernel's component-major layout across its 10
+substeps and packs DynParams once per control step; physics/
+substep_kernel.py launches K1 (plane) or K5 (trimesh) on the GPU and runs
+the plain substep on the CPU.  On trimesh each env carries the terrain
+height and normal under its contact points through the 10 substeps, and one
+call of the terrain sampler (terrain/sample_kernel.py) per control step
+answers the contact points, the root and the foot edges.  sim.backend: xla
+runs the eager engine, which queries the terrain inside every substep.
 """
 
+import dataclasses
 import math
 import os
 
@@ -33,9 +39,11 @@ from booster_gym_torch.math.quat import (
 )
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
-from booster_gym_torch.physics.engine import make_fk
+from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
+from booster_gym_torch.physics.kinematics import point_world_positions
 from booster_gym_torch.physics.substep_kernel import SubstepKernel
 from booster_gym_torch.terrain import Terrain
+from booster_gym_torch.terrain.sample_kernel import make_terrain_sampler
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -92,8 +100,10 @@ class T1:
             terrain_friction=float(cfg["terrain"]["static_friction"]),
             terrain_restitution=float(cfg["terrain"]["restitution"]),
         )
-        self.terrain = Terrain(cfg["terrain"], seed=cfg["basic"].get("seed", 0) or 0)
+        self.terrain = Terrain(cfg["terrain"], seed=cfg["basic"].get("seed", 0) or 0,
+                               device=dev)
         self.fk = make_fk(self.model, dev)
+        self.consts = ModelConsts.build(self.model, dev)
 
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
         # PD gains by joint-name substring
@@ -159,19 +169,44 @@ class T1:
         cc = cfg["commands"]
         self.curriculum_shape = (1 + 2 * cc["lin_vel_levels"], 1 + 2 * cc["ang_vel_levels"])
 
-        self.substep = SubstepKernel(self.model, self.sim_cfg, self.feet_indices, dev)
+        # the kernel path (substep kernel + terrain sampler), or the eager
+        # engine with the terrain queried inside the substep
+        plane = self.terrain.type == "plane"
+        self.kernel_backend = cfg["sim"].get("backend", "auto") != "xla"
+        self.substep = self.engine_substep = self.terrain_sampler = None
+        if self.kernel_backend:
+            self.substep = SubstepKernel(self.model, self.sim_cfg, self.feet_indices, dev,
+                                         plane=plane)
+            if not plane:
+                n_queries = (self.model.num_points + 1
+                             + len(self.feet_indices) * self.feet_edge_pos.shape[0])
+                self.terrain_sampler = make_terrain_sampler(self.terrain, n_queries, dev)
+        else:
+            self.engine_substep = make_substep(self.model, self.sim_cfg, self.feet_indices, dev,
+                                               terrain=self.terrain)
 
     # ------------------------------------------------------------------
     def _compute_env_origins(self):
-        """Grid env origins on plane terrain."""
+        """Grid env origins: env_spacing apart on the plane, spread over the
+        tiles (with the terrain height as z) on trimesh."""
         B = self.num_envs
         origins = np.zeros((B, 3), np.float32)
-        num_cols = np.floor(np.sqrt(B))
-        num_rows = np.ceil(B / num_cols)
-        xx, yy = np.meshgrid(np.arange(num_rows), np.arange(num_cols), indexing="ij")
-        spacing = self.cfg["env"]["env_spacing"]
-        origins[:, 0] = spacing * xx.flatten()[:B]
-        origins[:, 1] = spacing * yy.flatten()[:B]
+        if self.terrain.type == "plane":
+            num_cols = np.floor(np.sqrt(B))
+            num_rows = np.ceil(B / num_cols)
+            xx, yy = np.meshgrid(np.arange(num_rows), np.arange(num_cols), indexing="ij")
+            spacing = self.cfg["env"]["env_spacing"]
+            origins[:, 0] = spacing * xx.flatten()[:B]
+            origins[:, 1] = spacing * yy.flatten()[:B]
+        else:
+            t = self.terrain
+            num_cols = max(1.0, np.floor(np.sqrt(B * t.env_length / t.env_width)))
+            num_rows = np.ceil(B / num_cols)
+            xx, yy = np.meshgrid(np.arange(num_rows), np.arange(num_cols), indexing="ij")
+            origins[:, 0] = t.env_width / (num_rows + 1) * (xx.flatten()[:B] + 1)
+            origins[:, 1] = t.env_length / (num_cols + 1) * (yy.flatten()[:B] + 1)
+            xy = torch.as_tensor(origins[:, :2], device=self.device)
+            origins[:, 2] = t.heights(xy).cpu().numpy()
         return origins
 
     def _zeros(self, *shape, dtype=torch.float32):
@@ -226,14 +261,17 @@ class T1:
 
         dyn = DynParams(body_mass=mass, body_com=com, body_inertia=inertia,
                         shape_friction=shape_friction, shape_restitution=shape_restitution)
+        hf = self.terrain.height_field
         return EnvParams(dyn=dyn, dof_stiffness=stiffness, dof_damping=damping,
                          dof_friction=friction, base_mass_scaled=base_mass_scaled,
-                         env_origins=self.env_origins)
+                         env_origins=self.env_origins,
+                         height_field=self._zeros(1, 1) if hf is None else hf)
 
     # ------------------------------------------------------------------
     def _zero_state(self):
         B, nb, nd, na = (self.num_envs, self.model.num_bodies, self.model.num_dofs,
                          self.num_actions)
+        npt = self.model.num_points
         z, i64 = self._zeros, torch.int64
         q0 = self.default_dof_pos.expand(B, nd).clone()
         sim = SimState(
@@ -244,6 +282,7 @@ class T1:
         prob = z(*self.curriculum_shape)
         prob[cc["lin_vel_levels"], cc["ang_vel_levels"]] = 1.0
         gravity = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand(B, 3).clone()
+        up = torch.tensor([0.0, 0.0, 1.0], device=self.device).expand(B, npt, 3).clone()
         return EnvState(
             sim=sim, actions=z(B, na), last_actions=z(B, na),
             last_dof_targets=q0.clone(), delay_steps=z(B, dtype=i64),
@@ -259,14 +298,17 @@ class T1:
             last_feet_pos=z(B, 2, 3), feet_pos=z(B, 2, 3),
             feet_roll=z(B, 2), feet_yaw=z(B, 2), feet_contact=z(B, 2, dtype=torch.bool),
             contact_forces=z(B, nb, 3), base_lin_vel=z(B, 3), base_ang_vel=z(B, 3),
-            projected_gravity=gravity, terrain_height_root=z(B))
+            projected_gravity=gravity, terrain_height_root=z(B),
+            point_heights=z(B, npt), point_normals=up)
 
     def reset_all(self, params, gen):
         """Full reset: (state, obs, info)."""
         state = self._zero_state()
         mask = torch.ones(self.num_envs, dtype=torch.bool, device=self.device)
         state = self._reset_envs(params, state, mask, gen)
-        state = state.replace(terrain_height_root=self.terrain.heights(state.sim.root_pos[:, :2]))
+        state = state.replace(terrain_height_root=self.terrain.heights(
+            state.sim.root_pos[:, :2], params.height_field))
+        state = self._refresh_point_terrain(state)
         state = self._refresh_post_physics(params, state)
         state = state.replace(filtered_lin_vel=torch.zeros_like(state.filtered_lin_vel),
                               filtered_ang_vel=torch.zeros_like(state.filtered_ang_vel))
@@ -277,11 +319,46 @@ class T1:
         return state, obs, info
 
     # ------------------------------------------------------------------
+    def _refresh_point_terrain(self, state):
+        """The carried per-point terrain heights and normals from the
+        current pose (reset_all only: while stepping, the sampler refreshes
+        them once per control step)."""
+        body_R, body_pos = self.fk(state.sim)
+        xy = point_world_positions(self.consts, body_R, body_pos)[..., :2]
+        h, n = self.terrain.heights_and_normals(xy)
+        return state.replace(point_heights=h, point_normals=n)
+
+    # ------------------------------------------------------------------
+    def _physics_inner_loop_engine(self, params, state, dof_targets, push_f_w, push_t_w):
+        """sim.backend xla: the batch-leading decimation loop around the
+        eager engine.  Same outputs as _physics_inner_loop; pt_xy is unused
+        (the engine queries the terrain itself) and comes back as zeros."""
+        sim, last, tsum = state.sim, state.last_dof_targets, torch.zeros_like(state.torques)
+        zeros3 = torch.zeros_like(push_f_w)
+        for i in range(self.decimation):
+            last = torch.where((state.delay_steps == i)[:, None], dof_targets, last)
+            pd = params.dof_stiffness * (last - sim.q) - params.dof_damping * sim.qd
+            fric = torch.minimum(torch.abs(pd), params.dof_friction) * torch.sign(pd)
+            tau = torch.minimum(torch.maximum(pd - fric, -self.torque_limits), self.torque_limits)
+            sim, forces, feet_pos, feet_R = self.engine_substep(
+                sim, params.dyn, tau, push_f_w if i == 0 else zeros3,
+                push_t_w if i == 0 else zeros3)
+            tsum = tsum + tau
+        return (sim, last, tsum / self.decimation, forces, feet_pos, feet_R,
+                self._zeros(self.num_envs, self.model.num_points, 2))
+
     def _physics_inner_loop(self, params, state, dof_targets, push_f_w, push_t_w):
         """Decimation loop in the kernel's [comp, B] layout: delay latch, PD,
-        Coulomb joint friction, torque clip, push on substep 0, torque mean."""
+        Coulomb joint friction, torque clip, push on substep 0, torque mean.
+        On trimesh the carried point heights and normals go to every substep
+        unchanged, and the last substep's contact-point xy comes back."""
         sub = self.substep
-        nd, B = self.model.num_dofs, self.num_envs
+        nd, B, npt = self.model.num_dofs, self.num_envs, self.model.num_points
+        if sub.plane:
+            ph = pn = None
+        else:
+            ph = state.point_heights.T.contiguous()
+            pn = state.point_normals.reshape(B, -1).T.contiguous()
         psim = sub.pack_sim(state.sim)
         pdyn = sub.pack_dyn(params.dyn)
         p_targets = dof_targets.T
@@ -298,14 +375,15 @@ class T1:
             pd = kp * (p_last - psim[13:13 + nd]) - kd * psim[13 + nd:13 + 2 * nd]
             fric = torch.minimum(torch.abs(pd), fric_lim) * torch.sign(pd)
             p_tau = torch.minimum(torch.maximum(pd - fric, -lim), lim).contiguous()
-            psim, pforces, pfeet = sub.packed_call(psim, pdyn, p_tau,
-                                                   p_ext if i == 0 else p_ext0)
+            psim, pforces, pfeet, pptxy = sub.packed_call(
+                psim, pdyn, p_tau, p_ext if i == 0 else p_ext0, ph, pn)
             p_tsum = p_tsum + p_tau
         nb, nf = self.model.num_bodies, len(self.feet_indices)
         feet = pfeet.T.reshape(B, nf, 12)
+        pt_xy = self._zeros(B, npt, 2) if sub.plane else pptxy.T.reshape(B, npt, 2)
         return (sub.unpack_sim(psim), p_last.T, p_tsum.T / self.decimation,
                 pforces.T.reshape(B, nb, 3), feet[..., 0:3],
-                feet[..., 3:12].reshape(B, nf, 3, 3))
+                feet[..., 3:12].reshape(B, nf, 3, 3), pt_xy)
 
     # ------------------------------------------------------------------
     def _reset_envs(self, params, state, mask, gen):
@@ -322,7 +400,7 @@ class T1:
 
         pos_xy = params.env_origins[:, :2] + self.base_init_pos[:2]
         pos_xy = apply_randomization(gen, pos_xy, rcfg.get("init_base_pos_xy"))
-        pos_z = self.base_init_pos[2] + self.terrain.heights(pos_xy)
+        pos_z = self.base_init_pos[2] + self.terrain.heights(pos_xy, params.height_field)
         yaw = torch.rand(B, generator=gen, device=self.device) * 2 * math.pi
         quat = quat_from_euler_xyz(torch.zeros_like(yaw), torch.zeros_like(yaw), yaw)
         lin_xy = apply_randomization(gen, self._zeros(B, 2), rcfg.get("init_base_lin_vel_xy"))
@@ -451,15 +529,31 @@ class T1:
 
         push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
         push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
-        sim, last_targets, torques, forces, feet_pos, feet_R = self._physics_inner_loop(
+        inner = (self._physics_inner_loop if self.kernel_backend
+                 else self._physics_inner_loop_engine)
+        sim, last_targets, torques, forces, feet_pos, feet_R, pt_xy = inner(
             params, state, dof_targets, push_f_w, push_t_w)
         state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
                               contact_forces=forces)
 
         edge_xyz = self._feet_edge_world(feet_pos, feet_R)
-        state = state.replace(terrain_height_root=self.terrain.heights(sim.root_pos[:, :2]))
+        edge_h = None
+        if self.terrain_sampler is not None:
+            # one sampler call answers every terrain query of the step: the
+            # contact points, the root and the foot edge points
+            B, npt = self.num_envs, self.model.num_points
+            edge_xy = torch.stack([edge_xyz[0].reshape(B, -1), edge_xyz[1].reshape(B, -1)], -1)
+            root_xy = sim.root_pos[:, :2].contiguous()
+            queries = torch.cat([pt_xy, root_xy[:, None, :], edge_xy], dim=1)
+            h_all, n_all = self.terrain_sampler(params.height_field, root_xy, queries)
+            pt_h, pt_n = h_all[:, :npt], n_all[:, :npt]
+            root_h = h_all[:, npt]
+            edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
+        else:
+            root_h = self.terrain.heights(sim.root_pos[:, :2], params.height_field)
+        state = state.replace(terrain_height_root=root_h)
         state = self._refresh_post_physics(params, state, feet_pos=feet_pos, feet_R=feet_R,
-                                           edge_xyz=edge_xyz)
+                                           edge_xyz=edge_xyz, edge_heights=edge_h)
         state = state.replace(
             episode_length=state.episode_length + 1,
             common_step_counter=state.common_step_counter + 1,
@@ -473,6 +567,21 @@ class T1:
 
         reset_mask = state.reset_buf
         state = self._reset_envs(params, state, reset_mask, gen)
+        state, moved_mask = self._teleport_robots(state)
+        if self.terrain.type != "plane":
+            # reset or teleported envs stand somewhere else now: they take
+            # the terrain under their new root, for the root height and, on
+            # the kernel path, for every contact point until their next
+            # step's sampler call (the other envs carry the sampled values)
+            fix = reset_mask | moved_mask
+            h_root, n_root = self.terrain.heights_and_normals(
+                state.sim.root_pos[:, :2], params.height_field)
+            state = state.replace(terrain_height_root=torch.where(
+                fix, h_root, state.terrain_height_root))
+            if self.terrain_sampler is not None:
+                state = state.replace(
+                    point_heights=torch.where(fix[:, None], h_root[:, None], pt_h),
+                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :], pt_n))
         state = self._resample_commands(state, gen)
         # refresh derived quantities for the envs that were reset
         state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
@@ -498,7 +607,7 @@ class T1:
         return torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(zs, -1)
 
     def _refresh_post_physics(self, params, state, feet_pos=None, feet_R=None,
-                              reset_mask=None, edge_xyz=None):
+                              reset_mask=None, edge_xyz=None, edge_heights=None):
         """Base-frame velocities, EMA filters, feet state.  With reset_mask
         (the post-reset refresh) only the base-frame quantities change; the
         feet buffers keep their pre-reset values, as upstream."""
@@ -526,7 +635,9 @@ class T1:
         if edge_xyz is None:
             edge_xyz = self._feet_edge_world(feet_pos, feet_R)
         edge_x, edge_y, edge_z = edge_xyz
-        edge_heights = self.terrain.heights(torch.stack([edge_x, edge_y], dim=-1))
+        if edge_heights is None:
+            edge_heights = self.terrain.heights(torch.stack([edge_x, edge_y], dim=-1),
+                                                params.height_field)
         feet_contact = torch.any(edge_z - edge_heights < 0.01, dim=-1)
         return state.replace(
             base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
@@ -559,6 +670,23 @@ class T1:
         force = torch.where(start, new_f, torch.where(stop, 0.0, state.push_force))
         torque = torch.where(start, new_t, torch.where(stop, 0.0, state.push_torque))
         return state.replace(push_force=force, push_torque=torque)
+
+    def _teleport_robots(self, state):
+        """Wrap robots that walked off the terrain onto its other side.
+        Returns (state, moved_mask)."""
+        if self.terrain.type == "plane":
+            return state, torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        t = self.terrain
+        pos = state.sim.root_pos
+        shift_x = (t.env_width + t.border_size) * (
+            (pos[:, 0] < -0.75 * t.border_size).float()
+            - (pos[:, 0] > t.env_width + 0.75 * t.border_size).float())
+        shift_y = (t.env_length + t.border_size) * (
+            (pos[:, 1] < -0.75 * t.border_size).float()
+            - (pos[:, 1] > t.env_length + 0.75 * t.border_size).float())
+        new_pos = pos + torch.stack([shift_x, shift_y, torch.zeros_like(shift_x)], dim=-1)
+        state = state.replace(sim=dataclasses.replace(state.sim, root_pos=new_pos))
+        return state, (shift_x != 0) | (shift_y != 0)
 
     # ------------------------------------------------------------------
     def _check_termination(self, state):

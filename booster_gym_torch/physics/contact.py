@@ -57,6 +57,19 @@ def detect_plane(consts, point_pos_w):
     return depth, normal
 
 
+def detect(consts, terrain, point_pos_w):
+    """Penetration depth and surface normal per point on `terrain`, queried
+    at the points' own xy."""
+    h, n = terrain.heights_and_normals(point_pos_w[..., :2])
+    return h + consts.point_radius - point_pos_w[..., 2], n
+
+
+def detect_carried(consts, point_pos_w, heights, normals):
+    """Depth and normal from terrain heights [B, npt] and unit normals
+    [B, npt, 3] that the caller sampled (the substep kernels' inputs)."""
+    return heights + consts.point_radius - point_pos_w[..., 2], normals
+
+
 def solve(cfg, consts, shape_friction, shape_restitution, M_inv, J, phi, u_free,
           point_pos_w, depth, normal, root_pos):
     """Projected per-point impulse solve in body-level form.  Returns

@@ -1,10 +1,14 @@
-"""One physics substep as batch-leading PyTorch ops, plane terrain
-(port of booster_gym_tpu/physics/engine.py).
+"""One physics substep as batch-leading PyTorch ops (port of
+booster_gym_tpu/physics/engine.py).
 
-This is the plain version of the CUDA substep kernel K1
-(physics/substep_kernel.py, csrc/substep.cu): the CPU tests hold it against
-the JAX package, chip_smoke.py holds the kernel against it on the card.
-Nothing on the training path runs it when the state lives on a GPU.
+This is the plain version of the CUDA substep kernels (physics/
+substep_kernel.py, csrc/substep.cu): `step` on plane terrain for K1, and
+`step.terrain_form`, which takes a terrain height and a unit normal per
+contact point, for K5.  The CPU tests hold it against the JAX package,
+chip_smoke.py holds the kernels against it on the card.  With a heightfield
+`terrain` it is also the xla engine of the trimesh path (sim.backend: xla),
+which queries the terrain inside every substep.  The default training path
+runs none of it when the state lives on a GPU.
 """
 
 import dataclasses
@@ -75,22 +79,30 @@ class ModelConsts:
             base_cols=f32(base_cols))
 
 
-def make_substep(model, cfg, feet_indices, device):
-    """Build the plane-terrain substep
+def make_substep(model, cfg, feet_indices, device, terrain=None):
+    """Build the substep
 
         step(state: SimState, dyn: DynParams, tau [B, nd], ext_force [B, 3],
              ext_torque [B, 3]) ->
             (SimState, contact_forces [B, nb, 3], feet_pos [B, nf, 3],
              feet_R [B, nf, 3, 3])
 
-    contact_forces are world-frame net contact forces per body; the feet
-    poses come from the start-of-substep FK."""
+    on the z = 0 plane, or on `terrain` when one with a heightfield is
+    given.  contact_forces are world-frame net contact forces per body; the
+    feet poses come from the start-of-substep FK.
+
+        step.terrain_form(state, dyn, tau, ext_force, ext_torque,
+                          point_heights [B, npt], point_normals [B, npt, 3])
+
+    takes the terrain under each contact point from the caller and also
+    returns the points' world xy [B, npt, 2] (start-of-substep FK)."""
     consts = ModelConsts.build(model, device)
     gravity = torch.as_tensor(cfg.gravity_arr, device=device)
     feet = torch.as_tensor(np.asarray(feet_indices, np.int64), device=device)
     eye = torch.eye(6 + model.num_dofs, device=device)
+    on_field = terrain is not None and terrain.height_field is not None
 
-    def step(state: SimState, dyn, tau, ext_force, ext_torque):
+    def run(state, dyn, tau, ext_force, ext_torque, detect):
         v0, w0 = state.root_lin_vel, state.root_ang_vel
         u = torch.cat([v0, w0, state.qd], dim=-1)
         body_R, body_pos = kinematics.forward_kinematics(
@@ -108,7 +120,7 @@ def make_substep(model, cfg, feet_indices, device):
         u_free = u + cfg.dt * dynamics.matvec(M_inv, tau_gen - C)
 
         pts_w = kinematics.point_world_positions(consts, body_R, body_pos)
-        depth, normal = contact_mod.detect_plane(consts, pts_w)
+        depth, normal = detect(pts_w)
         u_new, _, body_forces = contact_mod.solve(
             cfg, consts, dyn.shape_friction, dyn.shape_restitution, M_inv, J, phi,
             u_free, pts_w, depth, normal, state.root_pos)
@@ -129,8 +141,22 @@ def make_substep(model, cfg, feet_indices, device):
             root_pos=state.root_pos + cfg.dt * v0_new,
             root_quat=quat_integrate(state.root_quat, w0_new, cfg.dt),
             root_lin_vel=v0_new, root_ang_vel=w0_new, q=q_new, qd=qd_new)
-        return new_state, body_forces, body_pos[:, feet], body_R[:, feet]
+        return new_state, body_forces, body_pos[:, feet], body_R[:, feet], pts_w[..., :2]
 
+    def step(state: SimState, dyn, tau, ext_force, ext_torque):
+        if on_field:
+            detect = lambda pts: contact_mod.detect(consts, terrain, pts)
+        else:
+            detect = lambda pts: contact_mod.detect_plane(consts, pts)
+        return run(state, dyn, tau, ext_force, ext_torque, detect)[:4]
+
+    def terrain_form(state: SimState, dyn, tau, ext_force, ext_torque, point_heights,
+                     point_normals):
+        return run(state, dyn, tau, ext_force, ext_torque,
+                   lambda pts: contact_mod.detect_carried(consts, pts, point_heights,
+                                                          point_normals))
+
+    step.terrain_form = terrain_form
     return step
 
 

@@ -1,12 +1,14 @@
 """Where one training iteration's time goes on the card.
 
     python -m booster_gym_torch.profile_iteration [--update fused|xla]
+                                                  [--terrain plane|trimesh]
 
 Runs the main path of chip_smoke.py (testing.main_path_cfg: flat T1 on the
 T1-shaped stand-in URDF, 4096 envs, horizon 24, 20 mini-epochs, the fused
-update unless --update xla asks for the autograd one) for two warm-up
-iterations, then profiles two iterations with torch.profiler and prints,
-for the iteration and for its rollout and update phases: the wall time,
+update unless --update xla asks for the autograd one; with --terrain
+trimesh its rough path, testing.rough_path_cfg: T1.yaml's own terrain) for
+two warm-up iterations, then profiles two iterations with torch.profiler
+and prints, for the iteration and its rollout and update phases: the wall time,
 the device's busy share (the sum of kernel times over the wall time; one
 stream, so kernels do not overlap), the number of kernel launches, and the
 kernels that take the most device time.  The device is synchronised at the
@@ -46,15 +48,22 @@ class _PhaseSpans:
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--update", choices=("fused", "xla"), default="fused")
+    parser.add_argument("--terrain", choices=("plane", "trimesh"), default="plane")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_iteration needs a CUDA card")
 
     from booster_gym_torch.runner import Runner
-    from booster_gym_torch.testing import card_line, main_path_cfg, write_t1_shaped_urdf
+    from booster_gym_torch.testing import (
+        card_line,
+        main_path_cfg,
+        rough_path_cfg,
+        write_t1_shaped_urdf,
+    )
 
     card = card_line()
-    cfg = main_path_cfg(write_t1_shaped_urdf(tempfile.mkdtemp()))
+    path_cfg = main_path_cfg if args.terrain == "plane" else rough_path_cfg
+    cfg = path_cfg(write_t1_shaped_urdf(tempfile.mkdtemp()))
     cfg["algorithm"]["update_backend"] = args.update
     runner = Runner(cfg, device="cuda")
     ppo, gen = runner.ppo, runner.gen
@@ -96,8 +105,8 @@ def main(argv=None):
                 "top": [{"name": k[:90], "ms": v[0], "launches": v[1] // PROFILED_ITERS}
                         for k, v in top]}
 
-    print(f"card: {card}; update_backend {args.update}")
-    out = {"card": card, "update_backend": args.update,
+    print(f"card: {card}; update_backend {args.update}; terrain {args.terrain}")
+    out = {"card": card, "update_backend": args.update, "terrain": args.terrain,
            "iteration": summary("iteration", kernels, wall_ms)}
     for phase in ("rollout", "update"):
         spans_of = [(a, b) for name, a, b in phases if name == phase]

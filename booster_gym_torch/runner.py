@@ -79,7 +79,9 @@ class Runner:
 
     def _kernel_launches(self):
         fused = self.ppo.fused
-        return {"substep_kernel_launches": self.env.substep.launches,
+        count = lambda kernel: 0 if kernel is None else kernel.launches
+        return {"substep_kernel_launches": count(self.env.substep),
+                "terrain_sampler_launches": count(self.env.terrain_sampler),
                 "gae_launches": fused.gae_launches,
                 "grads_stats_launches": fused.grads_stats_launches,
                 "opt_stage_launches": fused.opt_stage_launches}
@@ -88,9 +90,10 @@ class Runner:
         """Run max_iterations train iterations; returns one record per
         iteration (metrics as floats plus rollout_ms, update_ms, iter_ms,
         env_steps_per_sec and the CUDA kernels' launches in the iteration,
-        all 0 on the CPU: substep_kernel_launches for K1, and gae_launches,
-        grads_stats_launches and opt_stage_launches for the fused update's
-        K2, K3 and K4)."""
+        all 0 on the CPU: substep_kernel_launches for K1 on the plane or K5
+        on trimesh, terrain_sampler_launches for the trimesh sampler, and
+        gae_launches, grads_stats_launches and opt_stage_launches for the
+        fused update's K2, K3 and K4)."""
         recorder = Recorder(self.cfg)
         env_params, ts = self.ppo.init(self.gen)
         max_iterations = self.cfg["basic"]["max_iterations"]

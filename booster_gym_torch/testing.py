@@ -173,6 +173,55 @@ def main_path_cfg(urdf):
     return cfg
 
 
+def rough_path_cfg(urdf):
+    """main_path_cfg on T1.yaml's own terrain block (trimesh: 8 tiles of
+    10 m x 10 m, a 900 x 200 field)."""
+    cfg = main_path_cfg(urdf)
+    cfg["terrain"]["type"] = load_task_cfg("T1")["terrain"]["type"]
+    return cfg
+
+
+def point_terrain_inputs(npt, B, seed):
+    """Inputs of the general-terrain substep, as numpy: point heights
+    [B, npt] in +-0.05 m and unit normals [B, npt, 3] tilted up to ~0.3 rad
+    from +z."""
+    rng = np.random.default_rng(seed)
+    h = rng.uniform(-0.05, 0.05, (B, npt)).astype(np.float32)
+    tilt, az = rng.uniform(0, 0.3, (B, npt)), rng.uniform(0, 2 * np.pi, (B, npt))
+    n = np.stack([np.sin(tilt) * np.cos(az), np.sin(tilt) * np.sin(az), np.cos(tilt)], -1)
+    return h, n.astype(np.float32)
+
+
+def off_grid_lines(xy, terrain, margin=1e-3):
+    """World xy (numpy) with every grid coordinate that lies within `margin`
+    cells of a grid line moved to `margin` past it: across a line the
+    terrain's slopes jump, and one rounding could change the cell."""
+    g = xy / terrain.horizontal_scale
+    frac = g - np.floor(g)
+    g = np.where(frac < margin, np.floor(g) + margin, g)
+    g = np.where(frac > 1 - margin, np.floor(g) + 1 + margin, g)
+    return (g * terrain.horizontal_scale).astype(np.float32)
+
+
+def sampler_inputs(terrain, B, N, reach, edge_roots, seed):
+    """Inputs of the terrain sampler, as numpy: roots [B, 2] over the tiles
+    (with edge_roots most of them within 1 m of the field's edges and
+    corners) and queries [B, N, 2] up to `reach` metres from their root,
+    off the grid lines."""
+    rng = np.random.default_rng(seed)
+    lo = -terrain.border_size
+    hi = np.array([terrain.env_width, terrain.env_length]) + terrain.border_size
+    if edge_roots:
+        root = np.where(rng.random((B, 2)) < 0.5, lo + rng.uniform(0, 1, (B, 2)),
+                        hi - rng.uniform(0, 1, (B, 2)))
+        inner = rng.random((B, 2)) < 0.3     # some on an edge, not in a corner
+        root = np.where(inner, rng.uniform(lo, hi, (B, 2)), root)
+    else:
+        root = rng.uniform(0.5, hi - terrain.border_size - 0.5, (B, 2))
+    pts = root[:, None, :] + rng.uniform(-reach, reach, (B, N, 2))
+    return root.astype(np.float32), off_grid_lines(pts, terrain)
+
+
 def update_inputs(network, T, B, device, seed):
     """A rollout's buffers for the PPO update, made with numpy from a seed
     and moved to `device`: buf = (obs, priv, act, mu, std, rew, done,

@@ -1,7 +1,9 @@
 """Train a policy on the port:
 
-    python -m booster_gym_torch.train --task=T1 --terrain=plane \
+    python -m booster_gym_torch.train --task=T1 [--terrain=plane] \
         [--num_envs N --max_iterations K --asset_file URDF] [--device cuda|cpu]
+
+Without --terrain the task file's terrain is used (T1.yaml: trimesh).
 
 Runs on cuda unless --device cpu; without a GPU and without --device cpu
 it raises.

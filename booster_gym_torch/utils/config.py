@@ -27,7 +27,7 @@ def parse_args(argv=None):
     parser.add_argument("--headless", type=bool, help="Run without visualization.")
     parser.add_argument("--seed", type=int, help="Random seed.")
     parser.add_argument("--max_iterations", type=int, help="Training iterations.")
-    parser.add_argument("--terrain", type=str, help="Override terrain type (plane only).")
+    parser.add_argument("--terrain", type=str, help="Override terrain type (plane or trimesh).")
     parser.add_argument("--asset_file", type=str, help="Robot URDF (absolute path, or "
                         "relative to the working directory or the repository).")
     parser.add_argument("--device", type=str, default="cuda",

@@ -6,11 +6,17 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); CUDA must be available;
   2. build the CUDA kernels, the nvcc runs in parallel: the substep kernel
-     K1 (csrc/substep.cu) for the toy robot and the T1-shaped robot, and the
-     fused update's K2, K3 and K4 (csrc/update.cu);
+     (csrc/substep.cu) as K1 (plane) and K5 (general terrain) for the toy
+     robot and the T1-shaped robot, the terrain sampler K6 + K7
+     (csrc/terrain_sample.cu), and the fused update's K2, K3 and K4
+     (csrc/update.cu);
   3. each kernel against its plain PyTorch version on the card: K1 on both
      robots at B = 4096 and B = 1000 (a ragged last block), several
-     substeps; K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
+     substeps; K5 the same with heights from T1.yaml's field and tilted
+     normals, and on plane inputs against K1 with a difference of exactly
+     0; the sampler at B = 4096 and 1000 with 65 queries per env, also with
+     roots at the field's edge and queries 1-2 m from their root (the
+     clamped cases); K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
      (N = 98,304) and B = 1000 (ragged tiles), K3 and K4 launched twice to
      show that they repeat bitwise; then the whole fused update() against
      the xla (autograd) update() from the same parameters and rollout
@@ -21,10 +27,15 @@ Phases, in order; any failure exits non-zero:
      K1 must be launched 24 x 10 times and K2, K3 and K4 20 times each.  Then
      the xla update on the same configuration, 2 iterations, for its times
      beside the fused path's from the same run;
+  4b. the rough path: the same Runner on T1.yaml's own terrain (trimesh,
+     a 900 x 200 field), 4096 envs, 3 iterations; per iteration K5 must be
+     launched 24 x 10 times, K1 never, the sampler 24 times and K2, K3 and
+     K4 20 times each;
   5. one control step of the env on the card against the same step on the
-     CPU (plain substep) from the same state, a small batch;
-  6. each kernel's time at the main path's shapes beside its bound and the
-     plain version's time, printed as a `kernels` JSON line.
+     CPU (plain versions) from the same state, a small batch, on the plane
+     and on a small heightfield;
+  6. each kernel's time at its path's shapes beside its bound and the plain
+     version's time, printed as a `kernels` JSON line.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -37,13 +48,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# K1 against its plain version: the state and the feet poses to rtol = atol
-# = 2e-3, the JAX package's kernel-vs-engine tolerance; contact forces to
-# rtol 5e-2 / atol 1 N, as the JAX package's tests.  The env step on the card
-# against the CPU: observations and rewards to the same 2e-3.
+# K1 and K5 against their plain version: the state and the feet poses to
+# rtol = atol = 2e-3, the JAX package's kernel-vs-engine tolerance; contact
+# forces to rtol 5e-2 / atol 1 N, as the JAX package's tests; K5's contact-
+# point xy to atol 1e-5 (one FK in f32 on both sides).  The env step on the
+# card against the CPU: observations and rewards to the same 2e-3.  The
+# terrain sampler against its plain version: atol 2e-5 on heights and
+# normals, the JAX package's own tolerance for its sampler.
 TOL_STATE = 2e-3
 TOL_FORCE_RTOL, TOL_FORCE_ATOL = 5e-2, 1.0
+TOL_PTXY = 1e-5
 TOL_ENV = 2e-3
+TOL_SAMPLER = 2e-5
 
 # K2-K4 against their plain versions, as relative errors of the norm.  f32:
 # the same products summed in another order.  bf16: both round to bf16 at the
@@ -70,10 +86,10 @@ def log(*args):
 
 
 # ---------------------------------------------------------------------------
-def substep_op_count(model, cfg):
-    """f32 operations of one K1 substep for one env, counted from the loop
-    trip counts of csrc/substep.cu (a multiply-add is 2; sin, cos, sqrt,
-    rsqrt and a division 1 each)."""
+def substep_op_count(model, cfg, plane=True):
+    """f32 operations of one substep for one env (K1, or K5 with plane
+    False), counted from the loop trip counts of csrc/substep.cu (a
+    multiply-add is 2; sin, cos, sqrt, rsqrt and a division 1 each)."""
     import numpy as np
 
     from booster_gym_torch.physics.engine import ancestor_dof_mask
@@ -101,14 +117,22 @@ def substep_op_count(model, cfg):
     sweep = wrench + nv + (nb - 1) * 12 + npt * (9 + 6 + 3 * 6 + 3 + 7 + 2 + 3)
     ops += cfg.solver_iterations * sweep + wrench + nv
     ops += 9 + 12 + 11 + 28 + 9 + nd * 6 + nb * 3                      # integrate
+    if not plane:
+        # depth from h; the approach speed along n (the full point velocity
+        # and a dot product); per sweep the target along n, l . n, the
+        # tangential vector and its norm, and the recombination about n
+        ops += npt * (1 + 13) + cfg.solver_iterations * npt * (3 + 5 + 6 + 2 + 7)
     return ops
 
 
 def substep_bytes(kernel):
-    """Bytes K1 must move per env: each input read once, each output
-    written once (the model table is shared and negligible)."""
+    """Bytes the substep kernel must move per env: each input read once,
+    each output written once (the model table is shared and negligible).
+    K5 also reads h and n and writes the points' xy."""
     reads = kernel.nstate + kernel.ndyn + kernel.nd + 6
     writes = kernel.nstate + 3 * kernel.nb + 12 * kernel.nf
+    if not kernel.plane:
+        reads, writes = reads + 4 * kernel.npt, writes + 2 * kernel.npt
     return 4 * (reads + writes)
 
 
@@ -149,22 +173,47 @@ def rand_inputs(model, B, device, seed, standing=False):
     return state, dyn, tau, ef, et
 
 
-def compare_kernel(name, kernel, plain, model, B, substeps=5):
-    """K1 against the plain version for `substeps` substeps; each substep
-    starts both from the plain version's state, so the comparison measures
-    one substep's error, not chaotic divergence.  Returns max abs error."""
+def point_terrain(terrain, model, B, seed):
+    """K5's terrain inputs on the card: heights of `terrain`'s field at
+    random xy over its tiles, and unit normals tilted up to ~0.3 rad."""
+    import numpy as np
+    import torch
+
+    from booster_gym_torch.testing import point_terrain_inputs
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, [terrain.env_width, terrain.env_length], (B, model.num_points, 2))
+    h = terrain.heights(torch.as_tensor(xy.astype(np.float32), device="cuda"))
+    n = point_terrain_inputs(model.num_points, B, seed + 1)[1]
+    return h.contiguous(), torch.as_tensor(n, device="cuda")
+
+
+def compare_kernel(name, kernel, plain, model, B, substeps=5, terrain=None):
+    """K1 (or, with `terrain`, K5 on heights from its field and tilted
+    normals) against the plain version for `substeps` substeps; each
+    substep starts both from the plain version's state, so the comparison
+    measures one substep's error, not chaotic divergence.  Returns max abs
+    error."""
     import torch
 
     from booster_gym_torch.physics import SimState
 
     state, dyn, tau, ef, et = rand_inputs(model, B, "cuda", seed=B,
                                           standing=name == "t1" and B % 1024 == 0)
+    label = "K1" if kernel.plane else "K5"
+    name = f"{label} {name}"
     worst = 0.0
     for i in range(substeps):
         z = torch.zeros_like(ef)
         args = (dyn, tau, ef if i == 0 else z, et if i == 0 else z)
-        s_k, f_k, fp_k, fR_k = kernel.step(state, *args)
-        s_p, f_p, fp_p, fR_p = plain(state, *args)
+        xy_k = xy_p = None
+        if kernel.plane:
+            s_k, f_k, fp_k, fR_k = kernel.step(state, *args)
+            s_p, f_p, fp_p, fR_p = plain(state, *args)
+        else:
+            hn = point_terrain(terrain, model, B, seed=B + i)
+            s_k, f_k, fp_k, fR_k, xy_k = kernel.terrain_form(state, *args, *hn)
+            s_p, f_p, fp_p, fR_p, xy_p = plain.terrain_form(state, *args, *hn)
         torch.cuda.synchronize()
         fails = []
         for field in SimState.FIELDS:
@@ -181,7 +230,10 @@ def compare_kernel(name, kernel, plain, model, B, substeps=5):
         for field, a, b, rtol, atol in (
                 ("forces", f_k, f_p, TOL_FORCE_RTOL, TOL_FORCE_ATOL),
                 ("feet_pos", fp_k, fp_p, TOL_STATE, TOL_STATE),
-                ("feet_R", fR_k, fR_p, TOL_STATE, TOL_STATE)):
+                ("feet_R", fR_k, fR_p, TOL_STATE, TOL_STATE),
+                ("point_xy", xy_k, xy_p, 0.0, TOL_PTXY)):
+            if a is None:
+                continue
             err = (a - b).abs()
             worst = max(worst, float(err.max()))
             ok = bool((err <= atol + rtol * b.abs()).all())
@@ -190,10 +242,58 @@ def compare_kernel(name, kernel, plain, model, B, substeps=5):
             if not ok:
                 fails.append(field)
         if fails:
-            raise AssertionError(f"K1 disagrees with its plain version ({name}, B={B}, "
+            raise AssertionError(f"{label} disagrees with its plain version ({name}, B={B}, "
                                  f"substep {i}): {fails}")
         state = s_p
     return worst
+
+
+def compare_general_with_plane(name, k1, k5, model, B, substeps=5):
+    """K5 on plane inputs (h = 0, n = +z) against K1 from the same states:
+    every output must differ by exactly 0."""
+    import torch
+
+    from booster_gym_torch.physics import SimState
+
+    state, dyn, tau, ef, et = rand_inputs(model, B, "cuda", seed=B + 7,
+                                          standing=name == "t1" and B % 1024 == 0)
+    worst = 0.0
+    for i in range(substeps):
+        z = torch.zeros_like(ef)
+        args = (state, dyn, tau, ef if i == 0 else z, et if i == 0 else z)
+        out1, out5 = k1.step(*args), k5.step(*args)
+        torch.cuda.synchronize()
+        pairs = [(f, getattr(out1[0], f), getattr(out5[0], f)) for f in SimState.FIELDS]
+        pairs += list(zip(("forces", "feet_pos", "feet_R"), out1[1:], out5[1:]))
+        diffs = {f: float((a - b).abs().max()) for f, a, b in pairs}
+        worst = max(worst, *diffs.values())
+        state = out1[0]
+    log(f"  K5 on plane inputs minus K1, {name} B={B}, {substeps} substeps: max abs diff {worst}")
+    require(worst == 0.0, f"K5 on plane inputs differs from K1 ({name}, B={B}): {diffs}")
+
+
+def compare_sampler(sampler, terrain, B, clamped):
+    """The terrain sampler against its plain version on T1.yaml's field;
+    `clamped` puts roots at the field's edge and queries up to 2 m from
+    their root.  Returns max abs error."""
+    import torch
+
+    from booster_gym_torch.testing import sampler_inputs
+
+    root, pts = (torch.as_tensor(x, device="cuda") for x in sampler_inputs(
+        terrain, B, sampler.num_points, 2.0 if clamped else 0.55, clamped, seed=B))
+    h, n = sampler(terrain.height_field, root, pts)
+    h_p, n_p = sampler.plain(terrain.height_field, root, pts)
+    torch.cuda.synchronize()
+    e_h, e_n = float((h - h_p).abs().max()), float((n - n_p).abs().max())
+    direct = float((h - terrain.heights(pts)).abs().max())
+    log(f"  sampler B={B} N={sampler.num_points} {'clamped' if clamped else 'inside '}: max abs "
+        f"h {e_h:.2e} n {e_n:.2e} (tol {TOL_SAMPLER}); against the whole-field query "
+        f"{direct:.2e}")
+    require(max(e_h, e_n) <= TOL_SAMPLER, f"the sampler disagrees with its plain version (B={B})")
+    require(direct > 1e-3 if clamped else direct <= TOL_SAMPLER,
+            f"the sampler's patch clamp (B={B}, clamped={clamped})")
+    return max(e_h, e_n)
 
 
 def time_cuda(fn, iters):
@@ -448,9 +548,12 @@ def main():
     from booster_gym_torch.physics import substep_kernel as sk
     from booster_gym_torch.physics.engine import make_substep
     from booster_gym_torch.runner import Runner
+    from booster_gym_torch.terrain import Terrain, sample_kernel
     from booster_gym_torch.testing import (
         card_line,
         main_path_cfg,
+        rough_path_cfg,
+        sampler_inputs,
         toy_model,
         write_t1_shaped_urdf,
     )
@@ -467,15 +570,22 @@ def main():
     urdf = write_t1_shaped_urdf(workdir)
     models = {"toy": toy_model(), "t1": load_urdf(urdf, cylinder_rim_points=4)}
     cfg = SimConfig()
-    kernels, plains = {}, {}
+    kernels, general, plains = {}, {}, {}
     for name, model in models.items():
         feet = [i for i, n in enumerate(model.body_names) if "foot" in n]
         kernels[name] = sk.SubstepKernel(model, cfg, feet, "cuda")
+        general[name] = sk.SubstepKernel(model, cfg, feet, "cuda", plane=False)
         plains[name] = make_substep(model, cfg, feet, "cuda")
+    # T1.yaml's terrain and the sampler at the rough path's 56 + 1 + 8 queries
+    terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0, device="cuda")
+    sampler = sample_kernel.make_terrain_sampler(terrain, 65, "cuda")
     update_sizes = update_kernel.FusedUpdate(ActorCritic(12, 47, 14), 0.2, 10.0).sizes
     t0 = time.perf_counter()
     builds = {f"K1 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
               for n, k in kernels.items()}
+    builds.update({f"K5 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
+                   for n, k in general.items()})
+    builds["K6+K7"] = kernel_build.start_build(sample_kernel.SOURCE, {})
     builds["K2-K4"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
     for name, (path, proc, tmp) in builds.items():
         report = kernel_build.finish_build(path, proc, tmp)
@@ -484,7 +594,7 @@ def main():
         for i, line in enumerate(lines):
             if "registers" in line:
                 log(f"  ptxas: {lines[i - 1].strip()}; {line.strip().replace('ptxas info    : ', '')}")
-    for k in kernels.values():
+    for k in (*kernels.values(), *general.values(), sampler):
         k.build()   # loads the library just built
     log(f"kernel builds: {time.perf_counter() - t0:.1f} s (set-up)")
 
@@ -495,6 +605,19 @@ def main():
             max_err = max(max_err, compare_kernel(name, kernels[name], plains[name],
                                                   models[name], B))
     log(f"K1 matches its plain version: max abs err {max_err:.3e}")
+
+    # -- 3a. K5 against its plain version and against K1; the sampler ------
+    k5_err = sampler_err = 0.0
+    for name in ("toy", "t1"):
+        for B in (4096, 1000):
+            k5_err = max(k5_err, compare_kernel(name, general[name], plains[name],
+                                                models[name], B, terrain=terrain))
+            compare_general_with_plane(name, kernels[name], general[name], models[name], B)
+    log(f"K5 matches its plain version: max abs err {k5_err:.3e}; on plane inputs it is K1")
+    for B in (4096, 1000):
+        for clamped in (False, True):
+            sampler_err = max(sampler_err, compare_sampler(sampler, terrain, B, clamped))
+    log(f"the sampler matches its plain version: max abs err {sampler_err:.3e}")
 
     # -- 3b. K2-K4 against their plain versions, then the whole update -----
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 products
@@ -570,58 +693,147 @@ def main():
         f"{x['update_ms']:.2f} ms, rollout {f['rollout_ms']:.2f} vs {x['rollout_ms']:.2f} ms, "
         f"iteration {f['iter_ms']:.2f} vs {x['iter_ms']:.2f} ms")
 
+    # -- 4b. the rough path: T1.yaml's own terrain ---------------------------
+    rcfg = rough_path_cfg(urdf)
+    if rcfg["terrain"] != load_task_cfg("T1")["terrain"] or rcfg["terrain"]["type"] != "trimesh":
+        raise AssertionError("the rough path's terrain block is not T1.yaml's")
+    rrunner = Runner(rcfg, device="cuda")
+    renv, rfused = rrunner.env, rrunner.ppo.fused
+    if tuple(renv.terrain.height_field.shape) != (900, 200):
+        raise AssertionError(f"height field {tuple(renv.terrain.height_field.shape)}")
+    if renv.substep.plane or renv.num_envs != 4096:
+        raise AssertionError("the rough path does not run the general-terrain kernel at 4096")
+    renv.substep.launches = renv.terrain_sampler.launches = 0
+    rfused.gae_launches = rfused.grads_stats_launches = rfused.opt_stage_launches = 0
+    k1_wrappers = (*kernels.values(), runner.env.substep, xrunner.env.substep)
+    k1_before = sum(k.launches for k in k1_wrappers)
+    rrecords = rrunner.train()
+    torch.cuda.synchronize()
+    rough_launches = {"K5": renv.substep.launches, "K6+K7": renv.terrain_sampler.launches,
+                      "K2": rfused.gae_launches, "K3": rfused.grads_stats_launches,
+                      "K4": rfused.opt_stage_launches,
+                      "K1": sum(k.launches for k in k1_wrappers) - k1_before}
+    log_records("rough path (fused update)", rrecords)
+    rough_per_iter = [[int(rec[k]) for k in (
+        "substep_kernel_launches", "terrain_sampler_launches", "gae_launches",
+        "grads_stats_launches", "opt_stage_launches")] for rec in rrecords]
+    rough_expect = {"K5": 3 * k1_per_iter, "K6+K7": 3 * horizon, "K2": 3 * mini_epochs,
+                    "K3": 3 * mini_epochs, "K4": 3 * mini_epochs, "K1": 0}
+    log(f"rough path launches: {rough_launches} (expected {rough_expect}), per iteration "
+        f"K5/sampler/K2/K3/K4 {rough_per_iter}")
+    if rough_launches != rough_expect or rough_per_iter != [
+            [k1_per_iter, horizon] + [mini_epochs] * 3] * 3:
+        raise AssertionError(f"kernel launches on the rough path: {rough_launches} "
+                             f"({rough_per_iter} per iteration), expected {rough_expect}")
+    rts = rrunner.train_state
+    if rts.obs.shape != (4096, 47) or not bool(torch.isfinite(rts.obs).all()):
+        raise AssertionError("observations after rough training")
+    rstate = rts.env_state
+    if not (bool(torch.isfinite(rstate.point_heights).all())
+            and float(rstate.point_heights.abs().max()) > 0
+            and bool(torch.isfinite(rstate.point_normals).all())):
+        raise AssertionError("the carried per-point terrain after rough training")
+    f, r = records[-1], rrecords[-1]
+    log(f"last iteration, flat vs rough path [{card}]: rollout {f['rollout_ms']:.2f} vs "
+        f"{r['rollout_ms']:.2f} ms, update {f['update_ms']:.2f} vs {r['update_ms']:.2f} ms, "
+        f"iteration {f['iter_ms']:.2f} vs {r['iter_ms']:.2f} ms")
+
     # -- 5. env step on the card against the CPU ---------------------------
     from booster_gym_torch.envs.t1 import T1
 
-    ecfg = load_task_cfg("T1")
-    ecfg["env"]["num_envs"] = 256
-    ecfg["terrain"]["type"] = "plane"
-    ecfg["asset"]["file"] = urdf
-    ecfg["noise"] = {}
-    env_cpu, env_gpu = T1(ecfg, "cpu"), T1(ecfg, "cuda")
-    gen = torch.Generator().manual_seed(1)
-    params = env_cpu.init_params(gen)
-    state, _, _ = env_cpu.reset_all(params, gen)
-    actions = 0.3 * torch.randn(256, 12, generator=gen)
-    out_c = env_cpu.step(params, state, actions, gen)
-    out_g = env_gpu.step(to_device(params, "cuda"), to_device(state, "cuda"),
-                         actions.cuda(), torch.Generator("cuda").manual_seed(1))
-    keep = ~(out_c[3] | out_g[3].cpu())
-    for label, a, b in (("obs", out_g[1].cpu(), out_c[1]), ("reward", out_g[2].cpu(), out_c[2]),
-                        ("privileged", out_g[4]["privileged_obs"].cpu(),
-                         out_c[4]["privileged_obs"])):
-        err = float((a[keep] - b[keep]).abs().max())
-        ok = bool(((a[keep] - b[keep]).abs() <= TOL_ENV + TOL_ENV * b[keep].abs()).all())
-        log(f"env step cuda vs cpu ({int(keep.sum())} envs): {label} max_abs={err:.3e} "
-            f"tol={TOL_ENV} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"env step on the card disagrees with the CPU: {label}")
+    for label, terrain_cfg in (("plane", {"type": "plane"}), ("trimesh", dict(
+            num_terrains=2, terrain_width=4.0, terrain_length=4.0, border_size=2.0))):
+        ecfg = load_task_cfg("T1")
+        ecfg["env"]["num_envs"] = 256
+        ecfg["terrain"].update(terrain_cfg)
+        ecfg["asset"]["file"] = urdf
+        ecfg["noise"] = {}
+        env_cpu, env_gpu = T1(ecfg, "cpu"), T1(ecfg, "cuda")
+        gen = torch.Generator().manual_seed(1)
+        params = env_cpu.init_params(gen)
+        state, _, _ = env_cpu.reset_all(params, gen)
+        actions = 0.3 * torch.randn(256, 12, generator=gen)
+        out_c = env_cpu.step(params, state, actions, gen)
+        out_g = env_gpu.step(to_device(params, "cuda"), to_device(state, "cuda"),
+                             actions.cuda(), torch.Generator("cuda").manual_seed(1))
+        keep = ~(out_c[3] | out_g[3].cpu())
+        pairs = [("obs", out_g[1], out_c[1]), ("reward", out_g[2], out_c[2]),
+                 ("privileged", out_g[4]["privileged_obs"], out_c[4]["privileged_obs"])]
+        if label == "trimesh":
+            require(env_gpu.substep.launches == 10 and env_gpu.terrain_sampler.launches == 1,
+                    "the trimesh env step's kernel launches")
+            # (the carried normals are left out: they jump at the field's grid
+            # lines, which a point a rounding apart may straddle)
+            pairs += [("point_heights", out_g[0].point_heights, out_c[0].point_heights)]
+        for what, a, b in pairs:
+            a, b = a.cpu()[keep], b[keep]
+            err = float((a - b).abs().max())
+            ok = bool(((a - b).abs() <= TOL_ENV + TOL_ENV * b.abs()).all())
+            log(f"env step cuda vs cpu, {label} ({int(keep.sum())} envs): {what} "
+                f"max_abs={err:.3e} tol={TOL_ENV} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"env step on the card disagrees with the CPU: {what}")
 
-    # -- 6. K1 timing ------------------------------------------------------
+    # -- 6. timing: K1, K5 and the sampler, then K2-K4 ----------------------
     B = 4096
-    k, plain, model = kernels["t1"], plains["t1"], models["t1"]
+    plain, model = plains["t1"], models["t1"]
     state, dyn, tau, ef, et = rand_inputs(model, B, "cuda", seed=3, standing=True)
-    ps, pdyn = k.pack_sim(state), k.pack_dyn(dyn)
     ptau = tau.T.contiguous()
     pext = torch.cat([ef, et], dim=-1).T.contiguous()
-    n0 = k.launches
-    ms = time_cuda(lambda: k.packed_call(ps, pdyn, ptau, pext), 200)
-    plain_ms = time_cuda(lambda: plain(state, dyn, tau, ef, et), 20)
-    nbytes = substep_bytes(k) * B
-    nops = substep_op_count(model, cfg) * B
+    h, n = point_terrain(terrain, model, B, seed=4)
+    ph, pn = h.T.contiguous(), n.reshape(B, -1).T.contiguous()
+    entries = []
+    for k, hn, phn, n_launches, err in (
+            (kernels["t1"], (), (), launches["K1"], max_err),
+            (general["t1"], (h, n), (ph, pn), rough_launches["K5"], k5_err)):
+        label = "K1" if k.plane else "K5"
+        ps, pdyn = k.pack_sim(state), k.pack_dyn(dyn)
+        n0 = k.launches
+        ms = time_cuda(lambda: k.packed_call(ps, pdyn, ptau, pext, *phn), 200)
+        plain_fn = plain if k.plane else plain.terrain_form
+        plain_ms = time_cuda(lambda: plain_fn(state, dyn, tau, ef, et, *hn), 20)
+        nbytes = substep_bytes(k) * B
+        nops = substep_op_count(model, cfg, k.plane) * B
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        log(f"{label} at {B} envs [{card}]: {ms * 1e3:.2f} us/substep; plain version "
+            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us, {nops / 1e6:.1f} Mop -> "
+            f"{t_ops * 1e3:.2f} us); timing launches {k.launches - n0}")
+        entries.append({
+            "name": "K1 substep (plane)" if k.plane else "K5 substep (general terrain)",
+            "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
+            "replaces": "booster_gym_tpu/physics/pallas_engine.py:267",
+            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+
+    # the sampler at the rough path's shapes: 4096 roots over the tiles, 65
+    # queries within 0.55 m of each (the contact points' reach)
+    N = sampler.num_points
+    root, pts = (torch.as_tensor(x, device="cuda")
+                 for x in sampler_inputs(terrain, B, N, 0.55, False, seed=5))
+    hf = terrain.height_field
+    n0 = sampler.launches
+    ms = time_cuda(lambda: sampler(hf, root, pts), 200)
+    plain_ms = time_cuda(lambda: sampler.plain(hf, root, pts), 20)
+    nbytes = B * (8 + N * 8 + N * 16) + hf.numel() * 4
+    nops = B * N * 50
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"K1 at {B} envs [{card}]: {ms * 1e3:.2f} us/substep; plain version "
-        f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
-        f"({nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us, {nops / 1e6:.1f} Mop -> "
-        f"{t_ops * 1e3:.2f} us); timing launches {k.launches - n0}")
-    line = {"kernels": [{
-        "name": "K1 substep (plane)", "route": "cuda",
-        "source": "booster_gym_torch/csrc/substep.cu",
-        "replaces": "booster_gym_tpu/physics/pallas_engine.py:267",
-        "launches": launches["K1"], "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None}] + time_update_kernels(card, launches, update_err)}
+    log(f"K6+K7 sampler at {B} envs x {N} queries [{card}]: {ms * 1e3:.2f} us/call; plain "
+        f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB "
+        f"-> {t_bytes * 1e3:.2f} us, {nops / 1e6:.1f} Mop -> {t_ops * 1e3:.2f} us); library: "
+        f"none (grid_sample gives no slopes and clamps to the whole field); timing launches "
+        f"{sampler.launches - n0}")
+    entries.append({
+        "name": "K6+K7 terrain sampler", "route": "cuda",
+        "source": "booster_gym_torch/csrc/terrain_sample.cu",
+        "replaces": "booster_gym_tpu/terrain/sample_kernel.py:83 and :181",
+        "launches": rough_launches["K6+K7"], "max_abs_err": sampler_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
+    line = {"kernels": entries + time_update_kernels(card, launches, update_err)}
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The port's T1 env (plane terrain) against the JAX package's, on the
-T1-shaped stand-in robot.
+"""The port's T1 env (plane and trimesh terrain) against the JAX package's,
+on the T1-shaped stand-in robot.
 
 Both sides start from the same EnvParams / EnvState (the JAX side's,
 carried across by booster_gym_torch.convert) and take three control steps
@@ -9,6 +9,12 @@ command resampling lies seconds away.  Envs that reset on either side are
 left out of the comparison (a reset draws a new state).  Tolerance: rtol =
 atol = 2e-3 on observations, rewards and reward terms, the physics
 tolerance of tests/test_torch_physics.py.
+
+On trimesh (a small field: 2 tiles of 4 m x 4 m, border 2 m) the JAX side
+runs its CPU default, the xla engine, which queries the terrain inside the
+substep; the port runs the same engine under sim.backend: xla.  The port's
+default kernel path (carried per-point terrain, substep kernel and terrain
+sampler, here their plain versions) is then held to its own invariants.
 """
 
 import copy
@@ -197,3 +203,183 @@ def test_still_mode_exact_fraction(tmp_path):
     assert int(still.sum()) == int(0.1 * 730)
     assert bool((out.gait_frequency[~resample] == 0.0).all())   # untouched: zeros
     assert bool((out.cmd_resample_time[~resample] == 5).all())
+
+
+# ---------------------------------------------------------------------------
+# trimesh
+SMALL_FIELD = dict(num_terrains=2, terrain_width=4.0, terrain_length=4.0, border_size=2.0)
+
+
+def rough_cfg(urdf, num_envs=B):
+    cfg = quiet_cfg(urdf, num_envs)
+    cfg["terrain"]["type"] = "trimesh"
+    cfg["terrain"].update(SMALL_FIELD)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def rough_pair(tmp_path_factory):
+    urdf = write_t1_shaped_urdf(tmp_path_factory.mktemp("urdf"))
+    cfg = rough_cfg(urdf)
+    jenv = JaxT1(copy.deepcopy(cfg))
+    assert not jenv.pallas_backend            # the JAX package's CPU default
+    xcfg = copy.deepcopy(cfg)
+    xcfg["sim"]["backend"] = "xla"
+    tenv = T1(xcfg, device="cpu")
+    jparams = jenv.init_params(jax.random.PRNGKey(0))
+    jstate, _, _ = jenv.reset_all(jparams, jax.random.PRNGKey(1))
+    host = lambda x: jax.tree.map(np.asarray, x)
+    return jenv, tenv, jparams, jstate, env_params_from_jax(host(jparams), "cpu"), \
+        env_state_from_jax(host(jstate), "cpu")
+
+
+@pytest.fixture(scope="module")
+def kernel_env(tmp_path_factory):
+    """The port's default backend on trimesh, on the CPU."""
+    urdf = write_t1_shaped_urdf(tmp_path_factory.mktemp("urdf"))
+    env = T1(rough_cfg(urdf, 16), device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    params = env.init_params(gen)
+    state, _, _ = env.reset_all(params, gen)
+    return env, params, state
+
+
+def test_trimesh_origins_and_reset_state_match_jax(rough_pair):
+    jenv, tenv, jparams, jstate, tparams, tstate = rough_pair
+    assert tenv.engine_substep is not None and tenv.substep is None
+    assert tenv.terrain_sampler is None
+    np.testing.assert_array_equal(tenv.terrain.height_field.numpy(),
+                                  np.asarray(jenv.terrain.height_field))
+    np.testing.assert_array_equal(tparams.height_field.numpy(), np.asarray(jparams.height_field))
+    np.testing.assert_allclose(tenv.env_origins.numpy(), np.asarray(jenv.env_origins),
+                               rtol=0, atol=1e-6)
+    assert float(tenv.env_origins[:, 2].abs().max()) > 0
+    # what reset_all derives from the drawn root poses, from the JAX state:
+    # the terrain under the root and under every contact point (atol 1e-6,
+    # the direct queries' tolerance), and the feet state (2e-3)
+    root_h = tenv.terrain.heights(tstate.sim.root_pos[:, :2], tparams.height_field)
+    np.testing.assert_allclose(root_h.numpy(), np.asarray(jstate.terrain_height_root), atol=1e-6)
+    np.testing.assert_allclose(
+        (tstate.sim.root_pos[:, 2] - root_h).numpy(), 0.72, atol=1e-5)
+    refreshed = tenv._refresh_point_terrain(tstate)
+    assert refreshed.point_heights.shape == (B, 56)
+    np.testing.assert_allclose(refreshed.point_heights.numpy(),
+                               np.asarray(jstate.point_heights), atol=1e-6)
+    np.testing.assert_allclose(refreshed.point_normals.numpy(),
+                               np.asarray(jstate.point_normals), atol=1e-6)
+    zero = torch.zeros_like(tstate.filtered_lin_vel)
+    post = tenv._refresh_post_physics(
+        tparams, tstate.replace(filtered_lin_vel=zero, filtered_ang_vel=zero))
+    np.testing.assert_array_equal(post.feet_contact.numpy(), np.asarray(jstate.feet_contact))
+    np.testing.assert_allclose(post.feet_pos.numpy(), np.asarray(jstate.feet_pos),
+                               rtol=TOL, atol=TOL)
+    # the port's own reset_all on the field: roots stand 0.72 m above it
+    state, obs, _ = tenv.reset_all(tparams, torch.Generator().manual_seed(0))
+    h = tenv.terrain.heights(state.sim.root_pos[:, :2])
+    np.testing.assert_allclose((state.sim.root_pos[:, 2] - h).numpy(), 0.72, atol=1e-5)
+    assert torch.equal(state.terrain_height_root, h) and bool(torch.isfinite(obs).all())
+
+
+def test_trimesh_three_steps_match_jax(rough_pair):
+    jenv, tenv, jparams, jstate, tparams, tstate = rough_pair
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    compared = 0
+    for step in range(3):
+        actions = (0.3 * rng.standard_normal((B, 12))).astype(np.float32)
+        jstate, jobs, jrew, jdone, jinfo = jstep(jparams, jstate, jax.numpy.asarray(actions))
+        tstate, tobs, trew, tdone, tinfo = tenv.step(tparams, tstate, torch.as_tensor(actions),
+                                                     gen)
+        keep = ~(np.asarray(jdone) | tdone.numpy())
+        assert keep.sum() >= B // 2, "too many resets to compare"
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        close(tobs.numpy(), jobs, keep, f"obs, step {step}")
+        close(tinfo["privileged_obs"].numpy(), jinfo["privileged_obs"], keep,
+              f"privileged obs, step {step}")
+        close(trew.numpy(), jrew, keep, f"reward, step {step}")
+        close(tstate.terrain_height_root.numpy(), jstate.terrain_height_root, keep,
+              f"root terrain height, step {step}")
+        close(tstate.sim.root_pos.numpy(), jstate.sim.root_pos, keep, f"root pos, step {step}")
+        for name, val in tinfo["rew_terms"].items():
+            close(val.numpy(), jinfo["rew_terms"][name], keep, f"{name}, step {step}")
+        compared += int(keep.sum())
+    assert compared > 0
+    assert float(tstate.terrain_height_root.abs().max()) > 0   # the field is not flat there
+
+
+def test_teleport_matches_jax(rough_pair):
+    """Robots placed past each border wrap to the other side, as in JAX."""
+    jenv, tenv, _, jstate, _, tstate = rough_pair
+    t = jenv.terrain
+    pos = np.asarray(jstate.sim.root_pos).copy()
+    far = 0.75 * t.border_size + 0.1
+    pos[0, 0], pos[1, 0] = -far, t.env_width + far
+    pos[2, 1], pos[3, 1] = -far, t.env_length + far
+    pos[4, :2] = [-far, t.env_length + far]
+    pos[5, :2] = [-0.75 * t.border_size + 0.05, 1.0]          # inside: stays
+    jnew, jmoved = jenv._teleport_robots(
+        jstate.replace(sim=jstate.sim.replace(root_pos=jax.numpy.asarray(pos))))
+    sim = copy.copy(tstate.sim)
+    sim.root_pos = torch.as_tensor(pos)
+    tnew, tmoved = tenv._teleport_robots(tstate.replace(sim=sim))
+    np.testing.assert_array_equal(tmoved.numpy(), np.asarray(jmoved))
+    assert tmoved[:5].all() and not tmoved[5]
+    np.testing.assert_allclose(tnew.sim.root_pos.numpy(), np.asarray(jnew.sim.root_pos),
+                               rtol=0, atol=1e-6)
+
+
+def test_plane_env_does_not_teleport(pair):
+    tenv, tstate = pair[1], pair[7]
+    new, moved = tenv._teleport_robots(tstate)
+    assert not bool(moved.any()) and new is tstate
+
+
+def test_kernel_path_carries_the_sampled_point_terrain(kernel_env):
+    """After a step every env that did not reset carries the sampler's
+    heights and normals at the last substep's contact-point xy, and the
+    root's height from the same call (rtol 1e-5 / atol 1e-6: the same
+    function on the same inputs)."""
+    env, params, state = kernel_env
+    assert env.substep is not None and not env.substep.plane
+    assert env.terrain_sampler.num_points == 56 + 1 + 8
+    n = env.num_envs
+    gen = torch.Generator().manual_seed(3)
+    actions = 0.2 * torch.randn(n, 12, generator=gen)
+    state2, obs, rew, done, _ = env.step(params, state, actions, gen)
+    assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(rew).all())
+    assert env.substep.launches == 0 and env.terrain_sampler.launches == 0   # the CPU
+    _, targets = env._apply_actions(actions)
+    zeros = torch.zeros(n, 3)
+    sim, *_, pt_xy = env._physics_inner_loop(params, state, targets, zeros, zeros)
+    root_xy = sim.root_pos[:, :2].contiguous()
+    queries = torch.cat([pt_xy, root_xy[:, None], torch.zeros(n, 8, 2)], dim=1)
+    h, nrm = env.terrain_sampler.plain(params.height_field, root_xy, queries)
+    keep = ~done
+    assert int(keep.sum()) >= n // 2
+    torch.testing.assert_close(state2.point_heights[keep], h[keep, :56], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(state2.point_normals[keep], nrm[keep, :56], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(state2.terrain_height_root[keep], h[keep, 56],
+                               rtol=1e-5, atol=1e-6)
+    assert float(state2.point_heights[keep].abs().max()) > 0
+    # the carried values differ from env to env and from point to point
+    assert float(state2.point_heights[keep].std(dim=1).max()) > 0
+
+
+def test_kernel_path_reset_falls_back_to_the_root_terrain(kernel_env):
+    """Force every env to time out: the carried per-point terrain collapses
+    to the height and normal under each env's new root."""
+    env, params, state = kernel_env
+    n = env.num_envs
+    state = state.replace(episode_length=torch.full((n,), env.max_episode_length + 1))
+    gen = torch.Generator().manual_seed(4)
+    state2, obs, _, done, _ = env.step(params, state, torch.zeros(n, 12), gen)
+    assert bool(done.all()), "every env must have reset"
+    h_root, n_root = env.terrain.heights_and_normals(state2.sim.root_pos[:, :2],
+                                                     params.height_field)
+    torch.testing.assert_close(state2.point_heights, h_root[:, None].expand(n, 56),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(state2.point_normals, n_root[:, None, :].expand(n, 56, 3),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(state2.terrain_height_root, h_root, rtol=1e-5, atol=1e-6)
+    assert bool(torch.isfinite(obs).all())

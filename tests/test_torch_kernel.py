@@ -1,5 +1,6 @@
-"""The kernels' wrappers: K1 (booster_gym_torch/physics/substep_kernel.py)
-and K2-K4 (booster_gym_torch/algo/update_kernel.py).
+"""The kernels' wrappers: K1 and K5 (booster_gym_torch/physics/
+substep_kernel.py), the terrain sampler K6 + K7 (booster_gym_torch/terrain/
+sample_kernel.py) and K2-K4 (booster_gym_torch/algo/update_kernel.py).
 
 The CUDA kernels run only on a card: the tests marked `cuda` hold each
 against its plain version there and skip without one (chip_smoke.py runs
@@ -21,7 +22,16 @@ from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics import substep_kernel as sk
 from booster_gym_torch.physics.engine import make_substep
 from booster_gym_torch.algo import update_kernel
-from booster_gym_torch.testing import toy_model, update_case, write_t1_shaped_urdf
+from booster_gym_torch.terrain import Terrain
+from booster_gym_torch.terrain import sample_kernel
+from booster_gym_torch.testing import (
+    point_terrain_inputs,
+    sampler_inputs,
+    toy_model,
+    update_case,
+    write_t1_shaped_urdf,
+)
+from booster_gym_torch.utils.config import load_task_cfg
 
 
 @pytest.fixture(scope="module", params=["toy", "t1"])
@@ -137,6 +147,99 @@ def test_kernel_matches_plain_on_card(gpu, robot, B):
     with pytest.raises(ValueError):
         k.packed_call(k.pack_sim(args[0]).double(), k.pack_dyn(args[1]),
                       args[2].T.contiguous(), torch.zeros(6, B, device=gpu))
+
+
+# ---------------------------------------------------------------------------
+# K5 and the terrain sampler
+def test_general_build_has_its_own_library_and_entry_point(robot):
+    model, feet = robot
+    plane = kernel_build.library_path(sk.SOURCE, sk.kernel_sizes(model, feet))
+    general = kernel_build.library_path(sk.SOURCE, sk.kernel_sizes(model, feet, plane=False))
+    assert "_plane1_" in plane and "_plane0_" in general
+    assert plane.replace("_plane1_", "_plane0_") == general
+    src = open(sk.CSRC).read()
+    (decl,) = re.findall(r"int bg_substep_terrain\(([^)]*)\)", src)
+    assert len(decl.split(",")) == 13      # 11 pointers, B, the stream
+    (decl,) = re.findall(r"int bg_substep\(([^)]*)\)", src)
+    assert len(decl.split(",")) == 10
+
+
+def test_sampler_entry_point_and_cpu_path():
+    src = open(kernel_build.source_path(sample_kernel.SOURCE)).read()
+    (decl,) = re.findall(r"int bg_terrain_sample\(([^)]*)\)", src)
+    assert len(decl.split(",")) == 12
+    assert f"#define PX {sample_kernel.PX}" in src
+    terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0)
+    sampler = sample_kernel.make_terrain_sampler(terrain, 65, "cpu")
+    root, pts = (torch.as_tensor(x) for x in sampler_inputs(terrain, 7, 65, 0.5, False, 0))
+    h, n = sampler(terrain.height_field, root, pts)
+    h_p, n_p = sampler.plain(terrain.height_field, root, pts)
+    assert torch.equal(h, h_p) and torch.equal(n, n_p) and sampler.launches == 0
+    torch.testing.assert_close(n.norm(dim=-1), torch.ones(7, 65))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+def test_general_kernel_matches_plain_on_card(gpu, robot, B):
+    """K5 against its plain version with tilted normals: K1's tolerances,
+    and the contact-point xy to atol 1e-5."""
+    model, feet = robot
+    cfg = SimConfig()
+    k = sk.SubstepKernel(model, cfg, feet, gpu, plane=False)
+    plain = make_substep(model, cfg, feet, gpu)
+    args = inputs(model, B, gpu, seed=B)
+    h, n = (torch.as_tensor(x, device=gpu) for x in point_terrain_inputs(model.num_points, B, B))
+    out_k, out_p = k.terrain_form(*args, h, n), plain.terrain_form(*args, h, n)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    for f in SimState.FIELDS:
+        torch.testing.assert_close(getattr(out_k[0], f), getattr(out_p[0], f),
+                                   rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=5e-2, atol=1.0)
+    torch.testing.assert_close(out_k[2], out_p[2], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(out_k[4], out_p[4], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        k.terrain_form(*args, h[:, :-1], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+def test_general_kernel_on_plane_inputs_equals_plane_kernel(gpu, robot, B):
+    """h = 0, n = +z: every general formula reduces to the plane kernel's by
+    exact multiplications by 0 and 1, so the two builds differ by 0."""
+    model, feet = robot
+    cfg = SimConfig()
+    k1 = sk.SubstepKernel(model, cfg, feet, gpu)
+    k5 = sk.SubstepKernel(model, cfg, feet, gpu, plane=False)
+    args = inputs(model, B, gpu, seed=B + 1)
+    out1, out5 = k1.step(*args), k5.step(*args)
+    torch.cuda.synchronize()
+    assert (k1.launches, k5.launches) == (1, 1)
+    for f in SimState.FIELDS:
+        assert float((getattr(out1[0], f) - getattr(out5[0], f)).abs().max()) == 0.0, f
+    for a, b in zip(out1[1:], out5[1:]):
+        assert float((a - b).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+@pytest.mark.parametrize("clamped", [False, True])
+def test_sampler_kernel_matches_plain_on_card(gpu, B, clamped):
+    """atol 2e-5 on heights and normals, the JAX package's own tolerance for
+    its sampler; `clamped` puts roots at the field's edge and queries up to
+    2 m from their root."""
+    terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0, device=gpu)
+    sampler = sample_kernel.make_terrain_sampler(terrain, 65, gpu)
+    root, pts = (torch.as_tensor(x, device=gpu) for x in sampler_inputs(
+        terrain, B, 65, 2.0 if clamped else 0.55, clamped, seed=B))
+    h, n = sampler(terrain.height_field, root, pts)
+    h_p, n_p = sampler.plain(terrain.height_field, root, pts)
+    torch.cuda.synchronize()
+    assert sampler.launches == 1
+    torch.testing.assert_close(h, h_p, rtol=0, atol=2e-5)
+    torch.testing.assert_close(n, n_p, rtol=0, atol=2e-5)
+    with pytest.raises(ValueError):
+        sampler(terrain.height_field, root, pts[:, :-1].contiguous())
 
 
 # ---------------------------------------------------------------------------

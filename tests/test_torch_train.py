@@ -10,14 +10,15 @@ import sys
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from booster_gym_torch.convert import env_params_from_jax, env_state_from_jax
 from booster_gym_torch.envs.t1 import T1
 from booster_gym_torch.physics.engine import make_fk, make_substep
 from booster_gym_torch.physics.substep_kernel import SubstepKernel
 from booster_gym_torch.runner import Runner
-from booster_gym_torch.testing import main_path_cfg, write_t1_shaped_urdf
-from booster_gym_torch.utils.config import build_cfg, parse_args
+from booster_gym_torch.testing import main_path_cfg, rough_path_cfg, write_t1_shaped_urdf
+from booster_gym_torch.utils.config import build_cfg, load_task_cfg, parse_args
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -48,6 +49,25 @@ def test_train_cli_on_cpu(tmp_path):
     ckpt = torch.load(tmp_path / "logs" / run / "nn" / "model_2.pt")
     assert ckpt["iteration"] == 2 and ckpt["adam_count"] == 2 * 20
     assert ckpt["params"]["actor.layers.0.weight"].shape == (256, 47)
+
+
+def test_train_cli_on_cpu_with_the_task_files_terrain(tmp_path):
+    """No --terrain flag: T1.yaml's own trimesh block, a 900 x 200 field."""
+    urdf = write_t1_shaped_urdf(tmp_path)
+    out = subprocess.run(
+        [sys.executable, "-m", "booster_gym_torch.train", "--task=T1", "--device", "cpu",
+         "--num_envs", "16", "--max_iterations", "2", "--asset_file", urdf],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "epoch: 2/2" in out.stdout
+    (run,) = os.listdir(tmp_path / "logs")
+    rows = [json.loads(line) for line in open(tmp_path / "logs" / run / "scalars.jsonl")]
+    assert [r["it"] for r in rows] == [0, 1]
+    for r in rows:
+        assert all(np.isfinite(v) for v in r.values()), r
+        assert r["substep_kernel_launches"] == r["terrain_sampler_launches"] == 0
+    cfg = yaml.safe_load(open(tmp_path / "logs" / run / "config.yaml"))
+    assert cfg["terrain"]["type"] == "trimesh" and cfg["terrain"]["num_terrains"] == 8
 
 
 def test_port_imports_no_jax():
@@ -120,6 +140,45 @@ def test_main_path_cfg():
     assert cfg["asset"]["file"] == "/nonexistent/T1_shaped.urdf"
 
 
+def test_rough_path_cfg_and_cli_keep_the_task_files_terrain(tmp_path):
+    """Without --terrain, build_cfg keeps T1.yaml's terrain block unchanged;
+    rough_path_cfg is main_path_cfg on that block."""
+    task = load_task_cfg("T1")["terrain"]
+    assert task["type"] == "trimesh"
+    cli = build_cfg(parse_args(["--task=T1", "--num_envs", "4"]))
+    assert cli["terrain"] == task
+    rough, flat = rough_path_cfg("/nonexistent/T1_shaped.urdf"), main_path_cfg("/x.urdf")
+    assert rough["terrain"] == task
+    assert rough["env"]["num_envs"] == 4096 and rough["basic"]["max_iterations"] == 3
+    assert {k: v for k, v in flat["terrain"].items() if k != "type"} == \
+        {k: v for k, v in task.items() if k != "type"}
+    assert "sim" in rough and "backend" not in rough["sim"]      # the kernel path
+
+
+@pytest.mark.parametrize("backend", ["fused", "xla"])
+def test_runner_on_cpu_on_a_small_field(tmp_path, monkeypatch, backend):
+    """Two tiny iterations of the trimesh path (the kernels' plain versions)
+    through Runner with either update: finite metrics, no launches."""
+    monkeypatch.chdir(tmp_path)
+    cfg = build_cfg(parse_args(["--task=T1", "--num_envs", "8", "--max_iterations", "2",
+                                "--asset_file", write_t1_shaped_urdf(tmp_path)]))
+    cfg["terrain"].update(num_terrains=2, terrain_width=4.0, terrain_length=4.0,
+                          border_size=2.0)
+    cfg["algorithm"]["update_backend"] = backend
+    cfg["runner"]["mini_epochs"] = 3
+    runner = Runner(cfg, device="cpu")
+    assert tuple(runner.env.terrain.height_field.shape) == (120, 80)
+    assert runner.env.terrain_sampler is not None and not runner.env.substep.plane
+    records = runner.train()
+    assert len(records) == 2
+    for rec in records:
+        assert all(np.isfinite(v) for v in rec.values()), rec
+        assert rec["substep_kernel_launches"] == rec["terrain_sampler_launches"] == 0
+    state = runner.train_state.env_state
+    assert float(state.point_heights.abs().max()) > 0
+    assert bool(torch.isfinite(state.point_normals).all())
+
+
 def test_cuda_default_raises_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -129,8 +188,8 @@ def test_cuda_default_raises_without_a_gpu(tmp_path):
 
 def test_unported_paths_raise(tmp_path):
     cfg = _cfg(tmp_path)
-    cfg["terrain"]["type"] = "trimesh"
-    with pytest.raises(NotImplementedError, match="plane"):
+    cfg["terrain"]["type"] = "heightmap"     # trimesh is ported; other names are invalid
+    with pytest.raises(ValueError, match="terrain type"):
         Runner(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         Runner(_cfg(tmp_path, "--checkpoint", "-1"), device="cpu")
