@@ -6,8 +6,11 @@ This package imports torch, numpy and yaml, and nothing of JAX.  Layout
 mirrors the JAX package:
 
     train.py / runner.py   CLI and training loop
+    prof_update.py         times the update kernels at the training shape
     algo/                  actor-critic and PPO (fused update K2-K4,
-                           csrc/update.cu, or the xla update)
+                           csrc/update.cu, or the xla update); the rest of
+                           the reference's FusedUpdate, K8 values, K9 grads
+                           and K10 policy_old_logp, in the same source
     envs/                  T1 task, plane or heightfield (trimesh) terrain
     physics/               eager substep (plain version) and the CUDA
                            substep kernels (K1 plane, K5 general terrain,

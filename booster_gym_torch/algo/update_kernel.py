@@ -1,6 +1,7 @@
 """The fused PPO update: K2, K3 and K4 as hand-written CUDA kernels
 (csrc/update.cu), replacing the Pallas kernels of
-booster_gym_tpu/algo/update_kernel.py.
+booster_gym_tpu/algo/update_kernel.py, and the rest of that module's
+FusedUpdate, K8, K9 and K10, which the training iteration does not call.
 
   K2  gae          critic values on the T + 1 observation planes, timeout
                    bootstrap, the GAE recurrence, returns, sum(adv) and
@@ -13,12 +14,22 @@ booster_gym_tpu/algo/update_kernel.py.
   K4  opt_stage    entropy gradient on logstd, global-norm clip, Adam, and
                    the compute-type copy of the new parameters
                                                (replaces _opt_stage_kernel)
+  K8  values       the critic on [obs || priv], any leading shape: K2's
+                   value pass                    (replaces _values_kernel)
+  K9  grads        K3's gradient on advantages as given, the loss means over
+                   n_total rows, no metric sums; mu and values come back
+                   rounded to the compute type     (replaces _grads_kernel)
+  K10 policy_old_logp  K3's actor forward and log-prob on prepare()'d
+                   inputs                   (replaces _policy_logp_kernel)
 
 Each wrapper runs its plain PyTorch version (the *_plain method beside it)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  A wrapper call launches two device kernels (K2: values, then the
-time scan; K3: the tile pass, then the sum of the blocks' partials; K4: the
-norm's partial sums, then the update) and counts as one launch.
+raises.  A wrapper call counts as one launch; K2, K3, K4 and K9 launch two
+device kernels each (K2: values, then the time scan; K3 and K9: the tile
+pass, then the sum of the blocks' partials; K4: the norm's partial sums,
+then the update), K8 and K10 one.  K8, K9 and K10 take the f32 parameter
+vector and stage it to the compute type per call, as the reference casts
+its parameters per call.
 
 No torch.autograd.Function is involved: K3 computes the backward pass
 itself, as the reference does, which has no custom_vjp around its kernel.
@@ -29,8 +40,8 @@ weights [out, in] as nn.Linear keeps them.  `staged` is that vector in the
 compute type, so K4's staging is a cast and no transpose.  `prepare()`
 builds `obsc`, the [T + 1, B, num_obs + num_priv] compute-type plane of
 [obs || privileged obs] whose row T is the observation after the rollout:
-K2 reads all of it, K3 its first T * B rows, the actor its first num_obs
-columns.
+K2 reads all of it, K3 and K10 its first T * B rows, the actor its first
+num_obs columns.  K8 and K9 build the same rows from obs and priv.
 
 Roundings, in the kernels and the plain versions alike: a dense layer is
 operands in the compute type, f32 accumulation, the product rounded to the
@@ -60,6 +71,10 @@ _FUNCTIONS = {
                        _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                      _P, _P, _P, _P, _P, _P],
+    "bg_values": [_I, _P, _P, _P, _I, _P, _I, _P],
+    "bg_grads": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _I, _I, _P, _P,
+                 _P, _P, _I, _P],
+    "bg_policy_logp": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
 
@@ -74,10 +89,11 @@ def param_layout(network):
 
 
 class FusedUpdate:
-    """The three kernels for one ActorCritic geometry.
+    """The update kernels for one ActorCritic geometry.
 
-    gae_launches, grads_stats_launches and opt_stage_launches count kernel
-    launches; each moves only where its CUDA kernel is launched."""
+    gae_launches, grads_stats_launches, opt_stage_launches, values_launches,
+    grads_launches and policy_logp_launches count kernel launches; each
+    moves only where its CUDA kernel is launched."""
 
     def __init__(self, network, clip_ratio, bound_coef):
         self.dtype = network.actor.dtype
@@ -110,6 +126,9 @@ class FusedUpdate:
         self.gae_launches = 0
         self.grads_stats_launches = 0
         self.opt_stage_launches = 0
+        self.values_launches = 0
+        self.grads_launches = 0
+        self.policy_logp_launches = 0
         self._lib = None
         self._scratch = {}
         self._sms = {}
@@ -133,6 +152,18 @@ class FusedUpdate:
             self._tile = self._library().bg_update_tile(self.bf16)
         return max(1, min(self._sms[device], -(-rows // self._tile)))
 
+    def _partials(self, device, nblk):
+        """(part, part_stats, stride): the blocks' gradient partials and stat
+        partials of K3 and K9, kept per (device, grid); every slot that is
+        read is written first by each launch."""
+        stride = -(-self.n_params // 32) * 32
+        key = (device, nblk)
+        if key not in self._scratch:
+            self._scratch[key] = (
+                torch.empty(nblk * stride, dtype=torch.float32, device=device),
+                torch.empty(nblk * 32, dtype=torch.float32, device=device))
+        return (*self._scratch[key], stride)
+
     def _check(self, name, t, shape, dtype=torch.float32):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the other tensors on a CUDA device")
@@ -154,12 +185,14 @@ class FusedUpdate:
         one mini-epoch to the next; this is mini-epoch 0's)."""
         return p.to(self.dtype)
 
-    def prepare(self, obs, priv, act, mu_old, old_logp, obs_last, priv_last):
+    def prepare(self, obs, priv, act, mu_old, old_logp, obs_last=None, priv_last=None):
         """The epoch-invariant inputs, built once per iteration: obs, priv,
-        act, mu_old [T, B, dim], old_logp [T, B], obs_last, priv_last
-        [B, dim]."""
-        obsc = torch.cat([torch.cat([obs, priv], dim=-1),
-                          torch.cat([obs_last, priv_last], dim=-1)[None]], dim=0)
+        act, mu_old [T, B, dim], old_logp [T, B], and optionally obs_last,
+        priv_last [B, dim], without which obsc holds only the T planes (all
+        K2 needs is then missing; K3 and K10 read the first T planes)."""
+        obsc = torch.cat([obs, priv], dim=-1)
+        if obs_last is not None:
+            obsc = torch.cat([obsc, torch.cat([obs_last, priv_last], dim=-1)[None]], dim=0)
         return {"obsc": obsc.to(self.dtype).contiguous(), "act": act.contiguous(),
                 "mu_old": mu_old.contiguous(), "old_logp": old_logp.contiguous()}
 
@@ -188,6 +221,22 @@ class FusedUpdate:
                 x = self._elu(z)
                 xs.append(x)
         return xs, zs
+
+    def _values(self, staged, x):
+        """The critic's f32 values of the compute-type rows x [n, num_crit]."""
+        _, zs = self._mlp_fwd(x, *self._mlp(staged, "critic"))
+        return zs[-1].float()[:, 0]
+
+    def _policy(self, staged, p, x, act):
+        """Actor forward on the compute-type rows x [n, >= num_obs] and the
+        log-prob of act [n, num_act]: (xs, zs, mu, logstd, var, diff, logp)."""
+        xs, zs = self._mlp_fwd(x[:, :self.num_obs], *self._mlp(staged, "actor"))
+        mu = zs[-1].float()
+        logstd = p[self.logstd_slice]
+        var = torch.exp(2.0 * logstd)
+        diff = act - mu
+        logp = torch.sum(-0.5 * diff * diff / var - logstd - 0.5 * _LOG2PI, dim=1)
+        return xs, zs, mu, logstd, var, diff, logp
 
     def _mlp_bwd(self, xs, zs, Ws, dz):
         """Backward from the last layer's dz [n, out] (compute type):
@@ -229,9 +278,7 @@ class FusedUpdate:
 
     def gae_plain(self, staged, obsc, rew, nonterm, timeout_f, gamma, lam):
         T, B = rew.shape
-        cW, cb = self._mlp(staged, "critic")
-        _, zs = self._mlp_fwd(obsc.reshape((T + 1) * B, self.num_crit), cW, cb)
-        values = zs[-1].float()[:, 0].view(T + 1, B)
+        values = self._values(staged, obsc.reshape((T + 1) * B, self.num_crit)).view(T + 1, B)
         nextv, carry = values[T], torch.zeros_like(values[T])
         adv, ret = torch.empty_like(rew), torch.empty_like(rew)
         for t in reversed(range(T)):
@@ -277,15 +324,7 @@ class FusedUpdate:
         norm = torch.stack([adv_mean, adv_rstd]).float()
         self._check("adv_mean, adv_rstd", norm, (2,))
         nblk = self._grid(dev, n)
-        stride = -(-self.n_params // 32) * 32
-        key = (dev, nblk)
-        if key not in self._scratch:
-            # the blocks' gradient partials and stat partials; every slot
-            # that is read is written first by each launch
-            self._scratch[key] = (
-                torch.empty(nblk * stride, dtype=torch.float32, device=dev),
-                torch.empty(nblk * 32, dtype=torch.float32, device=dev))
-        part, part_stats = self._scratch[key]
+        part, part_stats, stride = self._partials(dev, nblk)
         g = torch.empty(self.n_params, dtype=torch.float32, device=dev)
         stats = torch.empty(4 + na, dtype=torch.float32, device=dev)
         mu = torch.empty((n, na), dtype=torch.float32, device=dev)
@@ -307,25 +346,27 @@ class FusedUpdate:
     def grads_stats_plain(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
                           self_old):
         n, na = adv_raw.numel(), self.num_act
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=staged.device)
-        x = prep["obsc"].reshape(-1, self.num_crit)[:n]
-        act = prep["act"].reshape(n, na)
-        aW, ab = self._mlp(staged, "actor")
-        cW, cb = self._mlp(staged, "critic")
-        xa, za = self._mlp_fwd(x[:, :self.num_obs], aW, ab)
-        xc, zc = self._mlp_fwd(x, cW, cb)
-        mu, val = za[-1].float(), zc[-1].float()[:, 0]
+        old = (None, None) if self_old else (prep["old_logp"].reshape(n),
+                                             prep["mu_old"].reshape(n, na))
+        g, stats, mu, _, logp = self._loss_grads(
+            staged, p, prep["obsc"].reshape(-1, self.num_crit)[:n], prep["act"].reshape(n, na),
+            (adv_raw.reshape(n) - adv_mean) * adv_rstd, returns.reshape(n), *old, n)
+        return g, stats, mu, logp
 
-        adv = (adv_raw.reshape(n) - adv_mean) * adv_rstd
-        ret = returns.reshape(n)
-        logstd = p[self.logstd_slice]
-        var = torch.exp(2.0 * logstd)
-        diff = act - mu
-        logp = torch.sum(-0.5 * diff * diff / var - logstd - 0.5 * _LOG2PI, dim=1)
-        if self_old:
-            old_logp, mu_old = logp, mu
-        else:
-            old_logp, mu_old = prep["old_logp"].reshape(n), prep["mu_old"].reshape(n, na)
+    def _loss_grads(self, staged, p, x, act, adv, ret, old_logp, mu_old, n_total):
+        """K3's and K9's arithmetic on the rows x [n, num_crit] (compute
+        type), act [n, num_act] and adv, ret [n] (f32): (g, stats, mu, val,
+        logp).  old_logp None makes the forward its own old policy, mu_old
+        None its own mu for klsq; the loss means divide by n_total."""
+        n, na = adv.numel(), self.num_act
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=staged.device)
+        aW, _ = self._mlp(staged, "actor")
+        cW, cb = self._mlp(staged, "critic")
+        xa, za, mu, logstd, var, diff, logp = self._policy(staged, p, x, act)
+        xc, zc = self._mlp_fwd(x, cW, cb)
+        val = zc[-1].float()[:, 0]
+        old_logp = logp if old_logp is None else old_logp
+        mu_old = mu if mu_old is None else mu_old
         ratio = torch.exp(logp - old_logp)
         lo, hi = f32(1.0 - self.clip_ratio), f32(1.0 + self.clip_ratio)
         one, half, zero = f32(1.0), f32(0.5), f32(0.0)
@@ -336,13 +377,13 @@ class FusedUpdate:
         # d clip(r)/dr = d min(max(r, lo), hi)/dr: 0.5 on either bound
         cg = (torch.where(ratio > lo, one, torch.where(ratio == lo, half, zero))
               * torch.where(ratio < hi, one, torch.where(ratio == hi, half, zero)))
-        inv_n = one / n
+        inv_n = one / n_total
         dlogp = ((gs + (1.0 - gs) * cg) * (-adv) * inv_n * ratio)[:, None]
         dmu = dlogp * diff / var
         dlogstd = torch.sum(dlogp * (diff * diff / var - 1.0), dim=0)
         b_hi = torch.clamp(mu - 1.0, min=0.0)
         b_lo = torch.clamp(mu + 1.0, max=0.0)
-        dmu = dmu + (2.0 * b_hi + 2.0 * b_lo) * (self.bound_coef / (n * na))
+        dmu = dmu + (2.0 * b_hi + 2.0 * b_lo) * (self.bound_coef / (n_total * na))
         dval = 2.0 * (val - ret) * inv_n
         stats = {"vl": torch.sum(torch.square(val - ret)),
                  "al": torch.sum(torch.maximum(surr, surr_c)),
@@ -357,7 +398,7 @@ class FusedUpdate:
                 g[w:w + o * i] = dW.reshape(-1)
                 g[b:b + o] = db
         g[self.logstd_slice] = dlogstd
-        return g, stats, mu, logp
+        return g, stats, mu, val, logp
 
     # -- K4 ---------------------------------------------------------------
     def opt_stage(self, g, p, m, v, cnt, lr, entropy_coef, b1, b2, eps, max_norm):
@@ -398,3 +439,112 @@ class FusedUpdate:
         v2 = b2 * v + (1.0 - b2) * (g * g)
         p2 = p + (-lr) * ((m2 / bc1) / (torch.sqrt(v2 / bc2) + eps))
         return p2, m2, v2, p2.to(self.dtype)
+
+    # -- K8 ---------------------------------------------------------------
+    def _obsc_rows(self, obs, priv):
+        """[obs || priv] as contiguous compute-type rows [n, num_crit]."""
+        return torch.cat([obs.reshape(-1, self.num_obs),
+                          priv.reshape(-1, self.num_crit - self.num_obs)],
+                         dim=1).to(self.dtype).contiguous()
+
+    def values(self, p, obs, priv):
+        """critic(concat(obs, priv)) in f32, shaped like obs' leading
+        dimensions, from the f32 parameter vector p."""
+        if p.device.type == "cpu":
+            return self.values_plain(p, obs, priv)
+        self._check("p", p, (self.n_params,))
+        staged, obsc = self.stage(p), self._obsc_rows(obs, priv)
+        n, dev = obsc.shape[0], p.device
+        self._check("obsc", obsc, (n, self.num_crit), self.dtype)
+        val = torch.empty(n, dtype=torch.float32, device=dev)
+        err = self._library().bg_values(
+            self.bf16, staged.data_ptr(), self._offs, obsc.data_ptr(), n, val.data_ptr(),
+            self._grid(dev, n), torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "values")
+        self.values_launches += 1
+        return val.view(obs.shape[:-1])
+
+    def values_plain(self, p, obs, priv):
+        return self._values(self.stage(p), self._obsc_rows(obs, priv)).view(obs.shape[:-1])
+
+    # -- K9 ---------------------------------------------------------------
+    def grads(self, p, obs, priv, act, adv, returns, old_logp, n_total=None):
+        """(g, mu, values): the flat f32 gradient of value loss + actor loss
+        + bound_coef * bound loss at the f32 parameters p (the entropy term
+        is left out, as in grads_stats), with adv used as given and the loss
+        means over n_total rows (default: the row count, which still masks);
+        mu [..., num_act] and values [...] in obs' leading shape, rounded to
+        the compute type and returned as f32."""
+        lead = obs.shape[:-1]
+        n, na = int(np.prod(lead)), self.num_act
+        n_total = n if n_total is None else int(n_total)
+        if p.device.type == "cpu":
+            return self.grads_plain(p, obs, priv, act, adv, returns, old_logp, n_total)
+        self._check("p", p, (self.n_params,))
+        staged, obsc = self.stage(p), self._obsc_rows(obs, priv)
+        act, adv, ret, old_logp = (t.reshape(-1).contiguous()
+                                   for t in (act, adv, returns, old_logp))
+        for name, t, k in (("act", act, na), ("adv", adv, 1), ("returns", ret, 1),
+                           ("old_logp", old_logp, 1)):
+            self._check(name, t, (n * k,))
+        dev = p.device
+        nblk = self._grid(dev, n)
+        part, part_stats, stride = self._partials(dev, nblk)
+        g = torch.empty(self.n_params, dtype=torch.float32, device=dev)
+        stats = torch.empty(4 + na, dtype=torch.float32, device=dev)
+        mu = torch.empty((n, na), dtype=self.dtype, device=dev)
+        val = torch.empty(n, dtype=self.dtype, device=dev)
+        err = self._library().bg_grads(
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
+            act.data_ptr(), old_logp.data_ptr(), adv.data_ptr(), ret.data_ptr(), n, n_total,
+            1.0 - self.clip_ratio, 1.0 + self.clip_ratio, self.bound_coef / (n_total * na),
+            part.data_ptr(), part_stats.data_ptr(), stride, self.n_params, g.data_ptr(),
+            stats.data_ptr(), mu.data_ptr(), val.data_ptr(), nblk,
+            torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "grads")
+        self.grads_launches += 1
+        return g, mu.float().view(lead + (na,)), val.float().view(lead)
+
+    def grads_plain(self, p, obs, priv, act, adv, returns, old_logp, n_total=None):
+        lead = obs.shape[:-1]
+        n, na = int(np.prod(lead)), self.num_act
+        n_total = n if n_total is None else int(n_total)
+        g, _, mu, val, _ = self._loss_grads(
+            self.stage(p), p, self._obsc_rows(obs, priv), act.reshape(n, na), adv.reshape(n),
+            returns.reshape(n), old_logp.reshape(n), None, n_total)
+        rnd = lambda t: t.to(self.dtype).float()
+        return g, rnd(mu).view(lead + (na,)), rnd(val).view(lead)
+
+    # -- K10 --------------------------------------------------------------
+    def policy_old_logp(self, p, prep):
+        """(mu [N, num_act], logp [N]), f32: the actor at the f32 parameters
+        p on prep's first N = old_logp.numel() rows, and the log-prob of
+        prep's actions, through K3's forward."""
+        n, na = prep["old_logp"].numel(), self.num_act
+        if p.device.type == "cpu":
+            return self.policy_old_logp_plain(p, prep)
+        obsc, act = prep["obsc"], prep["act"]
+        self._check("p", p, (self.n_params,))
+        if obsc.numel() < n * self.num_crit or obsc.shape[-1] != self.num_crit:
+            raise ValueError(f"obsc {tuple(obsc.shape)} holds fewer than {n} rows of "
+                             f"{self.num_crit}")
+        self._check("obsc", obsc, obsc.shape, self.dtype)
+        self._check("act", act, act.shape)
+        if act.numel() != n * na:
+            raise ValueError(f"act must hold {n * na} values, got {act.numel()}")
+        dev, staged = p.device, self.stage(p)
+        mu = torch.empty((n, na), dtype=torch.float32, device=dev)
+        logp = torch.empty(n, dtype=torch.float32, device=dev)
+        err = self._library().bg_policy_logp(
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
+            act.data_ptr(), n, mu.data_ptr(), logp.data_ptr(), self._grid(dev, n),
+            torch.cuda.current_stream(dev).cuda_stream)
+        self._raise_on(err, "policy_old_logp")
+        self.policy_logp_launches += 1
+        return mu, logp
+
+    def policy_old_logp_plain(self, p, prep):
+        n, na = prep["old_logp"].numel(), self.num_act
+        x = prep["obsc"].reshape(-1, self.num_crit)[:n]
+        _, _, mu, *_, logp = self._policy(self.stage(p), p, x, prep["act"].reshape(n, na))
+        return mu, logp

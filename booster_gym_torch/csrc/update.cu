@@ -1,8 +1,20 @@
-// The fused PPO update for Hopper (sm_90a): K2, K3 and K4.
+// The fused PPO update for Hopper (sm_90a): K2, K3 and K4, and the rest of
+// the reference's FusedUpdate, K8, K9 and K10.
 //
 //   K2  bg_gae            replaces booster_gym_tpu/algo/update_kernel.py _gae_kernel
 //   K3  bg_grads_stats    replaces _grads_stats_kernel (_mlp_fwd_T, _mlp_bwd_T)
 //   K4  bg_opt_stage      replaces _opt_stage_kernel
+//   K8  bg_values         replaces _values_kernel: K2's value pass on any rows
+//   K9  bg_grads          replaces _grads_kernel: K3's tile pass without the
+//                         metric sums and the normalisation, n_total apart
+//                         from the row count, mu and values out in type T
+//   K10 bg_policy_logp    replaces _policy_logp_kernel: K3's actor forward and
+//                         log-prob, through the same device code
+//
+// K8-K10 share K2's and K3's device code (net_fwd, net_bwd, the log-prob),
+// so their bounds and their gaps to them are K2's and K3's: K8 and K10 are
+// bound by operations like K2 (the critic's 2.3e5, the actor's 1.3e5 flop
+// per row), K9 like K3.
 //
 // Each has a bf16 and an f32 instance (the network's compute type T).  In
 // f32 mode the matrix products are f32 FMAs, never TF32.  In bf16 mode they
@@ -456,8 +468,35 @@ __device__ __forceinline__ void load_x0(const Smem<T>& s, const T* __restrict__ 
     }
 }
 
+// logstd (f32, from p) and exp(2 logstd) into shared memory
+template <typename T>
+__device__ __forceinline__ void load_logstd(const Smem<T>& s, const float* __restrict__ p,
+                                            int off) {
+    if (threadIdx.x < NACT) {
+        const float ls = p[off + threadIdx.x];
+        s.logstd[threadIdx.x] = ls;
+        s.var[threadIdx.x] = expf(2.0f * ls);
+    }
+}
+
+// Row tid's log-prob of its action act[0 .. NACT) under N(s.mu row, exp(logstd));
+// fills mu and diff = act - mu.  K3 and K10 both go through this.
+template <typename T>
+__device__ __forceinline__ float row_logp(const Smem<T>& s, int tid, const float* __restrict__ act,
+                                          float* mu, float* diff) {
+    float logp = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NACT; ++k) {
+        mu[k] = s.mu[tid * NACT + k];
+        diff[k] = act[k] - mu[k];
+        logp += -0.5f * diff[k] * diff[k] / s.var[k] - s.logstd[k] - 0.5f * LOG2PI;
+    }
+    return logp;
+}
+
 // ---------------------------------------------------------------------------
-// K2, kernel 1 of 2: critic values of every row of obsc (T + 1 planes)
+// K2, kernel 1 of 2: critic values of every row of obsc (T + 1 planes).  K8
+// launches the same kernel on any [n_rows, NCRIT] plane.
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 k2_values(const T* __restrict__ staged, Offs offs, const T* __restrict__ obsc, int n_rows,
@@ -523,14 +562,21 @@ k2_scan(const float* __restrict__ values, const float* __restrict__ rew,
 // part[blockIdx.x * stride + flat index]; the per-sample sums (value loss,
 // actor loss, both bound-loss halves, sum (mu - mu_old)^2 per action,
 // dlogstd per action) to part_stats[blockIdx.x * NSTAT + slot].
+//
+// ANCHOR makes it K9: the advantages are used as given (no mean, rstd),
+// the old policy is always old_logp, the loss means divide by n_total while
+// the mask keeps the local row count n, no metric sum is formed (only the
+// dlogstd slots), and each valid row's mu and value leave in type T
+// through mu_t and val_t in place of mu_out and logp_out.
 struct K3Args {
     const float *p, *act, *mu_old, *old_logp, *adv, *ret, *norm;
     float *part, *part_stats, *mu_out, *logp_out;
-    int self_old, n, stride;
+    void *mu_t, *val_t;
+    int self_old, n, n_total, stride;
     float lo, hi, bscale;
 };
 
-template <typename T>
+template <typename T, bool ANCHOR>
 __global__ void __launch_bounds__(NT, 1)
 k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ obsc, K3Args a) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -539,13 +585,9 @@ k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ ob
     const int tid = threadIdx.x;
     for (int i = tid; i < TN * DZLW; i += NT) s.dzl[i] = CT<T>::from_f(0.0f);
     for (int i = tid; i < TN * NSTAT; i += NT) s.stat[i] = 0.0f;
-    if (tid < NACT) {
-        const float ls = a.p[offs.logstd + tid];
-        s.logstd[tid] = ls;
-        s.var[tid] = expf(2.0f * ls);
-    }
-    const float mean = a.norm[0], rstd = a.norm[1];
-    const float inv_n = 1.0f / (float)a.n;
+    load_logstd<T>(s, a.p, offs.logstd);
+    const float mean = ANCHOR ? 0.0f : a.norm[0], rstd = ANCHOR ? 1.0f : a.norm[1];
+    const float inv_n = 1.0f / (float)(ANCHOR ? a.n_total : a.n);
     float* G = a.part + (size_t)blockIdx.x * a.stride;
     const int ntiles = (a.n + TN - 1) / TN;
     bool first = true;
@@ -562,17 +604,11 @@ k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ ob
             T* dz = s.dzl + tid * DZLW;
             if (valid) {
                 float* st = s.stat + tid * NSTAT;
-                const float adv = (a.adv[gi] - mean) * rstd;
+                const float adv = ANCHOR ? a.adv[gi] : (a.adv[gi] - mean) * rstd;
                 float diff[NACT], mu[NACT];
-                float logp = 0.0f;
-#pragma unroll
-                for (int k = 0; k < NACT; ++k) {
-                    mu[k] = s.mu[tid * NACT + k];
-                    diff[k] = a.act[gi * NACT + k] - mu[k];
-                    logp += -0.5f * diff[k] * diff[k] / s.var[k] - s.logstd[k] - 0.5f * LOG2PI;
-                }
+                const float logp = row_logp<T>(s, tid, a.act + gi * NACT, mu, diff);
                 // self_old: the old policy is this forward itself
-                const float old_lp = a.self_old ? logp : a.old_logp[gi];
+                const float old_lp = (!ANCHOR && a.self_old) ? logp : a.old_logp[gi];
                 const float ratio = expf(logp - old_lp);
                 const float ratio_c = fminf(fmaxf(ratio, a.lo), a.hi);
                 const float surr = -adv * ratio, surr_c = -adv * ratio_c;
@@ -588,15 +624,20 @@ k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ ob
                     const float b_lo = fminf(mu[k] + 1.0f, 0.0f);
                     dmu += (2.0f * b_hi + 2.0f * b_lo) * a.bscale;
                     dz[k] = CT<T>::from_f(dmu);
-                    const float mo = a.self_old ? mu[k] : a.mu_old[gi * NACT + k];
-                    st[2] += b_hi * b_hi;
-                    st[3] += b_lo * b_lo;
-                    st[4 + k] += (mu[k] - mo) * (mu[k] - mo);
+                    if constexpr (!ANCHOR) {
+                        const float mo = a.self_old ? mu[k] : a.mu_old[gi * NACT + k];
+                        st[2] += b_hi * b_hi;
+                        st[3] += b_lo * b_lo;
+                        st[4 + k] += (mu[k] - mo) * (mu[k] - mo);
+                    }
                     st[4 + NACT + k] += dlogp * (diff[k] * diff[k] / s.var[k] - 1.0f);
-                    a.mu_out[gi * NACT + k] = mu[k];
+                    if constexpr (ANCHOR) static_cast<T*>(a.mu_t)[gi * NACT + k] = CT<T>::from_f(mu[k]);
+                    else a.mu_out[gi * NACT + k] = mu[k];
                 }
-                st[1] += fmaxf(surr, surr_c);
-                a.logp_out[gi] = logp;
+                if constexpr (!ANCHOR) {
+                    st[1] += fmaxf(surr, surr_c);
+                    a.logp_out[gi] = logp;
+                }
             } else {
 #pragma unroll
                 for (int k = 0; k < NACT; ++k) dz[k] = CT<T>::from_f(0.0f);
@@ -615,7 +656,8 @@ k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ ob
             if (valid) {
                 const float e = s.val[tid] - a.ret[gi];
                 dval = 2.0f * e * inv_n;
-                s.stat[tid * NSTAT] += e * e;
+                if constexpr (ANCHOR) static_cast<T*>(a.val_t)[gi] = CT<T>::from_f(s.val[tid]);
+                else s.stat[tid * NSTAT] += e * e;
             }
             dz[0] = CT<T>::from_f(dval);
         }
@@ -626,6 +668,35 @@ k3_grads_stats(const T* __restrict__ staged, Offs offs, const T* __restrict__ ob
         float sum = 0.0f;
         for (int n = 0; n < TN; ++n) sum += s.stat[n * NSTAT + tid];
         a.part_stats[blockIdx.x * NSTAT + tid] = sum;
+    }
+}
+
+// K10: the actor forward and the log-prob of rows [0, n) of obsc through K3's
+// own device code (net_fwd<ActorNet>, row_logp); mu (f32) and logp out.
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+k10_policy_logp(const T* __restrict__ staged, Offs offs, const T* __restrict__ obsc,
+                const float* __restrict__ p, const float* __restrict__ act, int n,
+                float* __restrict__ mu_out, float* __restrict__ logp_out) {
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    Smem<T> s(smem_raw);
+    constexpr int TN = CT<T>::TN;
+    const int tid = threadIdx.x;
+    load_logstd<T>(s, p, offs.logstd);
+    const int ntiles = (n + TN - 1) / TN;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        __syncthreads();
+        load_x0<T>(s, obsc, tile, n);
+        net_fwd<T, ActorNet>(s, staged, offs.aW, offs.ab, s.mu);
+        __syncthreads();
+        const long gi = (long)tile * TN + tid;
+        if (tid < TN && gi < n) {
+            float diff[NACT], mu[NACT];
+            const float logp = row_logp<T>(s, tid, act + gi * NACT, mu, diff);
+#pragma unroll
+            for (int k = 0; k < NACT; ++k) mu_out[gi * NACT + k] = mu[k];
+            logp_out[gi] = logp;
+        }
     }
 }
 
@@ -745,19 +816,44 @@ static int gae_launch(const void* staged, const int* offs, const void* obsc, con
 }
 
 template <typename T>
+static int values_launch(const void* staged, const int* offs, const void* obsc, int n_rows,
+                         float* values, int nblk, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(k2_values<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)Smem<T>::bytes);
+    if (err != cudaSuccess) return (int)err;
+    k2_values<T><<<nblk, NT, Smem<T>::bytes, (cudaStream_t)stream>>>(
+        (const T*)staged, make_offs(offs), (const T*)obsc, n_rows, values);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, bool ANCHOR>
 static int grads_stats_launch(const void* staged, const int* offs, const void* obsc, K3Args a,
                               int n_params, float* g, float* stats, int nblk, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = cudaFuncSetAttribute(k3_grads_stats<T>,
+    cudaError_t err = cudaFuncSetAttribute(k3_grads_stats<T, ANCHOR>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)Smem<T>::bytes);
     if (err != cudaSuccess) return (int)err;
     const Offs f = make_offs(offs);
-    k3_grads_stats<T><<<nblk, NT, Smem<T>::bytes, st>>>((const T*)staged, f, (const T*)obsc, a);
+    k3_grads_stats<T, ANCHOR><<<nblk, NT, Smem<T>::bytes, st>>>((const T*)staged, f,
+                                                               (const T*)obsc, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     k3_reduce<<<(n_params + NT - 1) / NT, NT, 0, st>>>(a.part, a.part_stats, nblk, a.stride,
                                                       n_params, f.logstd, g, stats);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int policy_logp_launch(const void* staged, const int* offs, const void* obsc,
+                              const float* p, const float* act, int n, float* mu, float* logp,
+                              int nblk, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(k10_policy_logp<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)Smem<T>::bytes);
+    if (err != cudaSuccess) return (int)err;
+    k10_policy_logp<T><<<nblk, NT, Smem<T>::bytes, (cudaStream_t)stream>>>(
+        (const T*)staged, make_offs(offs), (const T*)obsc, p, act, n, mu, logp);
     return (int)cudaGetLastError();
 }
 
@@ -796,11 +892,47 @@ int bg_grads_stats(int bf16, const void* staged, const float* p, const int* offs
     K3Args a;
     a.p = p; a.act = act; a.mu_old = mu_old; a.old_logp = old_logp; a.adv = adv; a.ret = ret;
     a.norm = norm; a.part = part; a.part_stats = part_stats; a.mu_out = mu_out;
-    a.logp_out = logp_out; a.self_old = self_old; a.n = n; a.stride = stride;
-    a.lo = lo; a.hi = hi; a.bscale = bscale;
-    return bf16 ? grads_stats_launch<__nv_bfloat16>(staged, offs, obsc, a, n_params, g, stats,
+    a.logp_out = logp_out; a.mu_t = nullptr; a.val_t = nullptr; a.self_old = self_old; a.n = n;
+    a.n_total = n; a.stride = stride; a.lo = lo; a.hi = hi; a.bscale = bscale;
+    return bf16 ? grads_stats_launch<__nv_bfloat16, false>(staged, offs, obsc, a, n_params, g,
+                                                           stats, nblk, stream)
+                : grads_stats_launch<float, false>(staged, offs, obsc, a, n_params, g, stats,
+                                                   nblk, stream);
+}
+
+// K8: critic values of rows [0, n_rows) of obsc
+int bg_values(int bf16, const void* staged, const int* offs, const void* obsc, int n_rows,
+              float* values, int nblk, void* stream) {
+    return bf16 ? values_launch<__nv_bfloat16>(staged, offs, obsc, n_rows, values, nblk, stream)
+                : values_launch<float>(staged, offs, obsc, n_rows, values, nblk, stream);
+}
+
+// K9: part and part_stats as for bg_grads_stats; stats: [4 + NACT] f32
+// scratch, which the reduce fills with zeros (K9 forms no metric sums);
+// mu_t [n, NACT] and val_t [n] in type T
+int bg_grads(int bf16, const void* staged, const float* p, const int* offs, const void* obsc,
+             const float* act, const float* old_logp, const float* adv, const float* ret, int n,
+             int n_total, float lo, float hi, float bscale, float* part, float* part_stats,
+             int stride, int n_params, float* g, float* stats, void* mu_t, void* val_t, int nblk,
+             void* stream) {
+    K3Args a;
+    a.p = p; a.act = act; a.mu_old = nullptr; a.old_logp = old_logp; a.adv = adv; a.ret = ret;
+    a.norm = nullptr; a.part = part; a.part_stats = part_stats; a.mu_out = nullptr;
+    a.logp_out = nullptr; a.mu_t = mu_t; a.val_t = val_t; a.self_old = 0; a.n = n;
+    a.n_total = n_total; a.stride = stride; a.lo = lo; a.hi = hi; a.bscale = bscale;
+    return bf16 ? grads_stats_launch<__nv_bfloat16, true>(staged, offs, obsc, a, n_params, g,
+                                                          stats, nblk, stream)
+                : grads_stats_launch<float, true>(staged, offs, obsc, a, n_params, g, stats,
+                                                  nblk, stream);
+}
+
+// K10: mu [n, NACT] and logp [n] f32 of rows [0, n) of obsc and act
+int bg_policy_logp(int bf16, const void* staged, const float* p, const int* offs,
+                   const void* obsc, const float* act, int n, float* mu, float* logp, int nblk,
+                   void* stream) {
+    return bf16 ? policy_logp_launch<__nv_bfloat16>(staged, offs, obsc, p, act, n, mu, logp,
                                                     nblk, stream)
-                : grads_stats_launch<float>(staged, offs, obsc, a, n_params, g, stats, nblk,
+                : policy_logp_launch<float>(staged, offs, obsc, p, act, n, mu, logp, nblk,
                                             stream);
 }
 

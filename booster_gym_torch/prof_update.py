@@ -1,0 +1,203 @@
+"""Times the update kernels at the training shape (the port of
+tools/prof_update.py).
+
+    python -m booster_gym_torch.prof_update [--T 24] [--B 4096] [--dtype bf16]
+        [--iters 50] [--trace DIR] [--device cuda]
+
+Makes the reference tool's data from a seed (T1's 47 observation, 14
+privileged and 12 action dims, the ActorCritic's widths, weights drawn from
+the seed) and times values (K8), grads (K9) and policy_old_logp (K10), then
+gae (K2), grads_stats (K3) and opt_stage (K4) at the same shape: 3 warm-up
+calls, then --iters calls between two CUDA events.  Prints one JSON line per
+kernel: ms per call, the launches its wrapper counted, the bound (the larger
+of its bytes at 3.35 TB/s and its operations at the H100's peak for the
+compute type, counted from the shapes by update_work) and the card's name
+and power limit.  --trace DIR writes a torch.profiler trace of five grads
+calls to DIR/grads_trace.json.
+
+It runs on the card unless --device cpu is given, and raises without CUDA.
+On the CPU the wrappers run their plain versions, launch nothing, and the
+times are the host's clock ("host_ms", not a device time).
+
+Two parts of the reference tool are attribution experiments of the TPU's
+compiler and are not ported: the ELU -> identity patch and the Pallas tile
+sweep.
+"""
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from booster_gym_torch import testing
+
+NO, NP, NA = 47, 14, 12
+GAMMA, LAM = 0.995, 0.95
+WARMUP = 3
+# method, the kernel's name in the port's table
+KERNELS = (("values", "K8"), ("grads", "K9"), ("policy_old_logp", "K10"),
+           ("gae", "K2"), ("grads_stats", "K3"), ("opt_stage", "K4"))
+LAUNCHES = {"values": "values_launches", "grads": "grads_launches",
+            "policy_old_logp": "policy_logp_launches", "gae": "gae_launches",
+            "grads_stats": "grads_stats_launches", "opt_stage": "opt_stage_launches"}
+
+
+def update_work(fused, T, B):
+    """{method: (bytes, operations)} of one call at [T, B]: each input read
+    once, each output written once; a multiply-add is 2 operations."""
+    n, rows = T * B, (T + 1) * B
+    ct = 2 if fused.bf16 else 4
+    macs = {net: [o * i for _, _, o, i in fused.layers[net]] for net in ("actor", "critic")}
+    n_net = {net: sum(o * i + o for _, _, o, i in fused.layers[net]) for net in macs}
+    na, nc, no = fused.num_act, fused.num_crit, fused.num_obs
+    # forward, weight gradient, and input gradient of every layer but the first
+    grad_ops = n * 2 * sum(3 * sum(m) - m[0] for m in macs.values())
+    # obsc, act, staged weights, logstd (adv, ret and old_logp come on top)
+    grad_in = n * nc * ct + n * na * 4 + fused.n_params * ct + na * 4
+    return {
+        "gae": (rows * nc * ct + 3 * n * 4 + n_net["critic"] * ct + 2 * n * 4 + 8,
+                rows * 2 * sum(macs["critic"])),
+        "grads_stats": (grad_in + 3 * n * 4 + n * na * 4 + 8 + fused.n_params * 4
+                        + (4 + na) * 4 + n * na * 4 + n * 4, grad_ops),
+        "opt_stage": (fused.n_params * (4 * 4 + 3 * 4 + ct) + 4, fused.n_params * 20),
+        "values": (n * nc * ct + n_net["critic"] * ct + n * 4, n * 2 * sum(macs["critic"])),
+        "grads": (grad_in + 3 * n * 4 + fused.n_params * 4 + n * na * ct + n * ct, grad_ops),
+        "policy_old_logp": (n * no * ct + n * na * 4 + n_net["actor"] * ct + na * 4
+                            + n * na * 4 + n * 4, n * 2 * sum(macs["actor"])),
+    }
+
+
+def bound(fused, method, nbytes, nops):
+    """(bound_ms, "bytes" or "operations") on an H100 at its published peaks."""
+    bf16_products = fused.bf16 and method != "opt_stage"
+    return testing.bound(nbytes, nops, testing.H100_BF16_OPS_PER_S if bf16_products
+                         else testing.H100_F32_OPS_PER_S)
+
+
+def make_data(T, B, compute_dtype, device, seed=0):
+    """The reference tool's make_data, drawn with a torch.Generator on the
+    CPU and moved to `device`: (network, d) with d's obs, priv, act, adv,
+    ret, old_logp and the policy's mu0, plus the post-rollout observation,
+    rewards, nonterm and timeout_f that gae takes."""
+    from booster_gym_torch.algo.networks import ActorCritic, normal_log_prob
+
+    gen = torch.Generator().manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=gen).to(device)
+    net = ActorCritic(NA, NO, NP, compute_dtype=compute_dtype)
+    net.reset_parameters(gen)
+    net = net.to(device)
+    obs, priv, act = randn(T, B, NO), randn(T, B, NP), 0.1 * randn(T, B, NA)
+    adv, ret = randn(T, B), randn(T, B)
+    with torch.no_grad():
+        mu0, std0 = net.act(obs)
+    d = dict(obs=obs, priv=priv, act=act, adv=adv, ret=ret, mu0=mu0,
+             old_logp=normal_log_prob(mu0, std0, act), obs_last=randn(B, NO),
+             priv_last=randn(B, NP), rew=randn(T, B))
+    done = torch.rand((T, B), generator=gen).to(device) < 0.05
+    timeout = torch.rand((T, B), generator=gen).to(device) < 0.05
+    d["nonterm"], d["timeout_f"] = 1.0 - (done | timeout).float(), timeout.float()
+    return net, d
+
+
+def _calls(fused, d):
+    """method -> a no-argument call of it on the data."""
+    p = d["p"]
+    staged = fused.stage(p)
+    prep = fused.prepare(d["obs"], d["priv"], d["act"], d["mu0"], d["old_logp"], d["obs_last"],
+                         d["priv_last"])
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    g = 1e-3 * torch.ones_like(p)
+    m, v, lr = torch.zeros_like(p), torch.zeros_like(p), torch.tensor(1e-3, device=p.device)
+    return {
+        "values": lambda: fused.values(p, d["obs"], d["priv"]),
+        "grads": lambda: fused.grads(p, d["obs"], d["priv"], d["act"], d["adv"], d["ret"],
+                                     d["old_logp"]),
+        "policy_old_logp": lambda: fused.policy_old_logp(p, prep),
+        "gae": lambda: fused.gae(staged, prep["obsc"], d["rew"], d["nonterm"], d["timeout_f"],
+                                 GAMMA, LAM),
+        "grads_stats": lambda: fused.grads_stats(staged, p, prep, d["adv"], d["ret"], mean, rstd,
+                                                 False),
+        "opt_stage": lambda: fused.opt_stage(g, p, m, v, 0, lr, entropy_coef=-0.01, b1=0.9,
+                                             b2=0.999, eps=1e-8, max_norm=1.0),
+    }
+
+
+def _time(fn, iters, cuda):
+    """ms per call after WARMUP calls: CUDA events on the card, the host
+    clock on the CPU; returns (ms, the last call's outputs)."""
+    if cuda:
+        return testing.time_cuda(fn, iters, WARMUP)
+    for _ in range(WARMUP):
+        out = fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    return (time.perf_counter() - t0) * 1e3 / iters, out
+
+
+def _finite(out):
+    if isinstance(out, dict):
+        return all(_finite(v) for v in out.values())
+    if isinstance(out, (tuple, list)):
+        return all(_finite(v) for v in out)
+    return bool(torch.isfinite(out.float()).all())
+
+
+def main(argv=None):
+    """Returns the printed records, one per kernel."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--T", type=int, default=24)
+    parser.add_argument("--B", type=int, default=4096)
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--trace", default=None)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.algo.update_kernel import FusedUpdate
+    from booster_gym_torch.runner import resolve_device
+
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    card = testing.card_line() if cuda else "cpu"
+    net, d = make_data(args.T, args.B, args.dtype, device)
+    fused = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
+    d["p"] = flat_params(net)
+    calls = _calls(fused, d)
+    work = update_work(fused, args.T, args.B)
+    records = []
+    for method, kernel in KERNELS:
+        ms, out = _time(calls[method], args.iters, cuda)
+        if not _finite(out):
+            raise FloatingPointError(f"{method} gave non-finite values")
+        bound_ms, bound_by = bound(fused, method, *work[method])
+        rec = {"kernel": kernel, "method": method, "T": args.T, "B": args.B,
+               "dtype": args.dtype, "device": str(device), "card": card,
+               "ms" if cuda else "host_ms": ms, "calls": WARMUP + args.iters,
+               "launches": getattr(fused, LAUNCHES[method]), "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": work[method][0], "operations": work[method][1]}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+
+    if args.trace:
+        os.makedirs(args.trace, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        calls["grads"]()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                calls["grads"]()
+            if cuda:
+                torch.cuda.synchronize()
+        path = os.path.join(args.trace, "grads_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"trace written: {path}", flush=True)
+    return records
+
+
+if __name__ == "__main__":
+    main()

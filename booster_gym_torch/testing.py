@@ -1,5 +1,6 @@
 """Robots built in code, update inputs made from a seed and the main path's
-configuration, for the tests, chip_smoke.py and profile_iteration.py only.
+configuration, and the H100's peaks and a CUDA-event timer, for the tests,
+chip_smoke.py, profile_iteration.py and prof_update.py only.
 
 The training path never imports this module.  The vendor T1 URDF
 (resources/T1/T1_locomotion.urdf) is not in the repository, so the port's
@@ -20,6 +21,10 @@ import numpy as np
 
 from booster_gym_torch.model.urdf import RobotModel
 from booster_gym_torch.utils.config import load_task_cfg
+
+H100_BYTES_PER_S = 3.35e12      # HBM3, SXM
+H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12    # bf16 tensor cores, dense
 
 
 def _box_inertia(m, sx, sy, sz):
@@ -246,6 +251,29 @@ def update_inputs(network, T, B, device, seed):
             "adv": 0.3 + 2.0 * f32(T, B), "ret": f32(T, B)}
 
 
+def seeded_network(compute_dtype, device, seed):
+    """T1's ActorCritic (47 / 14 / 12) drawn from a seed, logstd moved off
+    its constant start, on `device`."""
+    import torch
+
+    from booster_gym_torch.algo.networks import ActorCritic
+
+    gen = torch.Generator().manual_seed(seed)
+    net = ActorCritic(12, 47, 14, compute_dtype=compute_dtype)
+    net.reset_parameters(gen)
+    with torch.no_grad():
+        net.logstd.add_(0.1 * torch.randn(net.logstd.shape, generator=gen))
+    return net.to(device)
+
+
+def _ratio_bands(rng, n):
+    """Importance ratios spread over [0.6, 0.75], [0.85, 1.15] and
+    [1.25, 1.4], as float32."""
+    band = rng.integers(0, 3, n)
+    return (np.array([0.6, 0.85, 1.25])[band]
+            + np.array([0.15, 0.3, 0.15])[band] * rng.random(n)).astype(np.float32)
+
+
 def update_case(compute_dtype, T, B, device, seed=0):
     """One gradient-pass case for K2-K4 against their plain versions:
     (FusedUpdate, flat params p, staged, prep, inputs of update_inputs).
@@ -257,16 +285,10 @@ def update_case(compute_dtype, T, B, device, seed=0):
     one sample's rounding would move a visible share of the gradient."""
     import torch
 
-    from booster_gym_torch.algo.networks import ActorCritic
     from booster_gym_torch.algo.ppo import flat_params
     from booster_gym_torch.algo.update_kernel import FusedUpdate
 
-    gen = torch.Generator().manual_seed(seed)
-    net = ActorCritic(12, 47, 14, compute_dtype=compute_dtype)
-    net.reset_parameters(gen)
-    with torch.no_grad():
-        net.logstd.add_(0.1 * torch.randn(net.logstd.shape, generator=gen))
-    net = net.to(device)
+    net = seeded_network(compute_dtype, device, seed)
     fused = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
     p = flat_params(net)
     staged = fused.stage(p)
@@ -277,12 +299,59 @@ def update_case(compute_dtype, T, B, device, seed=0):
     zero = torch.zeros((), device=device)
     logp = fused.grads_stats_plain(staged, p, prep, d["adv"], d["ret"], zero, zero + 1.0,
                                    True)[3]
-    rng = np.random.default_rng(seed + 2)
-    band = rng.integers(0, 3, T * B)
-    ratio = (np.array([0.6, 0.85, 1.25])[band]
-             + np.array([0.15, 0.3, 0.15])[band] * rng.random(T * B)).astype(np.float32)
+    ratio = _ratio_bands(np.random.default_rng(seed + 2), T * B)
     prep["old_logp"] = (logp - torch.log(torch.as_tensor(ratio, device=device))).view(T, B)
     return fused, p, staged, prep, d
+
+
+def anchor_case(network, T, B, device, seed=0, ties=False):
+    """Inputs of values, grads and policy_old_logp (K8-K10) made with numpy
+    from a seed, for `network` on `device`: (FusedUpdate, flat params p, d)
+    with d's obs, priv [T, B, dim], act [T, B, num_act] drawn around the
+    policy, advantages adv and returns ret from N(0, 1) (as the reference's
+    tests and tools/prof_update.py draw them), and old_logp [T, B], all
+    f32.
+
+    old_logp puts the importance ratios of the plain forward in
+    update_case's bands, at least 0.05 from the clip bounds, for the
+    comparisons on the card.  With `ties` the ratio of sample i aims at
+    0.8, 1.0 and 1.2 for i % 3 = 0, 1, 2 and sits exactly on it wherever an
+    f32 old_logp gives exp(logp - old_logp) == bound; the CPU tests take
+    the subgradients there."""
+    import torch
+
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.algo.update_kernel import FusedUpdate
+
+    fused = FusedUpdate(network, clip_ratio=0.2, bound_coef=10.0)
+    p = flat_params(network)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32), device=device)
+    no, npriv, na = fused.num_obs, fused.num_crit - fused.num_obs, fused.num_act
+    d = {"obs": f32(T, B, no), "priv": f32(T, B, npriv)}
+    with torch.no_grad():
+        mu, std = network.act(d["obs"])
+    d["act"] = mu + std * f32(T, B, na)
+    d["adv"], d["ret"] = f32(T, B), f32(T, B)
+    prep = fused.prepare(d["obs"], d["priv"], d["act"], mu, torch.zeros((T, B), device=device))
+    logp = fused.policy_old_logp_plain(p, prep)[1]
+    if ties:
+        target = torch.tensor([0.8, 1.0, 1.2], device=device)[torch.arange(T * B) % 3]
+        # log(target)'s float32 neighbours, nearest first
+        cands, lo, hi = [torch.log(target)], torch.log(target), torch.log(target)
+        for _ in range(4):
+            lo, hi = torch.nextafter(lo, lo - 1.0), torch.nextafter(hi, hi + 1.0)
+            cands += [hi, lo]
+        old, found = logp - cands[0], torch.zeros_like(logp, dtype=torch.bool)
+        for x in cands:
+            o = logp - x
+            hit = ~found & (torch.exp(logp - o) == target)
+            old, found = torch.where(hit, o, old), found | hit
+    else:
+        ratio = _ratio_bands(np.random.default_rng(seed + 1), T * B)
+        old = logp - torch.log(torch.as_tensor(ratio, device=device))
+    d["old_logp"] = old.view(T, B)
+    return fused, p, d
 
 
 def card_line():
@@ -291,3 +360,27 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def bound(nbytes, nops, ops_per_s=H100_F32_OPS_PER_S):
+    """(ms, "bytes" or "operations"): the least time an H100 takes to move
+    `nbytes` through its memory and do `nops` operations at `ops_per_s`."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_cuda(fn, iters, warmup=3):
+    """(ms per call of `fn` on the card, the last call's outputs): `warmup`
+    calls, then `iters` calls between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, out

@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero:
      (N = 98,304) and B = 1000 (ragged tiles), K3 and K4 launched twice to
      show that they repeat bitwise; then the whole fused update() against
      the xla (autograd) update() from the same parameters and rollout
-     buffers, f32, 3 mini-epochs;
+     buffers, f32, 3 mini-epochs; then K8 (values), K9 (grads) and K10
+     (policy_old_logp) in bf16 and f32 at the same shapes against their
+     plain versions, K9 launched twice to show that it repeats bitwise,
+     and the cross-checks between independently launched kernels on the
+     same data: K9 on normalised advantages against K3, K8 against K2's
+     value pass and K9's values, K10 against K3's self_old forward;
   4. the main path: booster_gym_torch.train's Runner on flat T1 (the
      T1-shaped stand-in URDF), 4096 envs, horizon 24, 20 mini-epochs,
      update_backend fused as T1.yaml has it, 3 iterations; per iteration
@@ -31,11 +36,15 @@ Phases, in order; any failure exits non-zero:
      a 900 x 200 field), 4096 envs, 3 iterations; per iteration K5 must be
      launched 24 x 10 times, K1 never, the sampler 24 times and K2, K3 and
      K4 20 times each;
+  4c. the path of K8-K10: booster_gym_torch.prof_update at its defaults
+     (T = 24, B = 4096, bf16, 50 timed calls of each of K8, K9, K10, K2,
+     K3, K4 after 3 warm-up calls); every call must count one launch;
   5. one control step of the env on the card against the same step on the
      CPU (plain versions) from the same state, a small batch, on the plane
      and on a small heightfield;
   6. each kernel's time at its path's shapes beside its bound and the plain
-     version's time, printed as a `kernels` JSON line.
+     version's time, printed as a `kernels` JSON line (K1-K10); K2-K4 and
+     K8-K10 take their times from phase 4c.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -67,16 +76,13 @@ TOL_SAMPLER = 2e-5
 # ulp (2^-8 relative) apart; the gradient agrees to 2.5 ulps of its norm.
 # K4 is elementwise in f32 after one norm: rtol 1e-5 / atol 1e-7, the JAX
 # package's tolerance for its optimizer kernel; its staged copy is bitwise.
+# K8-K10 are K2's and K3's device code: the same tolerances.
 TOL_UPDATE = {"f32": dict(val=2e-4, grad=1e-4, stat=1e-4),
               "bf16": dict(val=2.0 ** -7, grad=2.5 * 2.0 ** -8, stat=1e-2)}
 TOL_K4_RTOL, TOL_K4_ATOL = 1e-5, 1e-7
 # fused update() against the xla update(), f32: the CPU test's tolerances
 TOL_PARAM_RTOL, TOL_PARAM_ATOL, TOL_STAT_RTOL, TOL_STAT_ATOL = 1e-4, 1e-6, 1e-4, 1e-6
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, SXM
-H100_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
-H100_BF16_OPS_PER_S = 989e12    # bf16 tensor cores, dense: what K2's and K3's
-                                # bf16 products could use
 ADAM = dict(entropy_coef=-0.01, b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
 GAMMA, LAM = 0.995, 0.95
 
@@ -296,21 +302,6 @@ def compare_sampler(sampler, terrain, B, clamped):
     return max(e_h, e_n)
 
 
-def time_cuda(fn, iters):
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def to_device(obj, device):
     """Dataclass of tensors (nested) onto `device`."""
     import torch
@@ -459,69 +450,121 @@ def compare_fused_with_xla(urdf, mini_epochs=3):
             "the fused update disagrees with the xla update on the card")
 
 
-def update_bounds(fused, T, B):
-    """{kernel: (bytes, operations)} of one call at [T, B]: each input read
-    once, each output written once; a multiply-add is 2 operations."""
-    n, rows = T * B, (T + 1) * B
-    ct = 2 if fused.bf16 else 4
-    macs = {net: [o * i for _, _, o, i in fused.layers[net]] for net in ("actor", "critic")}
-    n_net = {net: sum(o * i + o for _, _, o, i in fused.layers[net]) for net in macs}
-    na, nc = fused.num_act, fused.num_crit
-    k2_bytes = rows * nc * ct + 3 * n * 4 + n_net["critic"] * ct + 2 * n * 4 + 8
-    k2_ops = rows * 2 * sum(macs["critic"])
-    k3_bytes = (n * nc * ct + 2 * n * na * 4 + 3 * n * 4 + 8 + fused.n_params * ct + na * 4
-                + fused.n_params * 4 + (4 + na) * 4 + n * na * 4 + n * 4)
-    # forward, weight gradient, and input gradient of every layer but the first
-    k3_ops = n * 2 * sum(3 * sum(m) - m[0] for m in macs.values())
-    k4_bytes = fused.n_params * (4 * 4 + 3 * 4 + ct) + 4
-    k4_ops = fused.n_params * 20
-    return {"K2": (k2_bytes, k2_ops), "K3": (k3_bytes, k3_ops), "K4": (k4_bytes, k4_ops)}
-
-
-def time_update_kernels(card, launches, max_err):
-    """K2-K4 at the main path's shapes (bf16, T = 24, B = 4096): time per
-    call beside the plain version's and the bound.  Returns the `kernels`
-    entries."""
+def compare_anchor_kernels(dtype, B, T=24):
+    """K8, K9 (launched twice) and K10 against their plain versions on the
+    card at [T, B]; then the cross-checks on the same data: K9 on
+    normalised advantages against K3 (self_old 0), K8 against K2's value
+    pass and K9's values, K10 against K3's self_old forward.  Returns
+    {kernel: max abs error against the plain version}."""
     import torch
 
-    from booster_gym_torch.testing import update_case
+    from booster_gym_torch.testing import anchor_case, seeded_network
+
+    tol = TOL_UPDATE[dtype]
+    tag = f"{dtype} N={T * B}"
+    fused, p, d = anchor_case(seeded_network(dtype, "cuda", B), T, B, "cuda", seed=B)
+    obs, priv, act, old_logp = d["obs"], d["priv"], d["act"], d["old_logp"]
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    prep = fused.prepare(obs, priv, act, torch.zeros_like(act), old_logp, rnd(B, 47), rnd(B, 14))
+
+    v, v_p = fused.values(p, obs, priv), fused.values_plain(p, obs, priv)
+    args = (p, obs, priv, act, d["adv"], d["ret"], old_logp)
+    g, mu, val = fused.grads(*args)
+    g2, mu2, val2 = fused.grads(*args)
+    g_p, mu_p, val_p = fused.grads_plain(*args)
+    mu10, logp10 = fused.policy_old_logp(p, prep)
+    mu10_p, logp10_p = fused.policy_old_logp_plain(p, prep)
+    torch.cuda.synchronize()
+    e_v = rel_err(v, v_p)
+    log(f"  K8 {tag}: rel err {e_v:.2e} (tol {tol['val']:.1e})")
+    require(e_v <= tol["val"], f"K8 disagrees with its plain version ({tag})")
+    rerun = max(float((a - b).abs().max()) for a, b in ((g, g2), (mu, mu2), (val, val2)))
+    e_g = max(rel_err(g[w:w + o * i], g_p[w:w + o * i])
+              for net in ("actor", "critic") for w, _, o, i in fused.layers[net])
+    e_b = max(rel_err(g[b:b + o], g_p[b:b + o])
+              for net in ("actor", "critic") for _, b, o, _ in fused.layers[net])
+    e_ls = rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice])
+    e_mu, e_val = rel_err(mu, mu_p), rel_err(val, val_p)
+    log(f"  K9 {tag}: rel err per leaf: weights {e_g:.2e} biases {e_b:.2e} (tol "
+        f"{tol['grad']:.1e}) dlogstd {e_ls:.2e}; mu {e_mu:.2e} values {e_val:.2e} (tol "
+        f"{tol['val']:.1e}); run-to-run max abs diff {rerun:.1e}")
+    require(max(e_g, e_b) <= tol["grad"] and e_ls <= 10 * tol["grad"]
+            and max(e_mu, e_val) <= tol["val"], f"K9 disagrees with its plain version ({tag})")
+    require(rerun == 0.0, f"K9 does not repeat bitwise ({tag})")
+    e_mu10, e_lp10 = rel_err(mu10, mu10_p), rel_err(logp10, logp10_p)
+    log(f"  K10 {tag}: rel err mu {e_mu10:.2e} logp {e_lp10:.2e} (tol {tol['val']:.1e})")
+    require(max(e_mu10, e_lp10) <= tol["val"], f"K10 disagrees with its plain version ({tag})")
+
+    # the cross-checks between independently launched kernels
+    staged = fused.stage(p)
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    g9, mu9, val9 = fused.grads(p, obs, priv, act, (d["adv"] - mean) * rstd, d["ret"], old_logp)
+    g3, _, mu3, _ = fused.grads_stats(staged, p, prep, d["adv"], d["ret"], mean, rstd, False)
+    # with no reward, no continuation and no timeout K2's advantage is -value
+    zeros = torch.zeros(T, B, device="cuda")
+    adv2 = fused.gae(staged, prep["obsc"], zeros, zeros, zeros, GAMMA, LAM)[0]
+    _, _, mu_self, logp_self = fused.grads_stats(staged, p, prep, d["adv"], d["ret"], mean, rstd,
+                                                 True)
+    torch.cuda.synchronize()
+    diff = lambda a, b: float((a - b).abs().max())
+    d_g, d_mu = diff(g9, g3), diff(mu9.view(-1, fused.num_act), mu3.to(fused.dtype).float())
+    d_v = max(diff(val9, v), diff(-adv2, v))
+    d_10 = max(diff(mu10, mu_self), diff(logp10, logp_self))
+    log(f"  cross-checks {tag}: K9 - K3 gradient max abs {d_g} (rel {rel_err(g9, g3):.2e}), mu "
+        f"{d_mu}; K8 - K2 values (-adv at zero reward and nonterm) and K8 - K9 values {d_v}; K10 - K3 (self_old) mu and logp "
+        f"{d_10}")
+    require(d_v == 0.0 and d_10 == 0.0, f"K8 or K10 differs from K2 / K3 on the same rows ({tag})")
+    require((d_g == 0.0 and d_mu == 0.0) or rel_err(g9, g3) <= tol["grad"],
+            f"K9 disagrees with K3 on normalised advantages ({tag})")
+    return {"K8": float((v - v_p).abs().max()), "K9": float((g - g_p).abs().max()),
+            "K10": max(float((mu10 - mu10_p).abs().max()), float((logp10 - logp10_p).abs().max()))}
+
+
+def time_update_kernels(card, launches, max_err, prof):
+    """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
+    (bf16, T = 24, B = 4096): time per call, bound and work from
+    prof_update's records `prof` (phase 4c), beside the plain version's
+    time, measured here."""
+    from booster_gym_torch.testing import time_cuda, update_case
 
     T, B = 24, 4096
     fused, p, staged, prep, d = update_case("bf16", T, B, "cuda", seed=1)
+    obs, priv, act = d["buf"][:3]
     rew, nonterm, tf = gae_inputs(d)
     mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
     gr, m, v, lr = adam_inputs(p, seed=2)
-    calls = {
-        "K2": (lambda f: f(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
-               fused.gae, fused.gae_plain),
-        "K3": (lambda f: f(staged, p, prep, d["adv"], d["ret"], mean, rstd, False),
-               fused.grads_stats, fused.grads_stats_plain),
-        "K4": (lambda f: f(gr, p, m, v, 7, lr, **ADAM), fused.opt_stage, fused.opt_stage_plain),
+    plains = {
+        "K2": lambda: fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
+        "K3": lambda: fused.grads_stats_plain(staged, p, prep, d["adv"], d["ret"], mean, rstd,
+                                              False),
+        "K4": lambda: fused.opt_stage_plain(gr, p, m, v, 7, lr, **ADAM),
+        "K8": lambda: fused.values_plain(p, obs, priv),
+        "K9": lambda: fused.grads_plain(p, obs, priv, act, d["adv"], d["ret"], prep["old_logp"]),
+        "K10": lambda: fused.policy_old_logp_plain(p, prep),
     }
-    meta = {"K2": ("K2 gae (values + GAE)", "booster_gym_tpu/algo/update_kernel.py:217"),
-            "K3": ("K3 grads_stats (gradients + metric sums)",
-                   "booster_gym_tpu/algo/update_kernel.py:381"),
-            "K4": ("K4 opt_stage (clip + Adam + staging)",
-                   "booster_gym_tpu/algo/update_kernel.py:488")}
-    bounds = update_bounds(fused, T, B)
+    src = "booster_gym_tpu/algo/update_kernel.py"
+    meta = {"K2": ("K2 gae (values + GAE)", f"{src}:217"),
+            "K3": ("K3 grads_stats (gradients + metric sums)", f"{src}:381"),
+            "K4": ("K4 opt_stage (clip + Adam + staging)", f"{src}:488"),
+            "K8": ("K8 values (critic forward)", f"{src}:128"),
+            "K9": ("K9 grads (row-major gradient anchor)", f"{src}:136"),
+            "K10": ("K10 policy_old_logp (actor forward + log-prob)", f"{src}:358")}
     entries = []
-    for k, (call, kernel, plain) in calls.items():
-        ms = time_cuda(lambda: call(kernel), 20)
-        plain_ms = time_cuda(lambda: call(plain), 5)
-        nbytes, nops = bounds[k]
-        peak = H100_F32_OPS_PER_S if k == "K4" else H100_BF16_OPS_PER_S
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / peak * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        log(f"{k} at N={T * B} bf16 [{card}]: {ms:.4f} ms/call; plain version {plain_ms:.3f} "
-            f"ms; bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} "
-            f"us at 3.35 TB/s, {nops / 1e9:.3f} Gop -> {t_ops * 1e3:.2f} us at "
-            f"{'67 TFLOP/s f32' if k == 'K4' else '989 TFLOP/s bf16 tensor cores'}); "
+    for k, plain in plains.items():
+        name, replaces = meta[k]
+        rec = prof[k]
+        plain_ms, _ = time_cuda(plain, 5)
+        log(f"{k} at N={T * B} bf16 [{card}]: {rec['ms']:.4f} ms/call (prof_update); plain "
+            f"version {plain_ms:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us by "
+            f"{rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB, {rec['operations'] / 1e9:.3f} Gop "
+            f"at {'67 TFLOP/s f32' if k == 'K4' else '989 TFLOP/s bf16 tensor cores'}); "
             f"library: none")
         entries.append({
-            "name": meta[k][0], "route": "cuda", "source": "booster_gym_torch/csrc/update.cu",
-            "replaces": meta[k][1], "launches": launches[k], "max_abs_err": max_err[k],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
+            "name": name, "route": "cuda", "source": "booster_gym_torch/csrc/update.cu",
+            "replaces": replaces, "launches": launches[k], "max_abs_err": max_err[k],
+            "ms": rec["ms"], "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
     return entries
 
 
@@ -540,7 +583,7 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from booster_gym_torch import kernel_build
+    from booster_gym_torch import kernel_build, prof_update
     from booster_gym_torch.algo import update_kernel
     from booster_gym_torch.algo.networks import ActorCritic
     from booster_gym_torch.model import load_urdf
@@ -550,10 +593,12 @@ def main():
     from booster_gym_torch.runner import Runner
     from booster_gym_torch.terrain import Terrain, sample_kernel
     from booster_gym_torch.testing import (
+        bound,
         card_line,
         main_path_cfg,
         rough_path_cfg,
         sampler_inputs,
+        time_cuda,
         toy_model,
         write_t1_shaped_urdf,
     )
@@ -586,7 +631,7 @@ def main():
     builds.update({f"K5 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
                    for n, k in general.items()})
     builds["K6+K7"] = kernel_build.start_build(sample_kernel.SOURCE, {})
-    builds["K2-K4"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
+    builds["K2-K4, K8-K10"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
     for name, (path, proc, tmp) in builds.items():
         report = kernel_build.finish_build(path, proc, tmp)
         log(f"built {name}: {os.path.basename(path)}")
@@ -629,6 +674,14 @@ def main():
     log("K2, K3 and K4 match their plain versions: max abs err "
         + ", ".join(f"{k} {e:.3e}" for k, e in update_err.items()))
     compare_fused_with_xla(urdf)
+    anchor_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
+    for dtype in ("bf16", "f32"):
+        for B in (4096, 1000):
+            for k, e in compare_anchor_kernels(dtype, B).items():
+                anchor_err[k] = max(anchor_err[k], e)
+    log("K8, K9 and K10 match their plain versions and agree with K2 and K3: max abs err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in anchor_err.items()))
+    update_err.update(anchor_err)
 
     # -- 4. main path ----------------------------------------------------
     tcfg = main_path_cfg(urdf)
@@ -738,6 +791,20 @@ def main():
         f"{r['rollout_ms']:.2f} ms, update {f['update_ms']:.2f} vs {r['update_ms']:.2f} ms, "
         f"iteration {f['iter_ms']:.2f} vs {r['iter_ms']:.2f} ms")
 
+    # -- 4c. the path of K8-K10: prof_update at its defaults ----------------
+    # prof_update builds its own FusedUpdate, so every count starts at 0 here
+    precords = prof_update.main([])
+    calls = prof_update.WARMUP + 50
+    by_kernel = {r["kernel"]: r for r in precords}
+    prof_launches = {k: r["launches"] for k, r in by_kernel.items()}
+    log(f"prof_update at T=24, B=4096, bf16 [{card}]: launches {prof_launches} for {calls} "
+        f"calls each; ms per call " + ", ".join(f"{k} {r['ms']:.4f}" for k, r in by_kernel.items()))
+    require(sorted(by_kernel) == sorted(["K2", "K3", "K4", "K8", "K9", "K10"])
+            and all(n == calls for n in prof_launches.values())
+            and all((r["T"], r["B"], r["dtype"]) == (24, 4096, "bf16") for r in precords),
+            f"prof_update's launches {prof_launches}, expected {calls} each")
+    launches.update({k: prof_launches[k] for k in ("K8", "K9", "K10")})
+
     # -- 5. env step on the card against the CPU ---------------------------
     from booster_gym_torch.envs.t1 import T1
 
@@ -789,24 +856,22 @@ def main():
         label = "K1" if k.plane else "K5"
         ps, pdyn = k.pack_sim(state), k.pack_dyn(dyn)
         n0 = k.launches
-        ms = time_cuda(lambda: k.packed_call(ps, pdyn, ptau, pext, *phn), 200)
+        ms, _ = time_cuda(lambda: k.packed_call(ps, pdyn, ptau, pext, *phn), 200)
         plain_fn = plain if k.plane else plain.terrain_form
-        plain_ms = time_cuda(lambda: plain_fn(state, dyn, tau, ef, et, *hn), 20)
+        plain_ms, _ = time_cuda(lambda: plain_fn(state, dyn, tau, ef, et, *hn), 20)
         nbytes = substep_bytes(k) * B
         nops = substep_op_count(model, cfg, k.plane) * B
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
+        bound_ms, bound_by = bound(nbytes, nops)
         log(f"{label} at {B} envs [{card}]: {ms * 1e3:.2f} us/substep; plain version "
-            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us "
-            f"({nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us, {nops / 1e6:.1f} Mop -> "
-            f"{t_ops * 1e3:.2f} us); timing launches {k.launches - n0}")
+            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32); timing launches "
+            f"{k.launches - n0}")
         entries.append({
             "name": "K1 substep (plane)" if k.plane else "K5 substep (general terrain)",
             "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
             "replaces": "booster_gym_tpu/physics/pallas_engine.py:267",
             "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
     # the sampler at the rough path's shapes: 4096 roots over the tiles, 65
     # queries within 0.55 m of each (the contact points' reach)
@@ -815,25 +880,23 @@ def main():
                  for x in sampler_inputs(terrain, B, N, 0.55, False, seed=5))
     hf = terrain.height_field
     n0 = sampler.launches
-    ms = time_cuda(lambda: sampler(hf, root, pts), 200)
-    plain_ms = time_cuda(lambda: sampler.plain(hf, root, pts), 20)
+    ms, _ = time_cuda(lambda: sampler(hf, root, pts), 200)
+    plain_ms, _ = time_cuda(lambda: sampler.plain(hf, root, pts), 20)
     nbytes = B * (8 + N * 8 + N * 16) + hf.numel() * 4
     nops = B * N * 50
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    bound_ms, bound_by = bound(nbytes, nops)
     log(f"K6+K7 sampler at {B} envs x {N} queries [{card}]: {ms * 1e3:.2f} us/call; plain "
-        f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB "
-        f"-> {t_bytes * 1e3:.2f} us, {nops / 1e6:.1f} Mop -> {t_ops * 1e3:.2f} us); library: "
-        f"none (grid_sample gives no slopes and clamps to the whole field); timing launches "
+        f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32); library: none "
+        f"(grid_sample gives no slopes and clamps to the whole field); timing launches "
         f"{sampler.launches - n0}")
     entries.append({
         "name": "K6+K7 terrain sampler", "route": "cuda",
         "source": "booster_gym_torch/csrc/terrain_sample.cu",
         "replaces": "booster_gym_tpu/terrain/sample_kernel.py:83 and :181",
         "launches": rough_launches["K6+K7"], "max_abs_err": sampler_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None})
-    line = {"kernels": entries + time_update_kernels(card, launches, update_err)}
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    line = {"kernels": entries + time_update_kernels(card, launches, update_err, by_kernel)}
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

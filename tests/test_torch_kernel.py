@@ -1,6 +1,7 @@
 """The kernels' wrappers: K1 and K5 (booster_gym_torch/physics/
 substep_kernel.py), the terrain sampler K6 + K7 (booster_gym_torch/terrain/
-sample_kernel.py) and K2-K4 (booster_gym_torch/algo/update_kernel.py).
+sample_kernel.py) and K2-K4 and K8-K10 (booster_gym_torch/algo/
+update_kernel.py).
 
 The CUDA kernels run only on a card: the tests marked `cuda` hold each
 against its plain version there and skip without one (chip_smoke.py runs
@@ -25,8 +26,10 @@ from booster_gym_torch.algo import update_kernel
 from booster_gym_torch.terrain import Terrain
 from booster_gym_torch.terrain import sample_kernel
 from booster_gym_torch.testing import (
+    anchor_case,
     point_terrain_inputs,
     sampler_inputs,
+    seeded_network,
     toy_model,
     update_case,
     write_t1_shaped_urdf,
@@ -357,3 +360,121 @@ def test_opt_stage_kernel_matches_plain_on_card(gpu, dtype):
     assert torch.equal(out[3], out[0].to(fused.dtype))   # staged: the cast, bitwise
     with pytest.raises(ValueError):
         fused.opt_stage(g[:-1], p, m, v, 7, lr, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K8-K10
+def test_anchor_wrappers_run_the_plain_versions_on_the_cpu():
+    T, B = 3, 16
+    fused, p, d = anchor_case(seeded_network("bf16", "cpu", 0), T, B, "cpu")
+    obs, priv = d["obs"], d["priv"]
+    v = fused.values(p, obs, priv)
+    assert v.shape == (T, B) and torch.equal(v, fused.values_plain(p, obs, priv))
+    assert torch.equal(fused.values(p, obs[1], priv[1]), v[1])     # a [B, dim] input
+    args = (p, obs, priv, d["act"], d["adv"], d["ret"], d["old_logp"])
+    out, ref = fused.grads(*args), fused.grads_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    g, mu, val = out
+    assert g.shape == (fused.n_params,) and mu.shape == (T, B, 12) and val.shape == (T, B)
+    # mu and the values come back rounded to the compute type
+    assert torch.equal(mu, mu.bfloat16().float()) and torch.equal(val, v)
+    prep = fused.prepare(obs, priv, d["act"], mu, d["old_logp"])    # no obs_last
+    assert prep["obsc"].shape == (T, B, 61)
+    out, ref = fused.policy_old_logp(p, prep), fused.policy_old_logp_plain(p, prep)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert out[0].shape == (T * B, 12) and out[1].shape == (T * B,)
+    assert (fused.values_launches, fused.grads_launches, fused.policy_logp_launches) == (0, 0, 0)
+
+
+def anchor(dtype, T, B, device):
+    return anchor_case(seeded_network(dtype, device, B), T, B, device, seed=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B", [256, 1000])
+def test_values_kernel_matches_plain_on_card(gpu, dtype, B):
+    fused, p, d = anchor(dtype, 24, B, gpu)
+    v = fused.values(p, d["obs"], d["priv"])
+    v_row = fused.values(p, d["obs"][3], d["priv"][3])
+    v_p = fused.values_plain(p, d["obs"], d["priv"])
+    torch.cuda.synchronize()
+    assert fused.values_launches == 2
+    assert rel_err(v, v_p) <= TOL[dtype]["val"]
+    assert torch.equal(v_row, v[3])             # rows are computed independently
+    with pytest.raises(ValueError):
+        fused.values(p.double(), d["obs"], d["priv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("T,B", [(24, 256), (7, 1000)])   # 7000: a ragged last tile
+def test_grads_kernel_matches_plain_on_card(gpu, dtype, T, B):
+    fused, p, d = anchor(dtype, T, B, gpu)
+    args = (p, d["obs"], d["priv"], d["act"], d["adv"], d["ret"], d["old_logp"])
+    g, mu, val = fused.grads(*args)
+    g2, mu2, val2 = fused.grads(*args)
+    g3 = fused.grads(*args, n_total=3 * T * B)[0]
+    g_p, mu_p, val_p = fused.grads_plain(*args)
+    g3_p = fused.grads_plain(*args, n_total=3 * T * B)[0]
+    torch.cuda.synchronize()
+    assert fused.grads_launches == 3
+    assert torch.equal(g, g2) and torch.equal(mu, mu2) and torch.equal(val, val2)
+    tol = TOL[dtype]
+    assert rel_err(mu, mu_p) <= tol["val"] and rel_err(val, val_p) <= tol["val"]
+    for net in ("actor", "critic"):
+        for w, b, o, i in fused.layers[net]:
+            assert rel_err(g[w:w + o * i], g_p[w:w + o * i]) <= tol["grad"], (net, o, i)
+            assert rel_err(g[b:b + o], g_p[b:b + o]) <= tol["grad"], (net, o, "bias")
+    assert rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice]) <= 10 * tol["grad"]
+    # n_total divides every loss mean: a third of the gradient, to rounding
+    assert rel_err(g3, g3_p) <= tol["grad"] and rel_err(3 * g3, g) <= tol["grad"]
+    with pytest.raises(ValueError):
+        fused.grads(p, d["obs"], d["priv"], d["act"], d["adv"][:-1], d["ret"], d["old_logp"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B", [256, 1000])
+def test_policy_logp_kernel_matches_plain_on_card(gpu, dtype, B):
+    fused, p, d = anchor(dtype, 24, B, gpu)
+    prep = fused.prepare(d["obs"], d["priv"], d["act"], torch.zeros_like(d["act"]),
+                         d["old_logp"])
+    mu, logp = fused.policy_old_logp(p, prep)
+    mu_p, logp_p = fused.policy_old_logp_plain(p, prep)
+    torch.cuda.synchronize()
+    assert fused.policy_logp_launches == 1
+    tol = TOL[dtype]["val"]
+    assert rel_err(mu, mu_p) <= tol and rel_err(logp, logp_p) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_anchor_kernels_agree_with_k2_and_k3_on_card(gpu, dtype):
+    """Independently launched kernels on the same data: K9 on normalised
+    advantages against K3, K8 against K2's value pass (read off its advantage
+    at zero reward and nonterm) and K9's values, K10
+    against K3's self_old forward, each bitwise (one device code)."""
+    T, B = 24, 1000
+    fused, p, d = anchor(dtype, T, B, gpu)
+    gen = torch.Generator(device=gpu).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=gpu)
+    prep = fused.prepare(d["obs"], d["priv"], d["act"], torch.zeros_like(d["act"]),
+                         d["old_logp"], rnd(B, 47), rnd(B, 14))
+    staged = fused.stage(p)
+    mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
+    g9, mu9, val9 = fused.grads(p, d["obs"], d["priv"], d["act"], (d["adv"] - mean) * rstd,
+                                d["ret"], d["old_logp"])
+    g3, _, mu3, _ = fused.grads_stats(staged, p, prep, d["adv"], d["ret"], mean, rstd, False)
+    v8 = fused.values(p, d["obs"], d["priv"])
+    # with no reward, no continuation and no timeout K2's advantage is -value
+    zeros = torch.zeros(T, B, device=gpu)
+    adv2 = fused.gae(staged, prep["obsc"], zeros, zeros, zeros, 0.995, 0.95)[0]
+    _, _, mu_self, logp_self = fused.grads_stats(staged, p, prep, d["adv"], d["ret"], mean,
+                                                 rstd, True)
+    mu10, logp10 = fused.policy_old_logp(p, prep)
+    torch.cuda.synchronize()
+    assert torch.equal(g9, g3)
+    assert torch.equal(mu9.view(-1, 12), mu3.to(fused.dtype).float())
+    assert torch.equal(val9, v8) and torch.equal(-adv2, v8)
+    assert torch.equal(mu10, mu_self) and torch.equal(logp10, logp_self)
