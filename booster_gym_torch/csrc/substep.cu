@@ -1,12 +1,17 @@
-// K1 and K5: one physics substep per env, for Hopper (sm_90a).  One source,
-// two builds: -DPLANE=1 (the default) is K1, the plane-terrain substep;
-// -DPLANE=0 is K5, the general-terrain substep.
+// K1 and K5: the physics substep for Hopper (sm_90a), one warp per env.  One
+// source, two builds: -DPLANE=1 (the default) is K1, the plane-terrain
+// substep; -DPLANE=0 is K5, the general-terrain substep.  Each build has two
+// entry points: bg_substep[_terrain] runs one substep, bg_control[_terrain]
+// runs a whole control step (the env's decimation loop: delay latch, PD,
+// Coulomb joint friction, torque clip, push on substep 0, then the substep,
+// `decimation` times) in one launch, with the state on chip throughout.
 //
 // Replaces the TPU kernel booster_gym_tpu/physics/pallas_engine.py ::
 // make_substep_pallas(model, cfg, feet_indices, plane=...), inner `kernel`
 // (lines 267-720, launched at line 811): K1 its plane=True specialization,
-// K5 its plane=False branches (lines 507-512, 596-606, 636-664, 715-720).
-// Same steps in the same order:
+// K5 its plane=False branches (lines 507-512, 596-606, 636-664, 715-720);
+// bg_control replaces the scan of booster_gym_tpu/envs/t1.py::_packed_inner
+// (lines 439-502) around it.  Same steps in the same order:
 //   1. FK down the static tree;
 //   2. spatial inertias about the base origin;
 //   3. CRBA mass matrix plus the diagonal regularizer;
@@ -15,50 +20,60 @@
 //   6. per-body Delassus operators Lambda_b = J_b M^-1 J_b^T;
 //   7. per-point 3x3 Delassus blocks, split by the body's active points,
 //      closed-form inverses, pushout and restitution targets;
-//   8. Jacobi sweeps with the friction cone about +z;
+//   8. Jacobi sweeps with the friction cone about the terrain normal;
 //   9. quaternion-exponential integration and joint-limit projection;
 //  10. feet poses from the start-of-substep FK.
 // K5 takes a terrain height h [NPT, B] and a unit normal n [3 NPT, B] per
-// contact point, constant over the substep: the depth is h + radius - z,
-// the approach speed and the push-out target lie along n, the friction cone
-// opens about n, and the points' world xy from step 1's FK go out as
-// ptxy [2 NPT, B] for the caller's next terrain query.  h and n are read
-// from global memory where they are used (L1 holds them between the
-// sweeps) and ptxy is written as each point is placed, so K5 adds no
-// per-point local array to K1's.  On plane inputs (h = 0, n = +z) every
-// K5 formula reduces to K1's by exact multiplications by 0 and 1, and
-// chip_smoke.py holds the two builds to a difference of 0 there.
-// All arithmetic is f32.  The plain PyTorch version of the same function is
-// booster_gym_torch/physics/engine.py::make_substep (its `step` for K1,
-// its `step.terrain_form` for K5).
+// contact point, constant over the substep (over the control step in
+// bg_control): the depth is h + radius - z, the approach speed and the
+// push-out target lie along n, the friction cone opens about n, and the
+// points' world xy from step 1's FK go out as ptxy [2 NPT, B] for the
+// caller's next terrain query.  K1 is the same code with h = 0 and n = +z
+// as compile-time constants.  Every operation into which h or n enters, and
+// every sum that consumes one of them, is written with the _rn intrinsics,
+// which nvcc neither contracts into FMAs nor reorders, so the compiler
+// cannot round the two builds differently; on plane inputs the general
+// formulas reduce to the plane ones by exact multiplications by 0 and 1, and
+// chip_smoke.py holds the two builds to a difference of 0 there.  All
+// arithmetic is f32.  The plain PyTorch version of the same function is
+// booster_gym_torch/physics/engine.py::make_substep (its `step` for K1, its
+// `step.terrain_form` for K5), and SubstepKernel.control_step_plain for
+// bg_control.
 //
-// Design (first version: simple and right).  One thread per env; the
-// TPU's [comp, G, 8, 128] tiles are not carried over.  Every input and
-// output is component-major [comp, B] f32, so neighbouring threads read
-// neighbouring addresses.  The robot enters as one small table of f32
-// (parent, joint frames and axes, ancestor mask, dof limits, contact
-// points, feet, solver constants; layout in model_tables() of
-// physics/substep_kernel.py) that the kernel walks in tree order; the sizes
-// NB, ND, NPT, NS, NF are compile-time -D constants, and the library's file
-// name carries them.  The ragged edge of the batch is masked: no padding,
-// and the real envs' results do not depend on B.
+// Design.  A warp per env and EPB envs per block (a -D size in the
+// library's name; 8, so that 4 blocks of 56.7 KB and 64 registers a thread
+// put 32 warps on each SM and 4096 envs in one wave of 132 SMs).  The block
+// copies the robot's table (parent, joint frames and axes, ancestor mask,
+// dof limits, contact points, feet, tree levels, points grouped by body,
+// solver constants; layout in model_tables() of physics/substep_kernel.py)
+// into shared memory once, its index blocks converted to ints.  Each env
+// keeps its state, dyn, body and matrix working set in shared memory
+// (struct EnvWS, whose phase scratch the phases share); each contact point
+// belongs to one lane (point p on lane p % 32, slot p / 32) and keeps its
+// lever arm, Delassus inverse, friction, target and impulse in registers,
+// and on K5 its h and n, loaded once per launch.  The phases run lanes over
+// independent work: (body of a tree level, matrix entry) for FK and
+// Lambda's recursion down the tree, bodies for the inertias, (body,
+// component) for the body velocities, accelerations and subtree sums
+// (sums over the ancestor mask, not walks of the tree), lower-triangle
+// pairs for M and G, rows of a column for the Cholesky factor, columns of a
+// row for L^-1, points for the Delassus blocks and the sweeps, rows for
+// G s.  __syncwarp() separates the phases.  Every cross-lane sum has a
+// fixed order (one lane sums its terms in index order), so a launch
+// repeats bitwise; there is no atomic.  The sizes NB, ND, NPT, NS, NF are
+// -D constants: nothing assumes NPT <= 32 or NV <= 32.
 //
 // What bounds it on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 outside the
-// tensor cores).  Counted for the T1 widths (nb 13, nd 12, npt 56, ns 7,
-// nf 2) per env and substep: it reads 37 state + 144 dyn + 12 tau + 6 ext
-// = 199 floats and writes 37 state + 39 forces + 24 feet = 100 floats,
-// 1196 bytes; at 4096 envs 4.9 MB, 1.46 us at 3.35 TB/s.  Its arithmetic
-// is ~5.8e4 f32 operations per env (chip_smoke.py counts them from the
-// loop trip counts of this file), 2.4e8 at 4096 envs, 3.5 us at
-// 67 TFLOP/s.  So the operations bound it, at 3.5 us.  K5 reads 4 NPT and
-// writes 2 NPT more floats per env (2,540 bytes, 10.4 MB at 4096 envs,
-// 3.1 us) and does ~6.4e4 operations per env (2.6e8, 3.9 us): the
-// operations bound it too.  Known weaknesses,
-// left for later work: 4096 threads fill far less than one wave of 132
-// SMs; the 18x18 mass matrix, its inverse and the per-point blocks live in
-// local memory (ptxas: 255 registers and an 11.6 KB stack frame per thread
-// at the T1 widths); and the decimation loop around it costs 10 launches
-// per control step.
+// tensor cores).  Per env and substep at the T1 widths (nb 13, nd 12, npt
+// 56, ns 7, nf 2) K1 reads 199 floats and writes 100 (1196 bytes, 4.9 MB at
+// 4096 envs, 1.46 us) and does ~5.8e4 f32 operations (chip_smoke.py counts
+// them from the loop trip counts; 2.4e8 at 4096 envs, 3.5 us): the
+// operations bound it.  A control step of 10 substeps moves the state,
+// dyn, the targets and gains once (control_bytes in chip_smoke.py) and does
+// ten substeps' operations, so it is bound by operations at ten times 3.5
+// us.  What holds it is each warp's chain of dependent shared-memory loads,
+// shuffles and __syncwarp()s: one warp alone on an SM takes most of the
+// time that 32 take (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
@@ -69,11 +84,26 @@
 #ifndef PLANE
 #define PLANE 1
 #endif
+#ifndef EPB
+#define EPB 8   // envs (warps) per block
+#endif
+#ifndef PHASE_CLOCKS
+#define PHASE_CLOCKS 0
+#endif
+#ifndef MINB
+#define MINB (32 / EPB)  // resident blocks per SM asked of ptxas: 32 warps
+#endif                   // per SM, 64 registers a thread
 
 #define NV (6 + ND)
 #define NSTATE (13 + 2 * ND)
 #define NDYN (10 * NB + 2 * NS)
-#define BLOCK 32
+#define PPL ((NPT + 31) / 32)   // contact points per lane
+#define DPL ((ND + 31) / 32)    // dofs per lane
+#define RPL ((NV + 31) / 32)    // matrix rows per lane
+#define LDG (NV | 1)            // odd row strides: no bank conflicts
+#define LDM ((NV + 1) | 1)
+#define NPAIR (NV * (NV + 1) / 2)
+#define FULL 0xffffffffu
 
 // model table offsets (must match physics/substep_kernel.py::model_tables)
 #define OFF_PARENT 0
@@ -88,7 +118,13 @@
 #define OFF_PPOS (OFF_PSHAPE + NPT)
 #define OFF_PRAD (OFF_PPOS + 3 * NPT)
 #define OFF_FEET (OFF_PRAD + NPT)
-#define OFF_CFG (OFF_FEET + NF)
+#define OFF_ORDER (OFF_FEET + NF)
+#define OFF_LSTART (OFF_ORDER + NB)
+#define OFF_BPSTART (OFF_LSTART + NB + 1)
+#define OFF_BPLIST (OFF_BPSTART + NB + 1)
+#define OFF_PSLOT (OFF_BPLIST + NPT)
+#define OFF_CFG (OFF_PSLOT + NPT)
+#define MDL_LEN (OFF_CFG + 14)
 // solver constants at OFF_CFG + k
 #define CFG_DT 0
 #define CFG_GX 1
@@ -105,6 +141,82 @@
 #define CFG_TREST 12
 #define CFG_REG 13
 
+// One env's working set in shared memory.  Spatial 6-vectors are
+// [angular; linear]: velocities [w; v], wrenches [torque; force].
+#define MAXI(a, b) ((a) > (b) ? (a) : (b))
+// offsets in EnvWS's phase scratch: acc after both the RNEA's accelerations
+// and the sweeps' point and body wrenches; vb after acc and Lambda
+#define ACC_OFF MAXI(12 * NB, 6 * NPT + 6 * NB)
+#define VB_OFF MAXI(36 * NB + 6 * ND, ACC_OFF + 6 * NB)
+
+// One env's working set in shared memory.  Spatial 6-vectors are
+// [angular; linear]: velocities [w; v], wrenches [torque; force].
+struct EnvWS {
+  float st[NSTATE];                 // p0(3) quat(4) v0(3) w0(3) q(ND) qd(ND)
+  float dyn[NDYN];
+  float ext[6];                     // force, torque at the base origin
+  float tau[ND];
+  float R[NB][9], P[NB][3];         // world pose of every body
+  float phw[ND][3], phv[ND][3];     // joint motion columns at the base origin
+  float sb[NB], hb[NB][3], Ab[NB][6];  // spatial inertias (mass, m c, A)
+  float G[NV][LDG];                 // M^-1
+  float uf[NV], un[NV], sv[NV];     // free velocity, velocity, gen. force
+  float cnt[NB];                    // active points per body
+  float pact[NPT];
+  union {                           // phase scratch; the comments say when
+    struct {                        // 1. FK
+      float sn[ND], c1[ND];         // sin q, 1 - cos q
+      float rod[ND][9];             // each joint's rotation about its axis
+    } fk;
+    struct {                        // 3-4. CRBA and the inverse
+      float sc[NB], hc[NB][3], Ac[NB][6];  // composite inertias
+      float F[ND][6];                      // composite inertia x joint column
+      float M[NV][LDM];  // M lower; then L below the diagonal, 1/L_ii on it,
+                         // and L^-1 transposed above it (L^-1[j][i] at [i][j+1])
+    } m;
+    struct {                        // 5. RNEA
+      float c[NB][6];               // velocity-product terms per joint
+      float a[NB][6];               // accelerations, then body forces
+    } r;
+    struct {                        // 6-7. Delassus operators
+      float Lam[NB][36];            // per body
+      float x[ND][6];               // (J_p G)[:, 6 + j] per joint
+    } l;
+    struct {                        // 8. sweeps
+      float pw[NPT][6];             // point wrenches, grouped by body
+      float wb[NB][6];              // per-body contact wrench (forces out)
+    } sw;
+    struct {                        // 5 and 8: subtree sums
+      float pad[ACC_OFF];
+      float acc[NB][6];
+    } ac;
+    struct {                        // 5, 7 and 8: body velocities
+      float pad[VB_OFF];
+      float vb[NB][6];
+    } v;
+  } s;
+};
+
+__device__ __forceinline__ int ti(const float* m, int off) { return __float_as_int(m[off]); }
+
+// Diagnostic builds only (-DPHASE_CLOCKS=1): lane 0 of every warp adds the
+// clock cycles of each phase to bg_clk[phase]; bg_substep_clocks reads
+// and clears them.  The default build has none of it.
+#if PHASE_CLOCKS
+#define NCLK 12
+__device__ unsigned long long bg_clk[NCLK];
+#define CLK(k)                                                     \
+  do {                                                             \
+    const long long now_ = clock64();                              \
+    if ((threadIdx.x & 31) == 0) atomicAdd(&bg_clk[k], now_ - t_clk); \
+    t_clk = now_;                                                  \
+  } while (0)
+#define CLK_START long long t_clk = clock64()
+#else
+#define CLK(k)
+#define CLK_START
+#endif
+
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
@@ -117,13 +229,16 @@ __device__ __forceinline__ void cross3(const float* a, const float* b, float* o)
 
 // o = A @ B for row-major 3x3
 __device__ __forceinline__ void mul33(const float* A, const float* B, float* o) {
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       o[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j];
 }
 
 // o = A @ v
 __device__ __forceinline__ void mv33(const float* A, const float* v, float* o) {
+#pragma unroll
   for (int i = 0; i < 3; ++i)
     o[i] = A[3 * i] * v[0] + A[3 * i + 1] * v[1] + A[3 * i + 2] * v[2];
 }
@@ -141,6 +256,7 @@ __device__ __forceinline__ void inertia_apply(float s, const float* h, const flo
   float hxv[3], hxw[3];
   cross3(h, v, hxv);
   cross3(h, w, hxw);
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     top[i] = s6(A, i, 0) * w[0] + s6(A, i, 1) * w[1] + s6(A, i, 2) * w[2] + hxv[i];
     bot[i] = -hxw[i] + v[i] * s;
@@ -149,550 +265,914 @@ __device__ __forceinline__ void inertia_apply(float s, const float* h, const flo
 
 __device__ __forceinline__ int swap6(int i) { return i < 3 ? i + 3 : i - 3; }
 
-// out = G @ x, summed in index order
-__device__ __forceinline__ void minv_vec(const float (*G)[NV], const float* x, float* out) {
-#pragma unroll 1
-  for (int i = 0; i < NV; ++i) {
-    float acc = G[i][0] * x[0];
-    for (int k = 1; k < NV; ++k) acc += G[i][k] * x[k];
-    out[i] = acc;
-  }
+// the terrain-facing dot product a . n, in a fixed rounding order
+__device__ __forceinline__ float dot_n(const float* a, const float* n) {
+  return __fmaf_rn(a[2], n[2], __fmaf_rn(a[1], n[1], __fmul_rn(a[0], n[0])));
 }
 
-// body spatial velocities (bw = angular, bv = linear at the base origin)
-// from a generalized velocity u = [v0, w0, qd]
-__device__ __forceinline__ void body_velocities(const float* mdl, const float* u,
-                                                const float (*phw)[3], const float (*phv)[3],
-                                                float (*bw)[3], float (*bv)[3]) {
-  for (int k = 0; k < 3; ++k) {
-    bw[0][k] = u[3 + k];
-    bv[0][k] = u[k];
+// ---------------------------------------------------------------------------
+// Warp routines.  Every one is entered by all 32 lanes of the env's warp and
+// leaves the warp synchronised.
+
+// acc[b] = the sum of src[d] over the bodies d of b's subtree, d ascending;
+// lanes over (body, component)
+__device__ __forceinline__ void subtree_sums(EnvWS& w, const float* m, const float (*src)[6],
+                                             int lane) {
+  for (int t = lane; t < 6 * NB; t += 32) {
+    const int b = t / 6, c = t % 6;
+    float acc = 0.0f;
+#pragma unroll
+    for (int d = 0; d < NB; ++d)   // d in b's subtree: anc[d][b - 1], or b = 0
+      acc = fmaf(b == 0 ? 1.0f : m[OFF_ANC + d * ND + b - 1], src[d][c], acc);
+    w.s.ac.acc[b][c] = acc;
   }
-#pragma unroll 1
-  for (int b = 1; b < NB; ++b) {
-    const int p = (int)mdl[OFF_PARENT + b];
-    const float qdj = u[6 + b - 1];
-    for (int k = 0; k < 3; ++k) {
-      bw[b][k] = bw[p][k] + phw[b - 1][k] * qdj;
-      bv[b][k] = bv[p][k] + phv[b - 1][k] * qdj;
-    }
-  }
+  __syncwarp();
 }
 
-// per-body contact wrenches (wt torque about the base origin, wf force)
-// of the point impulses, and du = M^-1 J^T w
-__device__ __forceinline__ void wrench_and_du(const float* mdl, const float (*lam)[3],
-                                              const float (*pr)[3], const float (*phw)[3],
-                                              const float (*phv)[3], const float (*G)[NV],
-                                              float (*wt)[3], float (*wf)[3], float* du) {
-  float at[NB][3], af[NB][3], svec[NV];
-  for (int b = 0; b < NB; ++b)
-    for (int k = 0; k < 3; ++k) wt[b][k] = wf[b][k] = 0.0f;
-#pragma unroll 1
-  for (int p = 0; p < NPT; ++p) {
-    const int b = (int)mdl[OFF_PBODY + p];
-    float t[3];
-    cross3(pr[p], lam[p], t);
-    for (int k = 0; k < 3; ++k) {
-      wt[b][k] += t[k];
-      wf[b][k] += lam[p][k];
+// sv = J^T acc for body wrenches [torque; force] summed by subtree_sums:
+// [force; torque] of the whole tree, then phi_j . acc[j + 1]; lanes over rows
+__device__ __forceinline__ void gen_force(EnvWS& w, int lane) {
+  for (int i = lane; i < NV; i += 32) {
+    float v;
+    if (i < 3) {
+      v = w.s.ac.acc[0][3 + i];
+    } else if (i < 6) {
+      v = w.s.ac.acc[0][i - 3];
+    } else {
+      const int j = i - 6;
+      v = dot3(w.phw[j], w.s.ac.acc[j + 1]) + dot3(w.phv[j], &w.s.ac.acc[j + 1][3]);
     }
+    w.sv[i] = v;
   }
-  for (int b = 0; b < NB; ++b)
-    for (int k = 0; k < 3; ++k) {
-      at[b][k] = wt[b][k];
-      af[b][k] = wf[b][k];
-    }
-#pragma unroll 1
-  for (int b = NB - 1; b > 0; --b) {
-    const int p = (int)mdl[OFF_PARENT + b];
-    for (int k = 0; k < 3; ++k) {
-      at[p][k] += at[b][k];
-      af[p][k] += af[b][k];
-    }
-  }
-  for (int k = 0; k < 3; ++k) {
-    svec[k] = af[0][k];
-    svec[3 + k] = at[0][k];
-  }
-  for (int j = 0; j < ND; ++j) svec[6 + j] = dot3(phw[j], at[j + 1]) + dot3(phv[j], af[j + 1]);
-  minv_vec(G, svec, du);
+  __syncwarp();
 }
 
-__global__ void __launch_bounds__(BLOCK)
-substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
-               const float* __restrict__ tau_in, const float* __restrict__ ext_in,
-#if !PLANE
-               const float* __restrict__ h_in, const float* __restrict__ n_in,
-               float* __restrict__ ptxy_out,
-#endif
-               const float* __restrict__ mdl, float* __restrict__ s_out,
-               float* __restrict__ f_out, float* __restrict__ feet_out, int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;  // ragged edge: masked, never padded
-#define IN(ptr, row) ptr[(size_t)(row) * B + e]
-  const float* cfg = mdl + OFF_CFG;
+// (G x)[i], summed in index order
+__device__ __forceinline__ float g_row(const EnvWS& w, int i, const float* x) {
+  float acc = w.G[i][0] * x[0];
+#pragma unroll
+  for (int k = 1; k < NV; ++k) acc += w.G[i][k] * x[k];
+  return acc;
+}
+
+// body velocities [w; v] from a generalized velocity u = [v0, w0, qd]:
+// the base's plus phi_j qd_j over the joints that move the body, j
+// ascending; lanes over (body, component).  The masked sums here and below
+// multiply by the 0/1 ancestor mask instead of branching on it, so every
+// load is independent of the others: x + 0 y = x and x + 1 y = x + y
+// exactly.
+__device__ __forceinline__ void body_velocities(EnvWS& w, const float* m, const float* u,
+                                                int lane) {
+  for (int t = lane; t < 6 * NB; t += 32) {
+    const int b = t / 6, c = t % 6;
+    const float* anc = m + OFF_ANC + b * ND;
+    const float* ph = c < 3 ? &w.phw[0][c] : &w.phv[0][c - 3];
+    float v = c < 3 ? u[3 + c] : u[c - 3];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) v = fmaf(anc[j] * ph[3 * j], u[6 + j], v);
+    w.s.v.vb[b][c] = v;
+  }
+  __syncwarp();
+}
+
+// the velocity of a point at r on body b (base-origin lever arm)
+__device__ __forceinline__ void point_velocity(const EnvWS& w, int b, const float* r, float* v) {
+  float wxr[3];
+  cross3(w.s.v.vb[b], r, wxr);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v[k] = w.s.v.vb[b][3 + k] + wxr[k];
+}
+
+// the point impulses' per-body wrenches wb (its force part is the contact
+// force), then un = uf + G J^T wb
+__device__ __forceinline__ void wrench_du(EnvWS& w, const float* m,
+                                          const float (&pr)[PPL][3],
+                                          const float (&lam)[PPL][3], int lane) {
+#pragma unroll
+  for (int s = 0; s < PPL; ++s) {
+    const int p = lane + 32 * s;
+    if (p < NPT) {   // each body's points sit together, in index order
+      float* o = w.s.sw.pw[ti(m, OFF_PSLOT + p)];
+      cross3(pr[s], lam[s], o);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[3 + k] = lam[s][k];
+    }
+  }
+  __syncwarp();
+  for (int t = lane; t < 6 * NB; t += 32) {   // one lane per (body, component)
+    const int b = t / 6, c = t % 6;
+    const int z = ti(m, OFF_BPSTART + b + 1);
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int q = ti(m, OFF_BPSTART + b); q < z; ++q) acc += w.s.sw.pw[q][c];
+    w.s.sw.wb[b][c] = acc;
+  }
+  __syncwarp();
+  subtree_sums(w, m, w.s.sw.wb, lane);
+  gen_force(w, lane);
+  for (int i = lane; i < NV; i += 32) w.un[i] = w.uf[i] + g_row(w, i, w.sv);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// One substep of one env: w.st and w.tau, w.ext in; w.st, w.s.sw.wb (contact
+// wrench per body), w.R and w.P (the start-of-substep FK) out.  ph, pn:
+// each lane's points' terrain height and normal (constants 0 and +z on
+// K1).  ptxy, when not null, takes the points' world xy.
+__device__ __forceinline__ void substep(EnvWS& w, const float* m, const int* pairs, int lane,
+                                        const float (&ph)[PPL], const float (&pn)[PPL][3],
+                                        float* ptxy, int e, int B) {
+  const float* cfg = m + OFF_CFG;
   const float dt = cfg[CFG_DT];
+  const float* p0 = w.st;
+  const float* q = w.st + 13;
+  const float* qd = w.st + 13 + ND;
 
-  float p0[3], quat[4], v0[3], w0[3], q[ND], qd[ND], tau[ND], ext[6];
-  for (int k = 0; k < 3; ++k) {
-    p0[k] = IN(s_in, k);
-    v0[k] = IN(s_in, 7 + k);
-    w0[k] = IN(s_in, 10 + k);
+  CLK_START;
+  // ---------------- 1. FK, one tree level at a time ----------------
+  // sin q and 1 - cos q per joint, lanes over joints; then each joint's
+  // rotation about its constant axis, I + sin(q) K + (1 - cos(q)) K^2,
+  // lanes over (joint, entry)
+  for (int j = lane; j < ND; j += 32) {
+    float c;
+    sincosf(q[j], &w.s.fk.sn[j], &c);
+    w.s.fk.c1[j] = 1.0f - c;
   }
-  for (int k = 0; k < 4; ++k) quat[k] = IN(s_in, 3 + k);
-  for (int j = 0; j < ND; ++j) {
-    q[j] = IN(s_in, 13 + j);
-    qd[j] = IN(s_in, 13 + ND + j);
-    tau[j] = IN(tau_in, j);
+  if (lane == 0) {
+    const float qw = w.st[3], x = w.st[4], y = w.st[5], z = w.st[6];
+    float* R0 = w.R[0];
+    R0[0] = 1 - 2 * (y * y + z * z); R0[1] = 2 * (x * y - qw * z); R0[2] = 2 * (x * z + qw * y);
+    R0[3] = 2 * (x * y + qw * z); R0[4] = 1 - 2 * (x * x + z * z); R0[5] = 2 * (y * z - qw * x);
+    R0[6] = 2 * (x * z - qw * y); R0[7] = 2 * (y * z + qw * x); R0[8] = 1 - 2 * (x * x + y * y);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w.P[0][k] = p0[k];
   }
-  for (int k = 0; k < 6; ++k) ext[k] = IN(ext_in, k);
-
-  // ---------------- 1. FK ----------------
-  float R[NB][9], P[NB][3], phw[ND][3], phv[ND][3];
-  {
-    const float w = quat[0], x = quat[1], y = quat[2], z = quat[3];
-    R[0][0] = 1 - 2 * (y * y + z * z); R[0][1] = 2 * (x * y - w * z); R[0][2] = 2 * (x * z + w * y);
-    R[0][3] = 2 * (x * y + w * z); R[0][4] = 1 - 2 * (x * x + z * z); R[0][5] = 2 * (y * z - w * x);
-    R[0][6] = 2 * (x * z - w * y); R[0][7] = 2 * (y * z + w * x); R[0][8] = 1 - 2 * (x * x + y * y);
-  }
-  for (int k = 0; k < 3; ++k) P[0][k] = p0[k];
-#pragma unroll 1
-  for (int b = 1; b < NB; ++b) {
-    const int p = (int)mdl[OFF_PARENT + b];
-    const float* jrot = mdl + OFF_JROT + 9 * b;
-    const float* jp = mdl + OFF_JPOS + 3 * b;
-    const float* ax = mdl + OFF_JAXIS + 3 * b;
-    float jR[9], rod[9], t[3];
-    mul33(R[p], jrot, jR);
-    mv33(R[p], jp, t);
-    for (int k = 0; k < 3; ++k) P[b][k] = P[p][k] + t[k];
-    // Rodrigues about the constant axis: I + sin(q) K + (1 - cos(q)) K^2
-    const float s = sinf(q[b - 1]), c1 = 1.0f - cosf(q[b - 1]);
+  __syncwarp();
+  for (int t = lane; t < 9 * ND; t += 32) {
+    const int j = t / 9, i = (t % 9) / 3, c = t % 3;
+    const float* ax = m + OFF_JAXIS + 3 * (j + 1);
     const float K[9] = {0.0f, -ax[2], ax[1], ax[2], 0.0f, -ax[0], -ax[1], ax[0], 0.0f};
-    float K2[9];
-    mul33(K, K, K2);
-    for (int i = 0; i < 9; ++i) rod[i] = (i % 4 == 0 ? 1.0f : 0.0f) + s * K[i] + c1 * K2[i];
-    mul33(jR, rod, R[b]);
-    mv33(jR, ax, phw[b - 1]);
-    float c[3];
-    for (int k = 0; k < 3; ++k) c[k] = P[b][k] - p0[k];
-    cross3(c, phw[b - 1], phv[b - 1]);
+    const float K2 = K[3 * i] * K[c] + K[3 * i + 1] * K[3 + c] + K[3 * i + 2] * K[6 + c];
+    w.s.fk.rod[j][3 * i + c] = (i == c ? 1.0f : 0.0f) + w.s.fk.sn[j] * K[3 * i + c] + w.s.fk.c1[j] * K2;
   }
-
-  // ---------------- 2. spatial inertias at the base origin ----------------
-  float sb[NB], hb[NB][3], Ab[NB][6];
+  __syncwarp();
+  // down the tree, lanes over (body of the level, entry of R or P)
 #pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    const float m = IN(dyn, b);
+  for (int L = 1; L < NB; ++L) {
+    const int a = ti(m, OFF_LSTART + L);
+    if (a >= NB) break;
+    const int n = 12 * (ti(m, OFF_LSTART + L + 1) - a);
+    for (int t = lane; t < n; t += 32) {
+      const int b = ti(m, OFF_ORDER + a + t / 12), e = t % 12, p = ti(m, OFF_PARENT + b);
+      const float* Rp = w.R[p];
+      if (e < 9) {   // R_b = (R_p jrot) rod, entry (i, c)
+        const int i = e / 3, c = e % 3;
+        const float* jrot = m + OFF_JROT + 9 * b;
+        const float* rod = w.s.fk.rod[b - 1];
+        float jR[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          jR[k] = Rp[3 * i] * jrot[k] + Rp[3 * i + 1] * jrot[3 + k] + Rp[3 * i + 2] * jrot[6 + k];
+        w.R[b][e] = jR[0] * rod[c] + jR[1] * rod[3 + c] + jR[2] * rod[6 + c];
+      } else {       // P_b = P_p + R_p jpos
+        const int k = e - 9;
+        const float* jp = m + OFF_JPOS + 3 * b;
+        w.P[b][k] = w.P[p][k] + (Rp[3 * k] * jp[0] + Rp[3 * k + 1] * jp[1] + Rp[3 * k + 2] * jp[2]);
+      }
+    }
+    __syncwarp();
+  }
+  // joint motion columns at the base origin: phw = (R_p jrot) axis,
+  // phv = (P_b - p0) x phw; lanes over (joint, component)
+  for (int t = lane; t < 6 * ND; t += 32) {
+    const int j = t / 6, k = t % 6, b = j + 1;
+    const float* Rp = w.R[ti(m, OFF_PARENT + b)];
+    const float* jrot = m + OFF_JROT + 9 * b;
+    const float* ax = m + OFF_JAXIS + 3 * b;
+    float jR[9], phw[3];
+    mul33(Rp, jrot, jR);
+    mv33(jR, ax, phw);
+    if (k < 3) {
+      w.phw[j][k] = phw[k];
+    } else {
+      float c[3], v[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) c[i] = w.P[b][i] - p0[i];
+      cross3(c, phw, v);
+      w.phv[j][k - 3] = v[k - 3];
+    }
+  }
+  __syncwarp();
+  CLK(0);
+  // ---------------- 2. spatial inertias at the base origin, lanes over bodies
+  for (int b = lane; b < NB; b += 32) {
+    const float mb = w.dyn[b];
+    const float* R = w.R[b];
     float cl[3], cw[3], Il[6], T[9], Im[9];
-    for (int k = 0; k < 3; ++k) cl[k] = IN(dyn, NB + 3 * b + k);
-    for (int k = 0; k < 6; ++k) Il[k] = IN(dyn, 4 * NB + 6 * b + k);  // xx yy zz xy xz yz
-    mv33(R[b], cl, cw);
-    for (int k = 0; k < 3; ++k) cw[k] += P[b][k] - p0[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cl[k] = w.dyn[NB + 3 * b + k];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) Il[k] = w.dyn[4 * NB + 6 * b + k];  // xx yy zz xy xz yz
+    mv33(R, cl, cw);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cw[k] += w.P[b][k] - p0[k];
     Im[0] = Il[0]; Im[1] = Il[3]; Im[2] = Il[4];
     Im[3] = Il[3]; Im[4] = Il[1]; Im[5] = Il[5];
     Im[6] = Il[4]; Im[7] = Il[5]; Im[8] = Il[2];
-    mul33(R[b], Im, T);
+    mul33(R, Im, T);
     float Iw[3][3];
+#pragma unroll
     for (int i = 0; i < 3; ++i)
+#pragma unroll
       for (int j = i; j < 3; ++j)
-        Iw[i][j] = T[3 * i] * R[b][3 * j] + T[3 * i + 1] * R[b][3 * j + 1] + T[3 * i + 2] * R[b][3 * j + 2];
+        Iw[i][j] = T[3 * i] * R[3 * j] + T[3 * i + 1] * R[3 * j + 1] + T[3 * i + 2] * R[3 * j + 2];
     const float c2 = dot3(cw, cw);
-    Ab[b][0] = Iw[0][0] + m * (c2 - cw[0] * cw[0]);
-    Ab[b][1] = Iw[0][1] - m * cw[0] * cw[1];
-    Ab[b][2] = Iw[0][2] - m * cw[0] * cw[2];
-    Ab[b][3] = Iw[1][1] + m * (c2 - cw[1] * cw[1]);
-    Ab[b][4] = Iw[1][2] - m * cw[1] * cw[2];
-    Ab[b][5] = Iw[2][2] + m * (c2 - cw[2] * cw[2]);
-    sb[b] = m;
-    for (int k = 0; k < 3; ++k) hb[b][k] = cw[k] * m;
+    float* A = w.Ab[b];
+    A[0] = Iw[0][0] + mb * (c2 - cw[0] * cw[0]);
+    A[1] = Iw[0][1] - mb * cw[0] * cw[1];
+    A[2] = Iw[0][2] - mb * cw[0] * cw[2];
+    A[3] = Iw[1][1] + mb * (c2 - cw[1] * cw[1]);
+    A[4] = Iw[1][2] - mb * cw[1] * cw[2];
+    A[5] = Iw[2][2] + mb * (c2 - cw[2] * cw[2]);
+    w.sb[b] = mb;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w.hb[b][k] = cw[k] * mb;
   }
+  __syncwarp();
 
   // ---------------- 3. CRBA mass matrix ----------------
-  float sc[NB], hc[NB][3], Ac[NB][6];
-  for (int b = 0; b < NB; ++b) {
-    sc[b] = sb[b];
-    for (int k = 0; k < 3; ++k) hc[b][k] = hb[b][k];
-    for (int k = 0; k < 6; ++k) Ac[b][k] = Ab[b][k];
+  // composite inertias: subtree sums, lanes over (body, component)
+  for (int t = lane; t < 10 * NB; t += 32) {
+    const int b = t / 10, c = t % 10;
+    const float* src;
+    int stride;
+    float* dst;
+    if (c == 0) {
+      src = w.sb; stride = 1; dst = &w.s.m.sc[b];
+    } else if (c < 4) {
+      src = &w.hb[0][c - 1]; stride = 3; dst = &w.s.m.hc[b][c - 1];
+    } else {
+      src = &w.Ab[0][c - 4]; stride = 6; dst = &w.s.m.Ac[b][c - 4];
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int d = 0; d < NB; ++d)
+      acc = fmaf(b == 0 ? 1.0f : m[OFF_ANC + d * ND + b - 1], src[d * stride], acc);
+    *dst = acc;
   }
-#pragma unroll 1
-  for (int b = NB - 1; b > 0; --b) {
-    const int p = (int)mdl[OFF_PARENT + b];
-    sc[p] += sc[b];
-    for (int k = 0; k < 3; ++k) hc[p][k] += hc[b][k];
-    for (int k = 0; k < 6; ++k) Ac[p][k] += Ac[b][k];
-  }
-  // M holds the mass matrix, then its Cholesky factor in the strict lower
-  // triangle, then (step 4) the inverse G.  u order: [v0, w0, qd].
-  float M[NV][NV];
-  for (int i = 0; i < NV; ++i)
-    for (int j = 0; j < NV; ++j) M[i][j] = 0.0f;  // uncoupled pairs stay exact zeros
-  {
-    const float* h0 = hc[0];
-    const float skh[3][3] = {{0.0f, -h0[2], h0[1]}, {h0[2], 0.0f, -h0[0]}, {-h0[1], h0[0], 0.0f}};
-    for (int i = 0; i < 3; ++i) {
-      M[i][i] = sc[0];
-      for (int j = 0; j < 3; ++j) {
-        M[i][3 + j] = M[3 + j][i] = -skh[i][j];
-        M[3 + i][3 + j] = s6(Ac[0], i, j);
+  __syncwarp();
+  // each joint column through its subtree's composite inertia, lanes over dofs
+  for (int j = lane; j < ND; j += 32)
+    inertia_apply(w.s.m.sc[j + 1], w.s.m.hc[j + 1], w.s.m.Ac[j + 1], w.phw[j], w.phv[j],
+                  w.s.m.F[j], w.s.m.F[j] + 3);
+  __syncwarp();
+  // the lower triangle, lanes over (i <= j) pairs; u order [v0, w0, qd];
+  // uncoupled pairs are exact zeros
+  for (int t = lane; t < NPAIR; t += 32) {
+    const int i = pairs[t] >> 16, j = pairs[t] & 0xffff;
+    float val;
+    if (j < 6) {
+      const float* h0 = w.s.m.hc[0];
+      if (i >= 3) {
+        val = s6(w.s.m.Ac[0], i - 3, j - 3);
+      } else if (j < 3) {
+        val = i == j ? w.s.m.sc[0] : 0.0f;
+      } else {  // -skew(h0)[i][j - 3]
+        const int k = j - 3;
+        val = i == k ? 0.0f : (i == 0 ? (k == 1 ? h0[2] : -h0[1])
+                                      : i == 1 ? (k == 0 ? -h0[2] : h0[0])
+                                               : (k == 0 ? h0[1] : -h0[0]));
       }
+    } else if (i < 6) {  // v rows take the linear part, w rows the angular part
+      val = i < 3 ? w.s.m.F[j - 6][3 + i] : w.s.m.F[j - 6][i - 3];
+    } else {
+      const int k = i - 6, jj = j - 6;
+      val = m[OFF_ANC + (jj + 1) * ND + k] != 0.0f
+                ? dot3(w.s.m.F[jj], w.phw[k]) + dot3(w.s.m.F[jj] + 3, w.phv[k]) : 0.0f;
     }
+    if (i == j) val += cfg[CFG_REG];
+    w.s.m.M[j][i] = val;
   }
-#pragma unroll 1
-  for (int j = 0; j < ND; ++j) {
-    const int b = j + 1;
-    float Ft[3], Fb[3];
-    inertia_apply(sc[b], hc[b], Ac[b], phw[j], phv[j], Ft, Fb);
-    for (int i = 0; i < 3; ++i) {
-      M[i][6 + j] = M[6 + j][i] = Fb[i];          // v rows take the linear part
-      M[3 + i][6 + j] = M[6 + j][3 + i] = Ft[i];  // w rows take the angular part
-    }
-    for (int k = 0; k <= j; ++k) {
-      if (mdl[OFF_ANC + b * ND + k] == 0.0f) continue;
-      const float val = dot3(Ft, phw[k]) + dot3(Fb, phv[k]);
-      M[6 + k][6 + j] = M[6 + j][6 + k] = val;
-    }
-  }
-  for (int i = 0; i < NV; ++i) M[i][i] += cfg[CFG_REG];
+  __syncwarp();
 
+  CLK(1);
   // ---------------- 4. Cholesky inverse ----------------
-  float Li[NV][NV], idg[NV];
+  // L column by column, lanes over the rows at and below the pivot; the
+  // pivot's row sits on lane 0, which hands 1/sqrt of it to the others
+  float (*M)[LDM] = w.s.m.M;
 #pragma unroll 1
   for (int i = 0; i < NV; ++i) {
-    float s = M[i][i];
-    for (int k = 0; k < i; ++k) s -= M[i][k] * M[i][k];
-    const float d = rsqrtf(s);
-    idg[i] = d;
-    for (int j = i + 1; j < NV; ++j) {
-      float t = M[j][i];
-      for (int k = 0; k < i; ++k) t -= M[j][k] * M[i][k];
-      M[j][i] = t * d;
+    float t[RPL];
+#pragma unroll
+    for (int r = 0; r < RPL; ++r) {
+      const int j = i + lane + 32 * r;
+      t[r] = 1.0f;
+      if (j < NV) {
+        float s = M[j][i];
+#pragma unroll 4
+        for (int k = 0; k < i; ++k) s -= M[j][k] * M[i][k];
+        t[r] = s;
+      }
     }
+    const float d = __shfl_sync(FULL, rsqrtf(t[0]), 0);
+#pragma unroll
+    for (int r = 0; r < RPL; ++r) {
+      const int j = i + lane + 32 * r;
+      if (j < NV) M[j][i] = j == i ? d : t[r] * d;
+    }
+    __syncwarp();
   }
+  CLK(2);
+  // L^-1 row by row, lanes over its columns: L^-1[j][i] at M[i][j + 1]
 #pragma unroll 1
-  for (int i = 0; i < NV; ++i) {
-    Li[i][i] = idg[i];
-    for (int j = i + 1; j < NV; ++j) {
-      float t = M[j][i] * Li[i][i];
-      for (int k = i + 1; k < j; ++k) t += M[j][k] * Li[k][i];
-      Li[j][i] = -t * idg[j];
+  for (int j = 0; j < NV; ++j) {
+    const float dj = M[j][j];
+    for (int i = lane; i <= j; i += 32) {
+      float val = dj;
+      if (i < j) {
+        float t = M[j][i] * M[i][i + 1];
+#pragma unroll 4
+        for (int k = i + 1; k < j; ++k) t += M[j][k] * M[i][k + 1];
+        val = -t * dj;
+      }
+      M[i][j + 1] = val;
     }
+    __syncwarp();
   }
-  float (*G)[NV] = M;  // M^-1 = L^-T L^-1 overwrites M
-#pragma unroll 1
-  for (int i = 0; i < NV; ++i)
-    for (int j = i; j < NV; ++j) {
-      float t = Li[j][i] * Li[j][j];
-      for (int k = j + 1; k < NV; ++k) t += Li[k][i] * Li[k][j];
-      G[i][j] = G[j][i] = t;
-    }
+  CLK(3);
+  // G = M^-1 = L^-T L^-1, lanes over (i <= j) pairs
+  for (int t = lane; t < NPAIR; t += 32) {
+    const int i = pairs[t] >> 16, j = pairs[t] & 0xffff;
+    float v = M[i][j + 1] * M[j][j + 1];
+#pragma unroll 4
+    for (int k = j + 1; k < NV; ++k) v += M[i][k + 1] * M[j][k + 1];
+    w.G[i][j] = w.G[j][i] = v;
+  }
+  __syncwarp();
 
+  CLK(4);
   // ---------------- 5. RNEA bias + free velocity ----------------
-  float uf[NV];
+  // body velocities of u = [v0, w0, qd] into w.s.v.vb; each joint's velocity-
+  // product term crm(v_b, phi_j qd_j) into c; then each body's
+  // acceleration a0 + the terms of the joints that move it (a0 = -g)
   {
-    float vw[NB][3], vv[NB][3], aw[NB][3], av[NB][3];
-    for (int k = 0; k < 3; ++k) {
-      vw[0][k] = w0[k];
-      vv[0][k] = v0[k];
-      aw[0][k] = 0.0f;
-    }
-    av[0][0] = -cfg[CFG_GX];
-    av[0][1] = -cfg[CFG_GY];
-    av[0][2] = -cfg[CFG_GZ];
-#pragma unroll 1
-    for (int b = 1; b < NB; ++b) {
-      const int p = (int)mdl[OFF_PARENT + b];
-      float mw[3], mv[3], t1[3], t2[3], t3[3];
-      for (int k = 0; k < 3; ++k) {
-        vw[b][k] = vw[p][k] + phw[b - 1][k] * qd[b - 1];
-        vv[b][k] = vv[p][k] + phv[b - 1][k] * qd[b - 1];
-        mw[k] = phw[b - 1][k] * qd[b - 1];
-        mv[k] = phv[b - 1][k] * qd[b - 1];
+    float (*v6)[6] = w.s.v.vb, (*c6)[6] = w.s.r.c, (*a6)[6] = w.s.r.a;
+    for (int i = lane; i < NV; i += 32)   // u, in w.un until the sweeps
+      w.un[i] = i < 6 ? w.st[7 + i] : qd[i - 6];
+    __syncwarp();
+    body_velocities(w, m, w.un, lane);
+    for (int t = lane; t < 6 * ND; t += 32) {
+      const int j = t / 6, k = t % 6, b = j + 1;
+      const float qdj = qd[j];
+      float mw[3], mv[3], x[3], y[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        mw[i] = w.phw[j][i] * qdj;
+        mv[i] = w.phv[j][i] * qdj;
       }
-      cross3(vw[b], mw, t1);
-      cross3(vv[b], mw, t2);
-      cross3(vw[b], mv, t3);
-      for (int k = 0; k < 3; ++k) {
-        aw[b][k] = aw[p][k] + t1[k];
-        av[b][k] = av[p][k] + (t2[k] + t3[k]);
+      if (k < 3) {
+        cross3(v6[b], mw, x);
+        c6[j][k] = x[k];
+      } else {
+        cross3(v6[b] + 3, mw, x);
+        cross3(v6[b], mv, y);
+        c6[j][k] = x[k - 3] + y[k - 3];
       }
     }
-    // body forces, written over the accelerations
-#pragma unroll 1
-    for (int b = 0; b < NB; ++b) {
+    __syncwarp();
+    for (int t = lane; t < 6 * NB; t += 32) {
+      const int b = t / 6, k = t % 6;
+      const float* anc = m + OFF_ANC + b * ND;
+      float a = k < 3 ? 0.0f : -cfg[CFG_GX + k - 3];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) a = fmaf(anc[j], c6[j][k], a);
+      a6[b][k] = a;
+    }
+    __syncwarp();
+    // body forces, written over the accelerations, lanes over bodies
+    for (int b = lane; b < NB; b += 32) {
       float Iat[3], Iab[3], Ivt[3], Ivb[3], c1[3], c2[3], c3[3];
-      inertia_apply(sb[b], hb[b], Ab[b], aw[b], av[b], Iat, Iab);
-      inertia_apply(sb[b], hb[b], Ab[b], vw[b], vv[b], Ivt, Ivb);
-      cross3(vw[b], Ivt, c1);
-      cross3(vv[b], Ivb, c2);
-      cross3(vw[b], Ivb, c3);
+      inertia_apply(w.sb[b], w.hb[b], w.Ab[b], a6[b], a6[b] + 3, Iat, Iab);
+      inertia_apply(w.sb[b], w.hb[b], w.Ab[b], v6[b], v6[b] + 3, Ivt, Ivb);
+      cross3(v6[b], Ivt, c1);
+      cross3(v6[b] + 3, Ivb, c2);
+      cross3(v6[b], Ivb, c3);
+#pragma unroll
       for (int k = 0; k < 3; ++k) {
-        aw[b][k] = Iat[k] + (c1[k] + c2[k]);
-        av[b][k] = Iab[k] + c3[k];
+        a6[b][k] = Iat[k] + (c1[k] + c2[k]);
+        a6[b][3 + k] = Iab[k] + c3[k];
       }
     }
-#pragma unroll 1
-    for (int b = NB - 1; b > 0; --b) {
-      const int p = (int)mdl[OFF_PARENT + b];
-      for (int k = 0; k < 3; ++k) {
-        aw[p][k] += aw[b][k];
-        av[p][k] += av[b][k];
-      }
+    __syncwarp();
+    subtree_sums(w, m, a6, lane);
+    gen_force(w, lane);
+    for (int i = lane; i < NV; i += 32)   // the right-hand side over sv
+      w.sv[i] = (i < 6 ? w.ext[i] : w.tau[i - 6]) - w.sv[i];
+    __syncwarp();
+    for (int i = lane; i < NV; i += 32) {
+      const float u = i < 3 ? w.st[7 + i] : (i < 6 ? w.st[10 + i - 3] : qd[i - 6]);
+      w.uf[i] = u + dt * g_row(w, i, w.sv);
     }
-    float rhs[NV], udot[NV];
-    for (int k = 0; k < 3; ++k) {
-      rhs[k] = ext[k] - av[0][k];
-      rhs[3 + k] = ext[3 + k] - aw[0][k];
-    }
-    for (int j = 0; j < ND; ++j)
-      rhs[6 + j] = tau[j] - (dot3(phw[j], aw[j + 1]) + dot3(phv[j], av[j + 1]));
-    minv_vec(G, rhs, udot);
-    for (int k = 0; k < 3; ++k) {
-      uf[k] = v0[k] + dt * udot[k];
-      uf[3 + k] = w0[k] + dt * udot[3 + k];
-    }
-    for (int j = 0; j < ND; ++j) uf[6 + j] = qd[j] + dt * udot[6 + j];
+    __syncwarp();
   }
 
-  // ---------------- 6. per-body Lambda_b = J_b G J_b^T ----------------
-  // spatial rows [w; v]; J_b's base block maps u row swap6(r) to row r
-  float Lam[NB][6][6];
+  CLK(5);
+  // ---------------- 6. per-body Lambda_b = J_b G J_b^T, down the tree ------
+  // spatial rows [w; v]; J_b's base block maps u row swap6(r) to row r.
+  // J_b = J_p + phi_j e_(6+j)^T for body b = j + 1 with parent p, so
+  // Lambda_b = Lambda_p + x phi_j^T + phi_j x^T + G[6+j][6+j] phi_j phi_j^T
+  // with x = J_p G e_(6+j): first every x, lanes over (joint, row)
+  float (*Lam)[36] = w.s.l.Lam;
+  for (int t = lane; t < 6 * ND; t += 32) {
+    const int j = t / 6, r = t % 6;
+    const float* anc = m + OFF_ANC + ti(m, OFF_PARENT + j + 1) * ND;
+    float x = w.G[swap6(r)][6 + j];
+#pragma unroll
+    for (int jj = 0; jj < ND; ++jj)
+      x = fmaf(anc[jj] * (r < 3 ? w.phw[jj][r] : w.phv[jj][r - 3]), w.G[6 + jj][6 + j], x);
+    w.s.l.x[j][r] = x;
+  }
+  for (int t = lane; t < 36; t += 32) Lam[0][t] = w.G[swap6(t / 6)][swap6(t % 6)];
+  __syncwarp();
 #pragma unroll 1
-  for (int b = 0; b < NB; ++b) {
-    float X[6][NV];
-    const float* anc = mdl + OFF_ANC + b * ND;
-    for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < NV; ++c) X[r][c] = G[swap6(r)][c];
-#pragma unroll 1
-    for (int j = 0; j < ND; ++j) {
-      if (anc[j] == 0.0f) continue;
-      const float ph6[6] = {phw[j][0], phw[j][1], phw[j][2], phv[j][0], phv[j][1], phv[j][2]};
-      for (int r = 0; r < 6; ++r)
-        for (int c = 0; c < NV; ++c) X[r][c] += ph6[r] * G[6 + j][c];
+  for (int L = 1; L < NB; ++L) {   // lanes over (body of the level, entry)
+    const int a = ti(m, OFF_LSTART + L);
+    if (a >= NB) break;
+    const int n = 36 * (ti(m, OFF_LSTART + L + 1) - a);
+    for (int t = lane; t < n; t += 32) {
+      const int b = ti(m, OFF_ORDER + a + t / 36), e = t % 36, r = e / 6, c = e % 6;
+      const int j = b - 1, p = ti(m, OFF_PARENT + b);
+      const float pr_ = r < 3 ? w.phw[j][r] : w.phv[j][r - 3];
+      const float pc = c < 3 ? w.phw[j][c] : w.phv[j][c - 3];
+      const float* x = w.s.l.x[j];
+      Lam[b][e] = Lam[p][e] + (x[r] * pc + pr_ * x[c]) + w.G[6 + j][6 + j] * pr_ * pc;
     }
-    for (int rr = 0; rr < 6; ++rr)
-      for (int ss = rr; ss < 6; ++ss) {
-        float val = X[rr][swap6(ss)];
-        for (int j = 0; j < ND; ++j) {
-          if (anc[j] == 0.0f) continue;
-          const float phs = ss < 3 ? phw[j][ss] : phv[j][ss - 3];
-          val += X[rr][6 + j] * phs;
+    __syncwarp();
+  }
+  CLK(6);
+  // ---------------- 7. per-point Delassus blocks and targets, lanes over points
+  float pr[PPL][3], Di[PPL][9], pmu[PPL], vtz[PPL], pa[PPL], lam[PPL][3];
+#pragma unroll
+  for (int s = 0; s < PPL; ++s) {
+    const int p = lane + 32 * s;
+    pa[s] = pmu[s] = vtz[s] = 0.0f;
+    if (p < NPT) {
+      const int b = ti(m, OFF_PBODY + p);
+      float wp[3];
+      mv33(w.R[b], m + OFF_PPOS + 3 * p, wp);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        wp[k] += w.P[b][k];
+        pr[s][k] = wp[k] - p0[k];
+      }
+      const float depth = __fsub_rn(__fadd_rn(ph[s], m[OFF_PRAD + p]), wp[2]);
+      if (ptxy != nullptr) {
+        ptxy[(size_t)(2 * p) * B + e] = wp[0];
+        ptxy[(size_t)(2 * p + 1) * B + e] = wp[1];
+      }
+      pa[s] = depth > -cfg[CFG_MARGIN] ? 1.0f : 0.0f;
+      w.pact[p] = pa[s];
+      vtz[s] = fminf(cfg[CFG_BAUMGARTE] * fmaxf(depth - cfg[CFG_SLOP], 0.0f) / dt,
+                     cfg[CFG_MAX_PUSHOUT]);   // the push-out speed, for now
+    }
+  }
+  __syncwarp();
+  for (int b = lane; b < NB; b += 32) {   // active points per body, in order
+    const int z = ti(m, OFF_BPSTART + b + 1);
+    float c = 0.0f;
+#pragma unroll 1
+    for (int k = ti(m, OFF_BPSTART + b); k < z; ++k) c += w.pact[ti(m, OFF_BPLIST + k)];
+    w.cnt[b] = c;
+  }
+  body_velocities(w, m, w.uf, lane);   // (synchronises after cnt too)
+#pragma unroll
+  for (int s = 0; s < PPL; ++s) {
+    const int p = lane + 32 * s;
+    if (p < NPT) {
+      const int b = ti(m, OFF_PBODY + p);
+      const float* r = pr[s];
+      const float* Lb = Lam[b];
+      float Lww[3][3], Lwv[3][3], Lvw[3][3], Lvv[3][3], t0[3][3], t1[3][3], t2[3][3], t3[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          Lww[i][j] = Lb[6 * i + j];
+          Lwv[i][j] = Lb[6 * i + 3 + j];
+          Lvw[i][j] = Lb[6 * (3 + i) + j];
+          Lvv[i][j] = Lb[6 * (3 + i) + 3 + j];
         }
-        Lam[b][rr][ss] = Lam[b][ss][rr] = val;
-      }
-  }
-
-  // ---------------- 7. per-point Delassus blocks and targets -------------
-  float pr[NPT][3], pdepth[NPT], pact[NPT], counts[NB];
-  for (int b = 0; b < NB; ++b) counts[b] = 0.0f;
-#pragma unroll 1
-  for (int p = 0; p < NPT; ++p) {
-    const int b = (int)mdl[OFF_PBODY + p];
-    float wp[3];
-    mv33(R[b], mdl + OFF_PPOS + 3 * p, wp);
-    for (int k = 0; k < 3; ++k) {
-      wp[k] += P[b][k];
-      pr[p][k] = wp[k] - p0[k];
-    }
-#if PLANE
-    pdepth[p] = mdl[OFF_PRAD + p] - wp[2];
-#else
-    pdepth[p] = IN(h_in, p) + mdl[OFF_PRAD + p] - wp[2];
-    IN(ptxy_out, 2 * p) = wp[0];
-    IN(ptxy_out, 2 * p + 1) = wp[1];
-#endif
-    pact[p] = pdepth[p] > -cfg[CFG_MARGIN] ? 1.0f : 0.0f;
-    counts[b] += pact[p];
-  }
-  float bw[NB][3], bv[NB][3];
-  body_velocities(mdl, uf, phw, phv, bw, bv);
-  float Dinv[NPT][9], pmu[NPT], vtz[NPT];
-#pragma unroll 1
-  for (int p = 0; p < NPT; ++p) {
-    const int b = (int)mdl[OFF_PBODY + p];
-    const float* r = pr[p];
-    float Lww[3][3], Lwv[3][3], Lvw[3][3], Lvv[3][3], t0[3][3], t1[3][3], t2[3][3], t3[3][3];
-    for (int i = 0; i < 3; ++i)
+      // skew(r) @ A (rows) and A @ skew(r) (columns)
+#pragma unroll
       for (int j = 0; j < 3; ++j) {
-        Lww[i][j] = Lam[b][i][j];
-        Lwv[i][j] = Lam[b][i][3 + j];
-        Lvw[i][j] = Lam[b][3 + i][j];
-        Lvv[i][j] = Lam[b][3 + i][3 + j];
+        t0[0][j] = r[1] * Lww[2][j] - r[2] * Lww[1][j];
+        t0[1][j] = r[2] * Lww[0][j] - r[0] * Lww[2][j];
+        t0[2][j] = r[0] * Lww[1][j] - r[1] * Lww[0][j];
+        t2[0][j] = r[1] * Lwv[2][j] - r[2] * Lwv[1][j];
+        t2[1][j] = r[2] * Lwv[0][j] - r[0] * Lwv[2][j];
+        t2[2][j] = r[0] * Lwv[1][j] - r[1] * Lwv[0][j];
       }
-    // skew(r) @ A (rows) and A @ skew(r) (columns)
-    for (int j = 0; j < 3; ++j) {
-      t0[0][j] = r[1] * Lww[2][j] - r[2] * Lww[1][j];
-      t0[1][j] = r[2] * Lww[0][j] - r[0] * Lww[2][j];
-      t0[2][j] = r[0] * Lww[1][j] - r[1] * Lww[0][j];
-      t2[0][j] = r[1] * Lwv[2][j] - r[2] * Lwv[1][j];
-      t2[1][j] = r[2] * Lwv[0][j] - r[0] * Lwv[2][j];
-      t2[2][j] = r[0] * Lwv[1][j] - r[1] * Lwv[0][j];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        t1[i][0] = t0[i][1] * r[2] - t0[i][2] * r[1];
+        t1[i][1] = t0[i][2] * r[0] - t0[i][0] * r[2];
+        t1[i][2] = t0[i][0] * r[1] - t0[i][1] * r[0];
+        t3[i][0] = Lvw[i][1] * r[2] - Lvw[i][2] * r[1];
+        t3[i][1] = Lvw[i][2] * r[0] - Lvw[i][0] * r[2];
+        t3[i][2] = Lvw[i][0] * r[1] - Lvw[i][1] * r[0];
+      }
+      const float split = fmaxf(w.cnt[b], 1.0f);
+      float D[9];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          D[3 * i + j] = (Lvv[i][j] - t1[i][j] - t2[i][j] + t3[i][j]) * split
+                         + (i == j ? 1e-8f : 0.0f);
+      const float a = D[0], b_ = D[1], c = D[2], d_ = D[3], e_ = D[4], f_ = D[5], g = D[6],
+                  h = D[7], i_ = D[8];
+      const float co_a = e_ * i_ - f_ * h, co_b = c * h - b_ * i_, co_c = b_ * f_ - c * e_;
+      const float idet = 1.0f / (a * co_a + d_ * co_b + g * co_c);
+      float* Dv = Di[s];
+      Dv[0] = co_a * idet; Dv[1] = co_b * idet; Dv[2] = co_c * idet;
+      Dv[3] = (f_ * g - d_ * i_) * idet; Dv[4] = (a * i_ - c * g) * idet;
+      Dv[5] = (c * d_ - a * f_) * idet;
+      Dv[6] = (d_ * h - e_ * g) * idet; Dv[7] = (b_ * g - a * h) * idet;
+      Dv[8] = (a * e_ - b_ * d_) * idet;
+      const int sh = ti(m, OFF_PSHAPE + p);
+      pmu[s] = 0.5f * (w.dyn[10 * NB + sh] + cfg[CFG_TFRIC]);
+      const float rest = 0.5f * (w.dyn[10 * NB + NS + sh] + cfg[CFG_TREST]);
+      float v[3];
+      point_velocity(w, b, r, v);
+      const float vn_pre = dot_n(v, pn[s]);   // the approach speed along n
+      const float bounce = vn_pre < -cfg[CFG_BOUNCE] ? -rest * vn_pre : 0.0f;
+      vtz[s] = fmaxf(vtz[s], bounce);         // the target's length along n
     }
-    for (int i = 0; i < 3; ++i) {
-      t1[i][0] = t0[i][1] * r[2] - t0[i][2] * r[1];
-      t1[i][1] = t0[i][2] * r[0] - t0[i][0] * r[2];
-      t1[i][2] = t0[i][0] * r[1] - t0[i][1] * r[0];
-      t3[i][0] = Lvw[i][1] * r[2] - Lvw[i][2] * r[1];
-      t3[i][1] = Lvw[i][2] * r[0] - Lvw[i][0] * r[2];
-      t3[i][2] = Lvw[i][0] * r[1] - Lvw[i][1] * r[0];
-    }
-    const float split = fmaxf(counts[b], 1.0f);
-    float D[9];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        D[3 * i + j] = (Lvv[i][j] - t1[i][j] - t2[i][j] + t3[i][j]) * split + (i == j ? 1e-8f : 0.0f);
-    const float a = D[0], b_ = D[1], c = D[2], d_ = D[3], e_ = D[4], f_ = D[5], g = D[6],
-                h = D[7], i_ = D[8];
-    const float co_a = e_ * i_ - f_ * h, co_b = c * h - b_ * i_, co_c = b_ * f_ - c * e_;
-    const float idet = 1.0f / (a * co_a + d_ * co_b + g * co_c);
-    float* Di = Dinv[p];
-    Di[0] = co_a * idet; Di[1] = co_b * idet; Di[2] = co_c * idet;
-    Di[3] = (f_ * g - d_ * i_) * idet; Di[4] = (a * i_ - c * g) * idet; Di[5] = (c * d_ - a * f_) * idet;
-    Di[6] = (d_ * h - e_ * g) * idet; Di[7] = (b_ * g - a * h) * idet; Di[8] = (a * e_ - b_ * d_) * idet;
-    const int sh = (int)mdl[OFF_PSHAPE + p];
-    pmu[p] = 0.5f * (IN(dyn, 10 * NB + sh) + cfg[CFG_TFRIC]);
-    const float rest = 0.5f * (IN(dyn, 10 * NB + NS + sh) + cfg[CFG_TREST]);
-    float wxr[3];
-    cross3(bw[b], r, wxr);
-#if PLANE
-    const float vn_pre = bv[b][2] + wxr[2];
-#else
-    const float vz = bv[b][2] + wxr[2];
-    const float vn_pre = (bv[b][0] + wxr[0]) * IN(n_in, 3 * p)
-                         + (bv[b][1] + wxr[1]) * IN(n_in, 3 * p + 1) + vz * IN(n_in, 3 * p + 2);
-#endif
-    const float pushout = fminf(cfg[CFG_BAUMGARTE] * fmaxf(pdepth[p] - cfg[CFG_SLOP], 0.0f) / dt,
-                                cfg[CFG_MAX_PUSHOUT]);
-    const float bounce = vn_pre < -cfg[CFG_BOUNCE] ? -rest * vn_pre : 0.0f;
-    vtz[p] = fmaxf(pushout, bounce);  // K5: the target's length along n
+#pragma unroll
+    for (int k = 0; k < 3; ++k) lam[s][k] = 0.0f;
   }
+  __syncwarp();   // every lane is done with Lambda before w.s.pw overwrites it
 
-  // ---------------- 8. Jacobi sweeps, friction cone about +z (K5: n) -----
-  float lam[NPT][3], wt[NB][3], wf[NB][3], du[NV], un[NV];
-  for (int p = 0; p < NPT; ++p) lam[p][0] = lam[p][1] = lam[p][2] = 0.0f;
+  CLK(7);
+  // ---------------- 8. Jacobi sweeps, friction cone about n ---------------
+  // Sweep 0 starts from lam = 0, so its velocities are those of uf,
+  // already in w.s.v.vb.
   const int iters = (int)cfg[CFG_ITERS];
   const float relax = cfg[CFG_RELAX];
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    wrench_and_du(mdl, lam, pr, phw, phv, G, wt, wf, du);
-    for (int i = 0; i < NV; ++i) un[i] = uf[i] + du[i];
-    body_velocities(mdl, un, phw, phv, bw, bv);
-#pragma unroll 1
-    for (int p = 0; p < NPT; ++p) {
-      const int b = (int)mdl[OFF_PBODY + p];
-      float wxr[3];
-      cross3(bw[b], pr[p], wxr);
-#if PLANE
-      const float dv[3] = {-(bv[b][0] + wxr[0]), -(bv[b][1] + wxr[1]), vtz[p] - (bv[b][2] + wxr[2])};
-#else
-      const float nrm[3] = {IN(n_in, 3 * p), IN(n_in, 3 * p + 1), IN(n_in, 3 * p + 2)};
-      // The target vtz n minus the point velocity v, in K1's shape
-      // (-vx, -vy, vtz - vz) with the target's part off +z, vtz (n - z),
-      // taken out of v first.  nvcc sums D^-1 dv in another order when dv's
-      // x and y are not negations, which breaks the bitwise equality with
-      // K1; in this shape they are, and on plane inputs that part is
-      // exactly 0.
-      const float dv[3] = {-((bv[b][0] + wxr[0]) - __fmul_rn(nrm[0], vtz[p])),
-                           -((bv[b][1] + wxr[1]) - __fmul_rn(nrm[1], vtz[p])),
-                           vtz[p] - ((bv[b][2] + wxr[2]) + __fmul_rn(1.0f - nrm[2], vtz[p]))};
-#endif
-      const float* Di = Dinv[p];
-      float ln[3];
-      for (int k = 0; k < 3; ++k)
-        ln[k] = lam[p][k] + relax * (Di[3 * k] * dv[0] + Di[3 * k + 1] * dv[1] + Di[3 * k + 2] * dv[2]);
-      const float a = pact[p];
-#if PLANE
-      const float lz = fmaxf(ln[2], 0.0f);
-      const float lt = sqrtf(ln[0] * ln[0] + ln[1] * ln[1] + 1e-18f);
-      const float scale = fminf(1.0f, pmu[p] * lz / lt);
-      lam[p][0] = ln[0] * scale * a;
-      lam[p][1] = ln[1] * scale * a;
-      lam[p][2] = lz * a;
-#else
-      // cone about the terrain normal: normal part clamped at 0, tangential
-      // part scaled into the cone
-      const float ldn = ln[0] * nrm[0] + ln[1] * nrm[1] + ln[2] * nrm[2];
-      const float lz = fmaxf(ldn, 0.0f);
-      const float ltv[3] = {ln[0] - ldn * nrm[0], ln[1] - ldn * nrm[1], ln[2] - ldn * nrm[2]};
-      const float lt = sqrtf(ltv[0] * ltv[0] + ltv[1] * ltv[1] + ltv[2] * ltv[2] + 1e-18f);
-      const float scale = fminf(1.0f, pmu[p] * lz / lt);
-      for (int k = 0; k < 3; ++k) lam[p][k] = (nrm[k] * lz + ltv[k] * scale) * a;
-#endif
+    if (it > 0) {
+      wrench_du(w, m, pr, lam, lane);
+      CLK(8);
+      body_velocities(w, m, w.un, lane);
+      CLK(9);
     }
+#pragma unroll
+    for (int s = 0; s < PPL; ++s) {
+      const int p = lane + 32 * s;
+      if (p < NPT) {
+        const int b = ti(m, OFF_PBODY + p);
+        const float* n = pn[s];
+        float v[3], dv[3], ln[3], ltv[3];
+        point_velocity(w, b, pr[s], v);
+        // the target vtz n minus the point velocity
+#pragma unroll
+        for (int k = 0; k < 3; ++k) dv[k] = __fsub_rn(__fmul_rn(n[k], vtz[s]), v[k]);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          ln[k] = __fmaf_rn(relax, dot_n(&Di[s][3 * k], dv), lam[s][k]);
+        // normal part clamped at 0, tangential part scaled into the cone
+        const float ldn = dot_n(ln, n);
+        const float lz = fmaxf(ldn, 0.0f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ltv[k] = __fsub_rn(ln[k], __fmul_rn(ldn, n[k]));
+        const float lt = __fsqrt_rn(__fadd_rn(dot_n(ltv, ltv), 1e-18f));
+        const float scale = fminf(1.0f, __fdiv_rn(__fmul_rn(pmu[s], lz), lt));
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          lam[s][k] = __fmul_rn(__fmaf_rn(ltv[k], scale, __fmul_rn(n[k], lz)), pa[s]);
+      }
+    }
+    CLK(10);
   }
-  wrench_and_du(mdl, lam, pr, phw, phv, G, wt, wf, du);
-  for (int i = 0; i < NV; ++i) un[i] = uf[i] + du[i];
+  wrench_du(w, m, pr, lam, lane);
+  CLK(8);
 
   // ---------------- 9. integrate ----------------
-  float vnew[3], wxv[3];
-  cross3(w0, v0, wxv);
-  for (int k = 0; k < 3; ++k) {
-    vnew[k] = un[k] + dt * wxv[k];
-    IN(s_out, k) = p0[k] + dt * vnew[k];
-    IN(s_out, 7 + k) = vnew[k];
-    IN(s_out, 10 + k) = un[3 + k];
-  }
-  {
-    const float wx = un[3], wy = un[4], wz = un[5];
+  if (lane == 0) {
+    float v0[3], w0[3], wxv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v0[k] = w.st[7 + k];
+      w0[k] = w.st[10 + k];
+    }
+    cross3(w0, v0, wxv);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float vnew = w.un[k] + dt * wxv[k];
+      w.st[k] = p0[k] + dt * vnew;
+      w.st[7 + k] = vnew;
+      w.st[10 + k] = w.un[3 + k];
+    }
+    const float wx = w.un[3], wy = w.un[4], wz = w.un[5];
     const float ang = sqrtf(wx * wx + wy * wy + wz * wz + 1e-18f);
     const float half = 0.5f * dt * ang;
     const float sc_ = sinf(half) / ang, dw = cosf(half);
     const float dx = wx * sc_, dy = wy * sc_, dz = wz * sc_;
-    const float qw = quat[0], qx = quat[1], qy = quat[2], qz = quat[3];
+    const float qw = w.st[3], qx = w.st[4], qy = w.st[5], qz = w.st[6];
     const float nqw = dw * qw - dx * qx - dy * qy - dz * qz;
     const float nqx = dw * qx + dx * qw + dy * qz - dz * qy;
     const float nqy = dw * qy - dx * qz + dy * qw + dz * qx;
     const float nqz = dw * qz + dx * qy - dy * qx + dz * qw;
     const float norm = rsqrtf(nqw * nqw + nqx * nqx + nqy * nqy + nqz * nqz);
-    IN(s_out, 3) = nqw * norm;
-    IN(s_out, 4) = nqx * norm;
-    IN(s_out, 5) = nqy * norm;
-    IN(s_out, 6) = nqz * norm;
+    w.st[3] = nqw * norm;
+    w.st[4] = nqx * norm;
+    w.st[5] = nqy * norm;
+    w.st[6] = nqz * norm;
   }
-  for (int j = 0; j < ND; ++j) {
-    float qdn = un[6 + j];
-    const float qn = q[j] + dt * qdn;
-    const float lo = mdl[OFF_LO + j], hi = mdl[OFF_HI + j];
+  for (int j = lane; j < ND; j += 32) {
+    float qdn = w.un[6 + j];
+    const float qn = w.st[13 + j] + dt * qdn;
+    const float lo = m[OFF_LO + j], hi = m[OFF_HI + j];
     if (qn < lo) qdn = fmaxf(qdn, 0.0f);
     if (qn > hi) qdn = fminf(qdn, 0.0f);
-    IN(s_out, 13 + j) = fminf(fmaxf(qn, lo), hi);
-    IN(s_out, 13 + ND + j) = qdn;
+    w.st[13 + j] = fminf(fmaxf(qn, lo), hi);
+    w.st[13 + ND + j] = qdn;
   }
-  for (int b = 0; b < NB; ++b)
-    for (int k = 0; k < 3; ++k) IN(f_out, 3 * b + k) = wf[b][k] / dt;
-
-  // ---------------- 10. feet poses from the start-of-substep FK ----------
-  for (int fi = 0; fi < NF; ++fi) {
-    const int b = (int)mdl[OFF_FEET + fi];
-    for (int k = 0; k < 3; ++k) IN(feet_out, 12 * fi + k) = P[b][k];
-    for (int k = 0; k < 9; ++k) IN(feet_out, 12 * fi + 3 + k) = R[b][k];
-  }
-#undef IN
+  __syncwarp();
+  CLK(11);
 }
 
-// Plain C entry point for ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronizes.
+// ---------------------------------------------------------------------------
+// Kernels.  Shared memory: the model table (index blocks as ints), the
+// (i <= j) pairs of an NV x NV lower triangle, then EPB env working sets.
+#define SMEM_BYTES ((MDL_LEN + NPAIR) * 4 + EPB * sizeof(EnvWS))
+
+__device__ __forceinline__ EnvWS* setup_block(const float* __restrict__ mdl, float*& m,
+                                              int*& pairs) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  pairs = reinterpret_cast<int*>(sm + MDL_LEN);
+  for (int i = threadIdx.x; i < MDL_LEN; i += blockDim.x) {
+    const float v = mdl[i];
+    const bool index = i < OFF_PARENT + NB || (i >= OFF_PBODY && i < OFF_PPOS)
+                       || (i >= OFF_FEET && i < OFF_CFG);
+    sm[i] = index ? __int_as_float((int)v) : v;
+  }
+  for (int t = threadIdx.x; t < NPAIR; t += blockDim.x) {
+    int i = 0, r = t;
+    while (r >= NV - i) {
+      r -= NV - i;
+      ++i;
+    }
+    pairs[t] = (i << 16) | (i + r);
+  }
+  __syncthreads();
+  m = sm;
+  return reinterpret_cast<EnvWS*>(pairs + NPAIR);
+}
+
+// each lane's points' terrain: read once (K5), or the plane's constants (K1)
+__device__ __forceinline__ void load_terrain(const float* __restrict__ h_in,
+                                             const float* __restrict__ n_in, int lane, int e,
+                                             int B, float (&ph)[PPL], float (&pn)[PPL][3]) {
+#pragma unroll
+  for (int s = 0; s < PPL; ++s) {
+    const int p = lane + 32 * s;
+    ph[s] = 0.0f;
+    pn[s][0] = 0.0f;
+    pn[s][1] = 0.0f;
+    pn[s][2] = 1.0f;
+#if !PLANE
+    if (p < NPT) {
+      ph[s] = h_in[(size_t)p * B + e];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pn[s][k] = n_in[(size_t)(3 * p + k) * B + e];
+    }
+#endif
+  }
+}
+
+__device__ __forceinline__ void load_state(EnvWS& w, const float* __restrict__ s_in,
+                                           const float* __restrict__ dyn, int lane, int e,
+                                           int B) {
+  for (int c = lane; c < NSTATE; c += 32) w.st[c] = s_in[(size_t)c * B + e];
+  for (int c = lane; c < NDYN; c += 32) w.dyn[c] = dyn[(size_t)c * B + e];
+}
+
+// the state, the contact force per body and the feet poses out
+__device__ __forceinline__ void store_outputs(const EnvWS& w, const float* m, int lane, int e,
+                                              int B, float* __restrict__ s_out,
+                                              float* __restrict__ f_out,
+                                              float* __restrict__ feet_out) {
+  const float dt = m[OFF_CFG + CFG_DT];
+  for (int c = lane; c < NSTATE; c += 32) s_out[(size_t)c * B + e] = w.st[c];
+  for (int t = lane; t < 3 * NB; t += 32) f_out[(size_t)t * B + e] = w.s.sw.wb[t / 3][3 + t % 3] / dt;
+  for (int t = lane; t < 12 * NF; t += 32) {
+    const int b = ti(m, OFF_FEET + t / 12), k = t % 12;
+    feet_out[(size_t)t * B + e] = k < 3 ? w.P[b][k] : w.R[b][k - 3];
+  }
+}
+
+// One substep; every tensor component-major [comp, B].
+__global__ void __launch_bounds__(32 * EPB, MINB)
+substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
+               const float* __restrict__ tau_in, const float* __restrict__ ext_in,
+               const float* __restrict__ h_in, const float* __restrict__ n_in,
+               float* __restrict__ ptxy_out, const float* __restrict__ mdl,
+               float* __restrict__ s_out, float* __restrict__ f_out,
+               float* __restrict__ feet_out, int B) {
+  float* m;
+  int* pairs;
+  EnvWS* ws = setup_block(mdl, m, pairs);
+  const int lane = threadIdx.x & 31, e = blockIdx.x * EPB + (threadIdx.x >> 5);
+  if (e >= B) return;   // ragged edge: masked, never padded
+  EnvWS& w = ws[threadIdx.x >> 5];
+  load_state(w, s_in, dyn, lane, e, B);
+  for (int j = lane; j < ND; j += 32) w.tau[j] = tau_in[(size_t)j * B + e];
+  if (lane < 6) w.ext[lane] = ext_in[(size_t)lane * B + e];
+  float ph[PPL], pn[PPL][3];
+  load_terrain(h_in, n_in, lane, e, B, ph, pn);
+  __syncwarp();
+  substep(w, m, pairs, lane, ph, pn, PLANE ? nullptr : ptxy_out, e, B);
+  store_outputs(w, m, lane, e, B, s_out, f_out, feet_out);
+}
+
+// One control step: `decimation` substeps, each after the delay latch
+// (last = targets from substep delay on), PD, Coulomb joint friction and the
+// torque clip; the push on substep 0 only.  The state, dyn and the contact
+// points' terrain stay on chip; the per-dof inputs and outputs are
+// batch-leading [B, ND] (lanes read an env's row), delay [B] int64, lim
+// [ND], ext [B, 6]; the rest component-major [comp, B].
+__global__ void __launch_bounds__(32 * EPB, MINB)
+control_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
+               const float* __restrict__ targets, const float* __restrict__ last_in,
+               const long long* __restrict__ delay, const float* __restrict__ kp_in,
+               const float* __restrict__ kd_in, const float* __restrict__ fric_in,
+               const float* __restrict__ lim_in, const float* __restrict__ ext_in,
+               const float* __restrict__ h_in, const float* __restrict__ n_in,
+               float* __restrict__ ptxy_out, const float* __restrict__ mdl,
+               float* __restrict__ s_out, float* __restrict__ last_out,
+               float* __restrict__ tsum_out, float* __restrict__ f_out,
+               float* __restrict__ feet_out, int B, int decimation) {
+  float* m;
+  int* pairs;
+  EnvWS* ws = setup_block(mdl, m, pairs);
+  const int lane = threadIdx.x & 31, e = blockIdx.x * EPB + (threadIdx.x >> 5);
+  if (e >= B) return;
+  EnvWS& w = ws[threadIdx.x >> 5];
+  load_state(w, s_in, dyn, lane, e, B);
+  if (lane < 6) w.ext[lane] = ext_in[(size_t)e * 6 + lane];
+  float ph[PPL], pn[PPL][3];
+  load_terrain(h_in, n_in, lane, e, B, ph, pn);
+  // each lane's dofs carry the latched target and the torque sum; the
+  // gains, friction, limit and target are read where they are used (L1)
+  float last[DPL], tsum[DPL];
+#pragma unroll
+  for (int r = 0; r < DPL; ++r) {
+    const int j = lane + 32 * r;
+    last[r] = j < ND ? last_in[(size_t)e * ND + j] : 0.0f;
+    tsum[r] = 0.0f;
+  }
+  const long long dl = delay[e];
+  __syncwarp();
+#pragma unroll 1
+  for (int i = 0; i < decimation; ++i) {
+    if (i == 1 && lane < 6) w.ext[lane] = 0.0f;   // the push acts on substep 0 only
+#pragma unroll
+    for (int r = 0; r < DPL; ++r) {
+      const int j = lane + 32 * r;
+      if (j < ND) {
+        const size_t o = (size_t)e * ND + j;
+        if (dl == i) last[r] = targets[o];
+        // each operation rounded on its own, as the plain loop's tensor ops
+        const float pd = __fsub_rn(__fmul_rn(kp_in[o], __fsub_rn(last[r], w.st[13 + j])),
+                                   __fmul_rn(kd_in[o], w.st[13 + ND + j]));
+        const float sgn = pd > 0.0f ? 1.0f : (pd < 0.0f ? -1.0f : 0.0f);
+        const float fric = __fmul_rn(fminf(fabsf(pd), fric_in[o]), sgn);
+        const float lim = lim_in[j];
+        const float tau = fminf(fmaxf(__fsub_rn(pd, fric), -lim), lim);
+        w.tau[j] = tau;
+        tsum[r] = __fadd_rn(tsum[r], tau);
+      }
+    }
+    __syncwarp();
+    substep(w, m, pairs, lane, ph, pn, (!PLANE && i == decimation - 1) ? ptxy_out : nullptr,
+            e, B);
+  }
+  store_outputs(w, m, lane, e, B, s_out, f_out, feet_out);
+#pragma unroll
+  for (int r = 0; r < DPL; ++r) {
+    const int j = lane + 32 * r;
+    if (j < ND) {
+      last_out[(size_t)e * ND + j] = last[r];
+      tsum_out[(size_t)e * ND + j] = tsum[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Plain C entry points for ctypes.  Each launches on `stream` and returns
+// cudaGetLastError() (0 on success); none synchronizes.
+static int allow_smem(const void* fn) {
+  if (SMEM_BYTES <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)SMEM_BYTES);
+}
+
+static int launch_substep(const float* s_in, const float* dyn, const float* tau,
+                          const float* ext, const float* h_in, const float* n_in,
+                          const float* mdl, float* s_out, float* f_out, float* feet_out,
+                          float* ptxy_out, int B, void* stream) {
+  if (B <= 0) return 0;
+  static int ready = allow_smem((const void*)substep_kernel);
+  if (ready != 0) return ready;
+  const int grid = (B + EPB - 1) / EPB;
+  substep_kernel<<<grid, 32 * EPB, SMEM_BYTES, (cudaStream_t)stream>>>(
+      s_in, dyn, tau, ext, h_in, n_in, ptxy_out, mdl, s_out, f_out, feet_out, B);
+  return (int)cudaGetLastError();
+}
+
+static int launch_control(const float* s_in, const float* dyn, const float* targets,
+                          const float* last_in, const long long* delay, const float* kp,
+                          const float* kd, const float* fric, const float* lim,
+                          const float* ext, const float* h_in, const float* n_in,
+                          const float* mdl, float* s_out, float* last_out, float* tsum_out,
+                          float* f_out, float* feet_out, float* ptxy_out, int B, int decimation,
+                          void* stream) {
+  if (B <= 0) return 0;
+  static int ready = allow_smem((const void*)control_kernel);
+  if (ready != 0) return ready;
+  const int grid = (B + EPB - 1) / EPB;
+  control_kernel<<<grid, 32 * EPB, SMEM_BYTES, (cudaStream_t)stream>>>(
+      s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, h_in, n_in, ptxy_out, mdl,
+      s_out, last_out, tsum_out, f_out, feet_out, B, decimation);
+  return (int)cudaGetLastError();
+}
+
+// out[0] shared memory per block (bytes), out[1] envs per block, out[2] and
+// out[3] resident blocks per SM of the substep and the control-step kernel
+extern "C" int bg_substep_info(int* out) {
+  int err = allow_smem((const void*)substep_kernel);
+  if (err == 0) err = allow_smem((const void*)control_kernel);
+  out[0] = (int)SMEM_BYTES;
+  out[1] = EPB;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], substep_kernel, 32 * EPB,
+                                                             SMEM_BYTES);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], control_kernel, 32 * EPB,
+                                                             SMEM_BYTES);
+  return err;
+}
+
+#if PHASE_CLOCKS
+// the phase clocks summed over warps since the last call, then cleared
+extern "C" int bg_substep_clocks(unsigned long long* out) {
+  int err = (int)cudaMemcpyFromSymbol(out, bg_clk, sizeof(bg_clk));
+  static const unsigned long long zeros[NCLK] = {};
+  if (err == 0) err = (int)cudaMemcpyToSymbol(bg_clk, zeros, sizeof(bg_clk));
+  return err;
+}
+#endif
+
 #if PLANE
 extern "C" int bg_substep(const float* s_in, const float* dyn, const float* tau,
                           const float* ext, const float* mdl, float* s_out, float* f_out,
                           float* feet_out, int B, void* stream) {
-  if (B <= 0) return 0;
-  const int grid = (B + BLOCK - 1) / BLOCK;
-  substep_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(s_in, dyn, tau, ext, mdl, s_out, f_out,
-                                                           feet_out, B);
-  return (int)cudaGetLastError();
+  return launch_substep(s_in, dyn, tau, ext, nullptr, nullptr, mdl, s_out, f_out, feet_out,
+                        nullptr, B, stream);
+}
+
+extern "C" int bg_control(const float* s_in, const float* dyn, const float* targets,
+                          const float* last_in, const long long* delay, const float* kp,
+                          const float* kd, const float* fric, const float* lim,
+                          const float* ext, const float* mdl, float* s_out, float* last_out,
+                          float* tsum_out, float* f_out, float* feet_out, int B,
+                          int decimation, void* stream) {
+  return launch_control(s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, nullptr,
+                        nullptr, mdl, s_out, last_out, tsum_out, f_out, feet_out, nullptr, B,
+                        decimation, stream);
 }
 #else
 extern "C" int bg_substep_terrain(const float* s_in, const float* dyn, const float* tau,
                                   const float* ext, const float* h_in, const float* n_in,
                                   const float* mdl, float* s_out, float* f_out,
                                   float* feet_out, float* ptxy_out, int B, void* stream) {
-  if (B <= 0) return 0;
-  const int grid = (B + BLOCK - 1) / BLOCK;
-  substep_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(s_in, dyn, tau, ext, h_in, n_in,
-                                                           ptxy_out, mdl, s_out, f_out,
-                                                           feet_out, B);
-  return (int)cudaGetLastError();
+  return launch_substep(s_in, dyn, tau, ext, h_in, n_in, mdl, s_out, f_out, feet_out, ptxy_out,
+                        B, stream);
+}
+
+extern "C" int bg_control_terrain(const float* s_in, const float* dyn, const float* targets,
+                                  const float* last_in, const long long* delay,
+                                  const float* kp, const float* kd, const float* fric,
+                                  const float* lim, const float* ext, const float* h_in,
+                                  const float* n_in, const float* mdl, float* s_out,
+                                  float* last_out, float* tsum_out, float* f_out,
+                                  float* feet_out, float* ptxy_out, int B, int decimation,
+                                  void* stream) {
+  return launch_control(s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, h_in, n_in,
+                        mdl, s_out, last_out, tsum_out, f_out, feet_out, ptxy_out, B,
+                        decimation, stream);
 }
 #endif

@@ -11,14 +11,14 @@ index -> (lin, ang) unless `curriculum_transpose_quirk`, still commands are
 per-env Bernoulli unless `still_mode: exact_fraction`, and pushes act on
 the first substep of a control step.
 
-sim.backend is the JAX package's key.  By default the decimation loop keeps
-the sim state in the substep kernel's component-major layout across its 10
-substeps and packs DynParams once per control step; physics/
-substep_kernel.py launches K1 (plane) or K5 (trimesh) on the GPU and runs
-the plain substep on the CPU.  On trimesh each env carries the terrain
-height and normal under its contact points through the 10 substeps, and one
-call of the terrain sampler (terrain/sample_kernel.py) per control step
-answers the contact points, the root and the foot edges.  sim.backend: xla
+sim.backend is the JAX package's key.  By default the whole decimation loop
+is one call of physics/substep_kernel.py's control_step: on the GPU one
+launch of K1 (plane) or K5 (trimesh) that keeps the state on chip across
+the 10 substeps, on the CPU the same loop around the plain substep.  On
+trimesh each env carries the terrain height and normal under its contact
+points through the 10 substeps, and one call of the terrain sampler
+(terrain/sample_kernel.py) per control step answers the contact points, the
+root and the foot edges.  sim.backend: xla
 runs the eager engine, which queries the terrain inside every substep.
 """
 
@@ -348,40 +348,29 @@ class T1:
                 self._zeros(self.num_envs, self.model.num_points, 2))
 
     def _physics_inner_loop(self, params, state, dof_targets, push_f_w, push_t_w):
-        """Decimation loop in the kernel's [comp, B] layout: delay latch, PD,
-        Coulomb joint friction, torque clip, push on substep 0, torque mean.
-        On trimesh the carried point heights and normals go to every substep
+        """Decimation loop: delay latch, PD, Coulomb joint friction, torque
+        clip, push on substep 0, torque mean.  On a GPU it is one launch of
+        the substep kernel's control step, with the state on chip; on the
+        CPU its plain version, the same loop around the plain substep.  On
+        trimesh the carried point heights and normals go to every substep
         unchanged, and the last substep's contact-point xy comes back."""
         sub = self.substep
-        nd, B, npt = self.model.num_dofs, self.num_envs, self.model.num_points
+        B, npt = self.num_envs, self.model.num_points
         if sub.plane:
             ph = pn = None
         else:
             ph = state.point_heights.T.contiguous()
             pn = state.point_normals.reshape(B, -1).T.contiguous()
-        psim = sub.pack_sim(state.sim)
-        pdyn = sub.pack_dyn(params.dyn)
-        p_targets = dof_targets.T
-        p_last = state.last_dof_targets.T
-        kp, kd = params.dof_stiffness.T, params.dof_damping.T
-        fric_lim = params.dof_friction.T
-        p_ext = torch.cat([push_f_w, push_t_w], dim=-1).T.contiguous()
-        p_ext0 = torch.zeros_like(p_ext)
-        lim = self.torque_limits[:, None]
-        p_tsum = torch.zeros_like(p_targets)
-        for i in range(self.decimation):
-            latch = (state.delay_steps == i)[None, :]
-            p_last = torch.where(latch, p_targets, p_last)
-            pd = kp * (p_last - psim[13:13 + nd]) - kd * psim[13 + nd:13 + 2 * nd]
-            fric = torch.minimum(torch.abs(pd), fric_lim) * torch.sign(pd)
-            p_tau = torch.minimum(torch.maximum(pd - fric, -lim), lim).contiguous()
-            psim, pforces, pfeet, pptxy = sub.packed_call(
-                psim, pdyn, p_tau, p_ext if i == 0 else p_ext0, ph, pn)
-            p_tsum = p_tsum + p_tau
+        psim, last, tsum, pforces, pfeet, pptxy = sub.control_step(
+            sub.pack_sim(state.sim), sub.pack_dyn(params.dyn), dof_targets.contiguous(),
+            state.last_dof_targets.contiguous(), state.delay_steps.contiguous(),
+            params.dof_stiffness.contiguous(), params.dof_damping.contiguous(),
+            params.dof_friction.contiguous(), self.torque_limits,
+            torch.cat([push_f_w, push_t_w], dim=-1), ph, pn, decimation=self.decimation)
         nb, nf = self.model.num_bodies, len(self.feet_indices)
         feet = pfeet.T.reshape(B, nf, 12)
         pt_xy = self._zeros(B, npt, 2) if sub.plane else pptxy.T.reshape(B, npt, 2)
-        return (sub.unpack_sim(psim), p_last.T, p_tsum.T / self.decimation,
+        return (sub.unpack_sim(psim), last, tsum / self.decimation,
                 pforces.T.reshape(B, nb, 3), feet[..., 0:3],
                 feet[..., 3:12].reshape(B, nf, 3, 3), pt_xy)
 

@@ -1,13 +1,14 @@
 """K1 and K5: the substep as a hand-written CUDA kernel, on the plane (K1)
-and on general terrain (K5).
+and on general terrain (K5), one substep per launch or a whole control step
+(the env's decimation loop) per launch.
 
 csrc/substep.cu replaces the JAX package's Pallas kernel
 (physics/pallas_engine.py, make_substep_pallas): its -DPLANE=1 build the
 plane=True specialization, its -DPLANE=0 build the general form that takes
 a terrain height and a unit normal per contact point.  This module wraps
 both; kernel_build.py builds them with nvcc into shared libraries with a
-plain C interface and loads them with ctypes.  Layout at the kernel: every
-tensor is component-major [comp, B] f32:
+plain C interface and loads them with ctypes.  Layout at the kernel: the
+state, dyn and terrain tensors are component-major [comp, B] f32:
 
     state  [13 + 2 nd, B]  root_pos(3) root_quat(4) root_lin_vel(3)
                            root_ang_vel(3) q(nd) qd(nd)
@@ -18,8 +19,13 @@ tensor is component-major [comp, B] f32:
     K5 only: in h [npt, B], n [3 npt, B] (row 3 p + k); out ptxy [2 npt, B]
     (row 2 p + k), the points' world xy from the start-of-substep FK
 
-The wrapper runs the plain version (physics/engine.py) only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+control_step takes the per-dof inputs batch-leading, as the env holds them:
+targets, last targets, kp, kd, friction [B, nd], the delay [B] int64, the
+torque limits [nd], the push [B, 6] (force, torque; substep 0 only).
+
+The wrappers run their plain versions (physics/engine.py; the decimation
+loop of control_step_plain) only for tensors on the CPU; for CUDA tensors
+they launch the kernel or raise.
 """
 
 import ctypes
@@ -33,6 +39,28 @@ from booster_gym_torch.physics.types import SimState
 
 SOURCE = "substep.cu"
 CSRC = kernel_build.source_path(SOURCE)
+
+
+def tree_tables(model):
+    """The kernel's walk orders: the bodies sorted by tree depth (then
+    index), the start of each depth level in that order (padded with nb to
+    nb + 1 entries), the contact points grouped by body in index order as
+    CSR starts [nb + 1] and point list [npt], and each point's slot in that
+    list [npt]."""
+    parent = np.asarray(model.parent)
+    nb = len(parent)
+    depth = np.zeros(nb, np.int64)
+    for b in range(1, nb):
+        if not 0 <= parent[b] < b:
+            raise ValueError("the kernel needs every body's parent before it")
+        depth[b] = depth[parent[b]] + 1
+    order = np.lexsort((np.arange(nb), depth))
+    lstart = np.full(nb + 1, nb, np.int64)
+    lstart[:depth.max() + 1] = np.searchsorted(depth[order], np.arange(depth.max() + 1))
+    point_body = np.asarray(model.point_body)
+    plist = np.argsort(point_body, kind="stable")
+    pstart = np.searchsorted(point_body[plist], np.arange(nb + 1))
+    return order, lstart, pstart, plist, np.argsort(plist)
 
 
 def model_tables(model, cfg, feet_indices):
@@ -51,6 +79,7 @@ def model_tables(model, cfg, feet_indices):
         np.asarray(model.point_pos, np.float32).reshape(-1),
         np.asarray(model.point_radius, np.float32),
         np.asarray(feet_indices, np.float32),
+        *(np.asarray(t, np.float32) for t in tree_tables(model)),
         np.asarray([cfg.dt, *cfg.gravity, cfg.solver_iterations, cfg.contact_margin,
                     cfg.baumgarte, cfg.max_pushout_vel, cfg.contact_slop,
                     cfg.bounce_threshold, cfg.relaxation, cfg.terrain_friction,
@@ -59,18 +88,25 @@ def model_tables(model, cfg, feet_indices):
     return np.concatenate(parts)
 
 
+ENVS_PER_BLOCK = 8
+
+
 def kernel_sizes(model, feet_indices, plane=True):
+    """The -D sizes of a build: the robot's, the terrain form, and the envs
+    (warps) per block."""
     return dict(NB=model.num_bodies, ND=model.num_dofs, NPT=model.num_points,
-                NS=len(model.shape_body), NF=len(feet_indices), PLANE=int(plane))
+                NS=len(model.shape_body), NF=len(feet_indices), PLANE=int(plane),
+                EPB=ENVS_PER_BLOCK)
 
 
 class SubstepKernel:
     """K1 (plane=True) or K5 (plane=False) wrapper with the substep
-    signature of physics/engine.py plus the packed (component-major) entry
-    points the env's decimation loop uses.
+    signature of physics/engine.py, the packed (component-major) substep
+    packed_call, and control_step, the env's whole decimation loop in one
+    launch.
 
-    `launches` counts kernel launches; it moves only where the CUDA kernel
-    is launched."""
+    `launches` counts kernel launches of either entry point; it moves only
+    where the CUDA kernel is launched."""
 
     def __init__(self, model, cfg, feet_indices, device, plane=True):
         self.plane = bool(plane)
@@ -85,7 +121,7 @@ class SubstepKernel:
         self.tables = torch.as_tensor(model_tables(model, cfg, self.feet_indices),
                                       device=self.device)
         self.launches = 0
-        self._launch = None
+        self._launch = self._control = None
 
     # -- layout ---------------------------------------------------------
     @staticmethod
@@ -125,48 +161,77 @@ class SubstepKernel:
     def build(self):
         """Build (if needed) and load the library; returns nvcc's report."""
         path, report = kernel_build.build(SOURCE, self.sizes)
-        name, pointers = ("bg_substep", 8) if self.plane else ("bg_substep_terrain", 11)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        if self.plane:
+            names, pointers = ("bg_substep", "bg_control"), (8, 16)
+        else:
+            names, pointers = ("bg_substep_terrain", "bg_control_terrain"), (11, 19)
         lib = kernel_build.load(path, {
-            name: [ctypes.c_void_p] * pointers + [ctypes.c_int, ctypes.c_void_p]})
-        self._launch = getattr(lib, name)
+            names[0]: [ptr] * pointers[0] + [i32, ptr],
+            names[1]: [ptr] * pointers[1] + [i32, i32, ptr],
+            "bg_substep_info": [ptr]})
+        self._launch, self._control = getattr(lib, names[0]), getattr(lib, names[1])
+        self._info = lib.bg_substep_info
         return report
 
-    def _check(self, name, t, rows, B):
+    def info(self):
+        """The launch shape on the current card: shared memory per block
+        (bytes), envs per block, and the resident blocks per SM of the
+        substep and the control-step kernel
+        (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+        if self._launch is None:
+            self.build()
+        out = (ctypes.c_int * 4)()
+        err = self._info(ctypes.cast(out, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"substep kernel occupancy query failed: cudaError {err}")
+        return dict(smem_bytes=out[0], envs_per_block=out[1], blocks_per_sm_substep=out[2],
+                    blocks_per_sm_control=out[3])
+
+    def _check(self, name, t, shape, dtype=torch.float32):
         if t.device != self.tables.device:
             raise ValueError(f"{name} is on {t.device}, the kernel's tables on "
                              f"{self.tables.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != (rows, B):
-            raise ValueError(f"{name} must have shape {(rows, B)}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+    def _check_terrain(self, ph, pn, B):
+        if (ph is None) != self.plane or (pn is None) != self.plane:
+            raise ValueError("point heights and normals go to the general-terrain kernel "
+                             f"only (plane={self.plane})")
+        if not self.plane and ph.device.type == "cuda":
+            self._check("point heights", ph, (self.npt, B))
+            self._check("point normals", pn, (3 * self.npt, B))
+
+    def _packed_plain(self, psim, pdyn, ptau, pext, ph, pn):
+        """The plain version of packed_call, on any device."""
+        B = psim.shape[1]
+        args = (self.unpack_sim(psim), self.unpack_dyn(pdyn), ptau.T, pext[:3].T, pext[3:].T)
+        if self.plane:
+            out, ptxy = self.plain(*args), None
+        else:
+            out = self.plain.terrain_form(*args, ph.T, pn.T.reshape(B, self.npt, 3))
+            ptxy = out[4].reshape(B, -1).T.contiguous()
+        return (self.pack_sim(out[0]), out[1].reshape(B, -1).T.contiguous(),
+                torch.cat([out[2], out[3].reshape(B, self.nf, 9)], dim=-1)
+                .reshape(B, -1).T.contiguous(), ptxy)
 
     def packed_call(self, psim, pdyn, ptau, pext, ph=None, pn=None):
         """Packed substep: [comp, B] in, (state', forces, feet, ptxy) out.
         K1 takes no ph/pn and returns ptxy None; K5 needs both."""
-        if (ph is None) != self.plane or (pn is None) != self.plane:
-            raise ValueError("point heights and normals go to the general-terrain kernel "
-                             f"only (plane={self.plane})")
         B = psim.shape[1]
+        self._check_terrain(ph, pn, B)
         if psim.device.type == "cpu":
-            args = (self.unpack_sim(psim), self.unpack_dyn(pdyn), ptau.T, pext[:3].T, pext[3:].T)
-            if self.plane:
-                out, ptxy = self.plain(*args), None
-            else:
-                out = self.plain.terrain_form(*args, ph.T, pn.T.reshape(B, self.npt, 3))
-                ptxy = out[4].reshape(B, -1).T.contiguous()
-            return (self.pack_sim(out[0]), out[1].reshape(B, -1).T.contiguous(),
-                    torch.cat([out[2], out[3].reshape(B, self.nf, 9)], dim=-1)
-                    .reshape(B, -1).T.contiguous(), ptxy)
+            return self._packed_plain(psim, pdyn, ptau, pext, ph, pn)
         if psim.device.type != "cuda":
             raise ValueError(f"no substep for device {psim.device}")
-        checks = [("state", psim, self.nstate), ("dyn", pdyn, self.ndyn),
-                  ("tau", ptau, self.nd), ("ext", pext, 6)]
-        if not self.plane:
-            checks += [("point heights", ph, self.npt), ("point normals", pn, 3 * self.npt)]
-        for name, t, rows in checks:
-            self._check(name, t, rows, B)
+        for name, t, rows in (("state", psim, self.nstate), ("dyn", pdyn, self.ndyn),
+                              ("tau", ptau, self.nd), ("ext", pext, 6)):
+            self._check(name, t, (rows, B))
         if self._launch is None:
             self.build()
         new = lambda rows: torch.empty((rows, B), dtype=torch.float32, device=psim.device)
@@ -185,6 +250,83 @@ class SubstepKernel:
             raise RuntimeError(f"substep kernel launch failed: cudaError {err}")
         self.launches += 1
         return s_out, f_out, feet, ptxy
+
+    def control_step_plain(self, psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext,
+                           ph=None, pn=None, decimation=10):
+        """The decimation loop around the plain substep, in the packed
+        layout: per substep i the delay latch (last = targets where delay
+        == i), PD kp (last - q) - kd qd, Coulomb joint friction
+        min(|pd|, fric) sign(pd), the clip to +-lim, the push on substep 0
+        only, then the substep.  Returns control_step's outputs."""
+        nd = self.nd
+        p_targets, p_last = targets.T, last.T
+        kp, kd, fric_lim = kp.T, kd.T, fric.T
+        p_ext = ext.T.contiguous()
+        p_ext0 = torch.zeros_like(p_ext)
+        lim = lim[:, None]
+        p_tsum = torch.zeros_like(p_targets)
+        for i in range(decimation):
+            latch = (delay == i)[None, :]
+            p_last = torch.where(latch, p_targets, p_last)
+            pd = kp * (p_last - psim[13:13 + nd]) - kd * psim[13 + nd:13 + 2 * nd]
+            friction = torch.minimum(torch.abs(pd), fric_lim) * torch.sign(pd)
+            p_tau = torch.minimum(torch.maximum(pd - friction, -lim), lim).contiguous()
+            psim, pforces, pfeet, pptxy = self._packed_plain(
+                psim, pdyn, p_tau, p_ext if i == 0 else p_ext0, ph, pn)
+            p_tsum = p_tsum + p_tau
+        return psim, p_last.T, p_tsum.T, pforces, pfeet, pptxy
+
+    def control_step(self, psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext,
+                     ph=None, pn=None, decimation=10):
+        """One control step, `decimation` substeps, in one launch.
+
+        psim [nstate, B] and pdyn [ndyn, B] as packed_call's; targets, last
+        (the latched targets), kp, kd, fric [B, nd]; delay [B] int64 (the
+        substep from which the new targets act); lim [nd]; ext [B, 6] (push
+        force and torque, substep 0 only); K5 also ph [npt, B], pn [3 npt,
+        B], the terrain under the points for the whole control step.
+        Returns (state' [nstate, B], last' [B, nd], the torque sum over the
+        substeps [B, nd], the last substep's forces [3 nb, B], feet
+        [12 nf, B] and, K5 only, point xy [2 npt, B])."""
+        B = psim.shape[1]
+        self._check_terrain(ph, pn, B)
+        args = (psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext, ph, pn)
+        if psim.device.type == "cpu":
+            return self.control_step_plain(*args, decimation=decimation)
+        if psim.device.type != "cuda":
+            raise ValueError(f"no control step for device {psim.device}")
+        nd = self.nd
+        for name, t, shape, dtype in (
+                ("state", psim, (self.nstate, B), torch.float32),
+                ("dyn", pdyn, (self.ndyn, B), torch.float32),
+                ("targets", targets, (B, nd), torch.float32),
+                ("last targets", last, (B, nd), torch.float32),
+                ("delay", delay, (B,), torch.int64),
+                ("kp", kp, (B, nd), torch.float32), ("kd", kd, (B, nd), torch.float32),
+                ("friction", fric, (B, nd), torch.float32),
+                ("torque limits", lim, (nd,), torch.float32),
+                ("ext", ext, (B, 6), torch.float32)):
+            self._check(name, t, shape, dtype)
+        if self._control is None:
+            self.build()
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=psim.device)
+        s_out, last_out, tsum = torch.empty_like(psim), new(B, nd), new(B, nd)
+        f_out, feet = new(3 * self.nb, B), new(12 * self.nf, B)
+        ptr = lambda *ts: [t.data_ptr() for t in ts]
+        stream = torch.cuda.current_stream(psim.device).cuda_stream
+        inputs = ptr(psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext)
+        outputs = ptr(s_out, last_out, tsum, f_out, feet)
+        if self.plane:
+            ptxy = None
+            err = self._control(*inputs, self.tables.data_ptr(), *outputs, B, decimation, stream)
+        else:
+            ptxy = new(2 * self.npt, B)
+            err = self._control(*inputs, *ptr(ph, pn, self.tables), *outputs, ptxy.data_ptr(),
+                                B, decimation, stream)
+        if err != 0:
+            raise RuntimeError(f"control-step kernel launch failed: cudaError {err}")
+        self.launches += 1
+        return s_out, last_out, tsum, f_out, feet, ptxy
 
     def _unpack_out(self, ps, pf, pfeet, B):
         feet = pfeet.T.reshape(B, self.nf, 12)

@@ -11,7 +11,9 @@ two warm-up iterations, then profiles two iterations with torch.profiler
 and prints, for the iteration and its rollout and update phases: the wall time,
 the device's busy share (the sum of kernel times over the wall time; one
 stream, so kernels do not overlap), the number of kernel launches, and the
-kernels that take the most device time.  The device is synchronised at the
+kernels that take the most device time, and the substep kernel (K1, or K5
+on trimesh) per launch, which is one control step of the env's 10
+substeps, and per substep.  The device is synchronised at the
 phase boundaries, so a kernel belongs to the phase in whose span it
 starts.  The profiler adds host-side cost per launch, so the wall time and
 the idle share it reports are upper bounds of the unprofiled run's.  Needs
@@ -108,6 +110,17 @@ def main(argv=None):
     print(f"card: {card}; update_backend {args.update}; terrain {args.terrain}")
     out = {"card": card, "update_backend": args.update, "terrain": args.terrain,
            "iteration": summary("iteration", kernels, wall_ms)}
+    # the substep kernel: one launch per control step
+    control = [e for e in kernels if "control_kernel" in e.name]
+    decimation = runner.env.decimation
+    if control:
+        per_launch = sum(e.device_time for e in control) / len(control) / 1e3
+        out["substep_kernel"] = {"launches_per_iter": len(control) // PROFILED_ITERS,
+                                 "ms_per_launch": per_launch,
+                                 "ms_per_substep": per_launch / decimation}
+        print(f"substep kernel ({'K1' if args.terrain == 'plane' else 'K5'}): "
+              f"{len(control) // PROFILED_ITERS} launches per iteration, {per_launch:.4f} ms per "
+              f"launch (one control step), {per_launch / decimation:.4f} ms per substep")
     for phase in ("rollout", "update"):
         spans_of = [(a, b) for name, a, b in phases if name == phase]
         inside = [e for e in kernels

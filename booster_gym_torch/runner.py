@@ -91,7 +91,8 @@ class Runner:
         iteration (metrics as floats plus rollout_ms, update_ms, iter_ms,
         env_steps_per_sec and the CUDA kernels' launches in the iteration,
         all 0 on the CPU: substep_kernel_launches for K1 on the plane or K5
-        on trimesh, terrain_sampler_launches for the trimesh sampler, and
+        on trimesh, one per control step (the decimation loop is one
+        launch), terrain_sampler_launches for the trimesh sampler, and
         gae_launches, grads_stats_launches and opt_stage_launches for the
         fused update's K2, K3 and K4)."""
         recorder = Recorder(self.cfg)

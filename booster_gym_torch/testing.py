@@ -227,6 +227,108 @@ def sampler_inputs(terrain, B, N, reach, edge_roots, seed):
     return root.astype(np.float32), off_grid_lines(pts, terrain)
 
 
+def rand_inputs(model, B, device, seed, standing=False):
+    """Random states (the JAX package's _rand_inputs, plus random contact
+    materials); `standing` puts the T1-shaped robot on its feet."""
+    import numpy as np
+    import torch
+
+    from booster_gym_torch.physics import DynParams, SimState
+
+    rng = np.random.default_rng(seed)
+    nd, ns = model.num_dofs, len(model.shape_body)
+    quat = rng.normal(size=(B, 4))
+    quat[: B // 2] = [1, 0, 0, 0]
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    pos = np.zeros((B, 3))
+    pos[:, 2] = rng.uniform(0.2, 0.8, B)
+    q = rng.uniform(-1, 1, (B, nd))
+    qd = rng.uniform(-2, 2, (B, nd))
+    if standing:
+        pos[:, 2] = 0.72
+        quat[:] = [1, 0, 0, 0]
+        q = np.array([-0.2, 0, 0, 0.4, -0.25, 0] * 2) + rng.normal(0, 0.05, (B, nd))
+        qd = rng.normal(0, 0.2, (B, nd))
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    state = SimState(root_pos=t(pos), root_quat=t(quat),
+                     root_lin_vel=t(rng.uniform(-1, 1, (B, 3))),
+                     root_ang_vel=t(rng.uniform(-1, 1, (B, 3))), q=t(q), qd=t(qd))
+    dyn = DynParams(body_mass=t(np.tile(model.body_mass, (B, 1))),
+                    body_com=t(np.tile(model.body_com, (B, 1, 1))),
+                    body_inertia=t(np.tile(model.body_inertia, (B, 1, 1, 1))),
+                    shape_friction=t(rng.uniform(0.5, 1.5, (B, ns))),
+                    shape_restitution=t(rng.uniform(0.0, 0.5, (B, ns))))
+    tau = t(rng.uniform(-5, 5, (B, nd)))
+    ef = t(rng.uniform(-2, 2, (B, 3)))
+    et = t(rng.uniform(-0.5, 0.5, (B, 3)))
+    return state, dyn, tau, ef, et
+
+
+def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None):
+    """control_step's inputs on `device`: rand_inputs' dyn and push with
+    states an env step starts from (`upright`: the T1-shaped robot standing,
+    the toy's base upright at 0.5 m with slow velocities; else rand_inputs'
+    random states, half of them tumbling), PD targets near q, the robot's
+    torque limits, delays spread over 0..9, and gains and joint friction as
+    the env draws them: T1.yaml's stiffness and damping scaled by U(0.95,
+    1.05) and friction U(0, 2) on the T1-shaped robot; on the toy, whose
+    0.4 kg foot has ~2e-3 kg m^2 about the knee, gains for which explicit
+    damping stays stable (kd dt / I < 0.2): kp U(5, 20), kd U(0.05, 0.2),
+    friction U(0, 0.2).  K5 also the terrain under the points, as the env
+    carries it (see below)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from booster_gym_torch.physics.engine import ModelConsts, make_fk
+    from booster_gym_torch.physics.kinematics import point_world_positions
+
+    t1 = model.num_bodies > 3
+    state, dyn, _, ef, et = rand_inputs(model, B, device, seed, standing=upright and t1)
+    rng = np.random.default_rng(seed + 1)
+    nd = model.num_dofs
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    if upright and not t1:
+        quat = np.tile([1.0, 0, 0, 0], (B, 1)) + rng.normal(0, 0.05, (B, 4))
+        state = dataclasses.replace(
+            state, root_pos=t(np.tile([0.0, 0.0, 0.5], (B, 1))),
+            root_quat=t(quat / np.linalg.norm(quat, axis=-1, keepdims=True)),
+            root_lin_vel=0.3 * state.root_lin_vel, root_ang_vel=0.3 * state.root_ang_vel,
+            qd=0.3 * state.qd)
+    ph = pn = None
+    if not kernel.plane:
+        # as the env carries them: the robot over a random spot of the
+        # tiles, raised by the terrain's height there, and the height and
+        # normal of the field at each point's own xy
+        root_xy = t(rng.uniform(0.5, [terrain.env_width - 0.5, terrain.env_length - 0.5],
+                                (B, 2)))
+        pos = state.root_pos.clone()
+        pos[:, :2] = root_xy
+        pos[:, 2] += terrain.heights(root_xy)
+        state = dataclasses.replace(state, root_pos=pos)
+        xy = point_world_positions(ModelConsts.build(model, device),
+                                   *make_fk(model, device)(state))[..., :2]
+        h, n = terrain.heights_and_normals(xy.contiguous())
+        ph, pn = h.T.contiguous(), n.reshape(B, -1).T.contiguous()
+    q = state.q.cpu().numpy()
+    if t1:
+        ctl = load_task_cfg("T1")["control"]
+        gain = lambda table: np.array([next(v for k, v in table.items() if k in name)
+                                       for name in model.dof_names])
+        scale = lambda: rng.uniform(0.95, 1.05, (B, nd))
+        kp, kd = gain(ctl["stiffness"]) * scale(), gain(ctl["damping"]) * scale()
+        fric = rng.uniform(0, 2, (B, nd))
+    else:
+        kp, kd = rng.uniform(5, 20, (B, nd)), rng.uniform(0.05, 0.2, (B, nd))
+        fric = rng.uniform(0, 0.2, (B, nd))
+    args = [kernel.pack_sim(state), kernel.pack_dyn(dyn), t(q + rng.normal(0, 0.1, (B, nd))),
+            t(q + rng.normal(0, 0.05, (B, nd))), torch.arange(B, device=device) % 10,
+            t(kp), t(kd), t(fric), t(model.dof_effort),
+            torch.cat([ef, et], dim=-1).contiguous(), ph, pn]
+    return args
+
+
 def update_inputs(network, T, B, device, seed):
     """A rollout's buffers for the PPO update, made with numpy from a seed
     and moved to `device`: buf = (obs, priv, act, mu, std, rew, done,

@@ -5,7 +5,8 @@ update_kernel.py).
 
 The CUDA kernels run only on a card: the tests marked `cuda` hold each
 against its plain version there and skip without one (chip_smoke.py runs
-the same checks).  This file imports nothing of JAX, so the marked tests
+the same checks); K1 and K5 both through one substep and through
+control_step, the decimation loop in one launch.  This file imports nothing of JAX, so the marked tests
 run on the card with `pytest --noconftest -m cuda`.  The rest run here: the component-major layout, the
 model table against the offsets csrc/substep.cu declares, and the CPU
 path, which must be the plain version exactly and count no launch.
@@ -21,7 +22,8 @@ from booster_gym_torch import kernel_build
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics import substep_kernel as sk
-from booster_gym_torch.physics.engine import make_substep
+from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
+from booster_gym_torch.physics.kinematics import point_world_positions
 from booster_gym_torch.algo import update_kernel
 from booster_gym_torch.terrain import Terrain
 from booster_gym_torch.terrain import sample_kernel
@@ -150,6 +152,136 @@ def test_kernel_matches_plain_on_card(gpu, robot, B):
     with pytest.raises(ValueError):
         k.packed_call(k.pack_sim(args[0]).double(), k.pack_dyn(args[1]),
                       args[2].T.contiguous(), torch.zeros(6, B, device=gpu))
+
+
+# ---------------------------------------------------------------------------
+# control_step: the decimation loop in one launch
+def control_args(k, model, B, device, seed):
+    """control_step's inputs: a state from inputs(), PD targets near q,
+    gains and joint friction for which explicit damping is stable on the
+    robot (T1.yaml's on the T1-shaped robot; on the toy, whose foot has
+    ~2e-3 kg m^2 about the knee, kd <= 0.2), the torque limits, delays
+    spread over 0..9 and a push; K5 also the terrain under the points as
+    the env carries it: the root over a random spot of T1.yaml's field,
+    raised by its height there, and the field's height and normal at each
+    point's xy."""
+    state, dyn, tau, ef, et = inputs(model, B, device, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    r = lambda lo, hi, *s: (lo + (hi - lo) * torch.rand(s, generator=g)).to(device)
+    nd = model.num_dofs
+    if model.num_bodies > 3:
+        ctl = load_task_cfg("T1")["control"]
+        gain = lambda table: torch.tensor([next(v for k, v in table.items() if k in n)
+                                           for n in model.dof_names], device=device)
+        kp = gain(ctl["stiffness"]) * r(0.95, 1.05, B, nd)
+        kd = gain(ctl["damping"]) * r(0.95, 1.05, B, nd)
+        fric = r(0, 2, B, nd)
+    else:
+        kp, kd, fric = r(5, 20, B, nd), r(0.05, 0.2, B, nd), r(0, 0.2, B, nd)
+    c = dict(targets=state.q + r(-0.1, 0.1, B, nd), last=state.q + r(-0.05, 0.05, B, nd),
+             delay=(torch.arange(B) % 10).to(device), kp=kp, kd=kd, fric=fric,
+             lim=torch.as_tensor(np.asarray(model.dof_effort, np.float32), device=device),
+             ext=torch.cat([ef, et], dim=-1).contiguous())
+    ph = pn = None
+    if not k.plane:   # T1.yaml's field under each point's own xy, as the env carries it
+        terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0, device=device)
+        root_xy = r(0.5, 9.5, B, 2)
+        pos = state.root_pos.clone()
+        pos[:, :2] = root_xy
+        pos[:, 2] += terrain.heights(root_xy)
+        state = SimState(**{**vars(state), "root_pos": pos})
+        body_R, body_pos = make_fk(model, device)(state)
+        xy = point_world_positions(ModelConsts.build(model, device), body_R, body_pos)[..., :2]
+        h, n = terrain.heights_and_normals(xy.contiguous())
+        ph, pn = h.T.contiguous(), n.reshape(B, -1).T.contiguous()
+    return (k.pack_sim(state), k.pack_dyn(dyn), c["targets"].contiguous(),
+            c["last"].contiguous(), c["delay"], c["kp"], c["kd"], c["fric"], c["lim"], c["ext"],
+            ph, pn)
+
+
+def test_cpu_control_step_is_the_plain_version(robot):
+    model, feet = robot
+    for plane in (True, False):
+        k = sk.SubstepKernel(model, SimConfig(), feet, "cpu", plane=plane)
+        args = control_args(k, model, 6, "cpu", seed=3)
+        out, ref = k.control_step(*args), k.control_step_plain(*args)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(out, ref))
+        assert k.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+@pytest.mark.parametrize("plane", [True, False], ids=["K1", "K5"])
+def test_control_step_matches_plain_on_card(gpu, robot, B, plane):
+    """One launch against the plain decimation loop: the env step's 2e-3 on
+    the state, the latched targets, the torque mean and the feet; forces
+    rtol 5e-2 / atol 1 N; K5's point xy atol 1e-5; on every env but the
+    chaotic ones (at most 1%), where the plain loop cannot reproduce its own
+    new state to 2e-3 under a one-ulp nudge of the state.  A second launch
+    repeats the first bitwise."""
+    model, feet = robot
+    k = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=plane)
+    args = control_args(k, model, B, gpu, seed=B)
+    out, out2 = k.control_step(*args), k.control_step(*args)
+    ref = k.control_step_plain(*args)
+    nudged = (torch.nextafter(args[0], torch.full_like(args[0], float("inf"))), *args[1:])
+    ref_nudged = k.control_step_plain(*nudged)
+    torch.cuda.synchronize()
+    assert k.launches == 2
+    for a, a2 in zip(out, out2):
+        assert (a is None and a2 is None) or torch.equal(a, a2)
+    # (index, rtol, atol, env axis); the torque sum as the env's mean
+    checks = [(0, 2e-3, 2e-3, 1), (1, 2e-3, 2e-3, 0), (2, 2e-3, 2e-3, 0),
+              (3, 5e-2, 1.0, 1), (4, 2e-3, 2e-3, 1)] + ([] if plane else [(5, 0.0, 1e-5, 1)])
+    scale = lambda i, x: x / 10 if i == 2 else x
+    over = lambda x, y, rtol, atol, ax: ((x - y).abs() > atol + rtol * y.abs()).transpose(0, ax).any(1)
+    # envs where the plain loop's own state moves past the tolerance under a
+    # one-ulp nudge of the state are chaotic over ten substeps: left out
+    chaotic = over(ref_nudged[0], ref[0], 2e-3, 2e-3, 1)
+    assert int(chaotic.sum()) <= B // 100
+    keep = ~chaotic
+    for i, rt, at, ax in checks:
+        bad = over(scale(i, out[i]), scale(i, ref[i]), rt, at, ax)
+        assert not bool(bad[keep].any()), i
+    with pytest.raises(ValueError):
+        k.control_step(*args[:4], args[4].int(), *args[5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+def test_control_step_general_on_plane_inputs_equals_plane_kernel(gpu, robot, B):
+    """K5 on h = 0, n = +z against K1 through control_step: difference 0."""
+    model, feet = robot
+    k1 = sk.SubstepKernel(model, SimConfig(), feet, gpu)
+    k5 = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=False)
+    args = control_args(k1, model, B, gpu, seed=B + 5)
+    ph = torch.zeros((model.num_points, B), device=gpu)
+    pn = torch.zeros((3 * model.num_points, B), device=gpu)
+    pn[2::3] = 1.0
+    out1, out5 = k1.control_step(*args), k5.control_step(*args[:10], ph, pn)
+    torch.cuda.synchronize()
+    assert (k1.launches, k5.launches) == (1, 1)
+    for a, b in zip(out1[:5], out5[:5]):
+        assert float((a - b).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [True, False], ids=["K1", "K5"])
+def test_substep_launches_repeat_bitwise(gpu, robot, plane):
+    model, feet = robot
+    B = 1000
+    k = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=plane)
+    state, dyn, tau, ef, et = inputs(model, B, gpu, seed=9)
+    ps, pd = k.pack_sim(state), k.pack_dyn(dyn)
+    terr = control_args(k, model, B, gpu, seed=9)[10:] if not plane else ()
+    call = lambda: k.packed_call(ps, pd, tau.T.contiguous(),
+                                 torch.cat([ef, et], dim=-1).T.contiguous(), *terr)
+    out, out2 = call(), call()
+    torch.cuda.synchronize()
+    for a, b in zip(out, out2):
+        assert (a is None and b is None) or torch.equal(a, b)
+    info = k.info()
+    assert info["envs_per_block"] == sk.ENVS_PER_BLOCK and info["blocks_per_sm_control"] >= 1
 
 
 # ---------------------------------------------------------------------------
