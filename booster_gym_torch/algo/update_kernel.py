@@ -24,12 +24,22 @@ FusedUpdate, K8, K9 and K10, which the training iteration does not call.
 
 Each wrapper runs its plain PyTorch version (the *_plain method beside it)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  A wrapper call counts as one launch; K2, K3, K4 and K9 launch two
-device kernels each (K2: values, then the time scan; K3 and K9: the tile
-pass, then the sum of the blocks' partials; K4: the norm's partial sums,
-then the update), K8 and K10 one.  K8, K9 and K10 take the f32 parameter
-vector and stage it to the compute type per call, as the reference casts
-its parameters per call.
+raises.  A wrapper call counts as one launch.  Every launch but K4's first
+copies the staged weights into a zero-padded layer layout (k_pad, one small
+device kernel), so the device kernels per call are: K2 three (the copy, the
+values, the time scan), K3 and K9 four (the copy, pass 1, pass 2, the
+reduce), K4 two (the norm's partial sums, then the update), K8 and K10 two.
+K8, K9 and K10 take the f32 parameter vector and stage it to the compute
+type per call, as the reference casts its parameters per call.
+
+K3 and K9 run in three passes (csrc/update.cu): pass 1 per 64-row tile (32
+in f32) the forward, the loss step and the input gradients, writing every
+layer's input x_l and output gradient dz_l to a scratch [N, 2,400] in the
+compute type; pass 2 the weight gradients dz_l^T x_l as a split-K product
+over slabs of rows (row_plan), one f32 partial per slab; pass 3 the slabs'
+sum in slab order.  The scratch, the slab partials and the padded weights
+are allocated once per (device, N) and kept: 0.47 GB in bf16 and 0.94 GB in
+f32 at N = 98,304, plus 0.71 MB per slab.
 
 No torch.autograd.Function is involved: K3 computes the backward pass
 itself, as the reference does, which has no custom_vjp around its kernel.
@@ -65,18 +75,33 @@ SOURCE = "update.cu"
 _LOG2PI = math.log(2.0 * math.pi)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUNCTIONS = {
-    "bg_update_tile": [_I],
-    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
-    "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                       _P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    "bg_update_info": [_I, _P],
+    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                       _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                      _P, _P, _P, _P, _P, _P],
-    "bg_values": [_I, _P, _P, _P, _I, _P, _I, _P],
-    "bg_grads": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _I, _I, _P, _P,
-                 _P, _P, _I, _P],
-    "bg_policy_logp": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bg_values": [_I, _P, _P, _P, _P, _I, _P, _I, _P],
+    "bg_grads": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _I,
+                 _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "bg_policy_logp": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
+INFO_KEYS = ("tile", "wpad", "scratch_width", "pass2_tiles", "pass2_rows", "smem_pass1",
+             "smem_pass2", "blocks_per_sm_pass1", "blocks_per_sm_pass2")
+MIN_SLAB_ROWS = 512     # fewer rows than this per slab are not worth a partial
 STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
+
+
+def row_plan(n, tiles, step, slots):
+    """(nslab, slab_rows): pass 2 cuts rows [0, n) into nslab slabs of
+    slab_rows rows (a multiple of its `step` rows; the last may be shorter),
+    slab s holding [s * slab_rows, min((s + 1) * slab_rows, n)).  As many
+    slabs as the card's `slots` (SMs x resident pass-2 blocks) hold `tiles`
+    x slabs blocks in one wave, never a slab under MIN_SLAB_ROWS rows
+    unless there is only one."""
+    nslab = max(1, min(slots // tiles, -(-n // MIN_SLAB_ROWS)))
+    rows = -(-(-(-n // nslab)) // step) * step
+    return -(-n // rows), rows
 
 
 def param_layout(network):
@@ -92,8 +117,14 @@ class FusedUpdate:
     """The update kernels for one ActorCritic geometry.
 
     gae_launches, grads_stats_launches, opt_stage_launches, values_launches,
-    grads_launches and policy_logp_launches count kernel launches; each
-    moves only where its CUDA kernel is launched."""
+    grads_launches and policy_logp_launches count wrapper calls that launch
+    on the card; each moves only there.  Device kernels per call: K2 three,
+    K3 and K9 four (the weight copy, pass 1, pass 2, the reduce), K4 two, K8
+    and K10 two.  Scratch, kept per (device, N) and reused by every call:
+    K3's and K9's pass-1 rows (N x 2,400 values of the compute type: 0.47 GB
+    in bf16, 0.94 GB in f32 at N = 98,304), one f32 partial of the
+    gradient per slab (0.71 MB each), the pass-1 blocks' stat partials, and
+    the padded weights (180,224 values per device)."""
 
     def __init__(self, network, clip_ratio, bound_coef):
         self.dtype = network.actor.dtype
@@ -131,7 +162,7 @@ class FusedUpdate:
         self.policy_logp_launches = 0
         self._lib = None
         self._scratch = {}
-        self._sms = {}
+        self._info = {}
 
     # -- build ------------------------------------------------------------
     def build(self):
@@ -145,24 +176,89 @@ class FusedUpdate:
             self.build()
         return self._lib
 
-    def _grid(self, device, rows):
-        """Blocks of a tile pass: one per SM, at most one per tile."""
-        if device not in self._sms:
-            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-            self._tile = self._library().bg_update_tile(self.bf16)
-        return max(1, min(self._sms[device], -(-rows // self._tile)))
+    @staticmethod
+    def _device(device):
+        """`device` with its index (the scratches are kept per device)."""
+        device = torch.device(device)
+        return device if device.index is not None else torch.device(
+            device.type, torch.cuda.current_device())
 
-    def _partials(self, device, nblk):
-        """(part, part_stats, stride): the blocks' gradient partials and stat
-        partials of K3 and K9, kept per (device, grid); every slot that is
-        read is written first by each launch."""
-        stride = -(-self.n_params // 32) * 32
-        key = (device, nblk)
+    def info(self, device):
+        """csrc/update.cu's sizes for the compute type (INFO_KEYS), its
+        scratch layout ("layout": {net: [(x offset, x width, dz offset, dz
+        width)] per layer, in values per row, the widths padded}) and the
+        card's SM count."""
+        device = self._device(device)
+        if device not in self._info:
+            out = (ctypes.c_int * (len(INFO_KEYS) + 32))()
+            self._raise_on(self._library().bg_update_info(self.bf16, out), "update_info")
+            info = dict(zip(INFO_KEYS, out))
+            lay = list(out)[len(INFO_KEYS):]
+            info["layout"] = {net: [tuple(lay[16 * j + 4 * l:16 * j + 4 * l + 4])
+                                    for l in range(4)]
+                              for j, net in enumerate(("actor", "critic"))}
+            for net, layers in self.layers.items():
+                for (_, xw, _, dzw), (_, _, o, i) in zip(info["layout"][net], layers):
+                    if xw < i or dzw < o:
+                        raise RuntimeError(f"csrc/update.cu's scratch layout {info['layout']} "
+                                           f"does not hold the {net}'s widths")
+            info["sms"] = torch.cuda.get_device_properties(device).multi_processor_count
+            self._info[device] = info
+        return self._info[device]
+
+    def _grid(self, device, rows):
+        """Blocks of a tile pass: as many as the SMs hold, at most one per
+        tile."""
+        info = self.info(device)
+        return max(1, min(info["sms"] * info["blocks_per_sm_pass1"], -(-rows // info["tile"])))
+
+    def _wpad(self, device):
+        """The padded weights' buffer (compute type), one per device."""
+        device = self._device(device)
+        key = (device, "wpad")
         if key not in self._scratch:
-            self._scratch[key] = (
-                torch.empty(nblk * stride, dtype=torch.float32, device=device),
-                torch.empty(nblk * 32, dtype=torch.float32, device=device))
-        return (*self._scratch[key], stride)
+            self._scratch[key] = torch.empty(self.info(device)["wpad"], dtype=self.dtype,
+                                             device=device)
+        return self._scratch[key]
+
+    def k3_scratch(self, device, n):
+        """K3's and K9's scratch for n rows, kept per (device, n): {"rows":
+        pass 1's rows, n * scratch width values of the compute type; "part":
+        the slab partials [nslab, stride] f32; "part_stats": the pass-1
+        blocks' stat partials; "nslab", "slab_rows", "stride", "nblk"}.
+        Every slot that is read is written first by each launch."""
+        device = self._device(device)
+        key = (device, n)
+        if key not in self._scratch:
+            nblk = self._grid(device, n)
+            info = self.info(device)
+            nslab, slab_rows = row_plan(n, info["pass2_tiles"], info["pass2_rows"],
+                                        info["sms"] * info["blocks_per_sm_pass2"])
+            stride = -(-self.n_params // 32) * 32
+            self._scratch[key] = dict(
+                rows=torch.empty(n * info["scratch_width"], dtype=self.dtype, device=device),
+                part=torch.empty((nslab, stride), dtype=torch.float32, device=device),
+                part_stats=torch.empty(nblk * 32, dtype=torch.float32, device=device),
+                nslab=nslab, slab_rows=slab_rows, stride=stride, nblk=nblk)
+        return self._scratch[key]
+
+    def scratch_views(self, device, n):
+        """{(net, l): (x_l [n, in], dz_l [n, out])}: the rows that K3's or
+        K9's last pass 1 at n rows on `device` wrote (cut_scratch)."""
+        return self.cut_scratch(self.k3_scratch(device, n)["rows"], n,
+                                self.info(device)["layout"])
+
+    def cut_scratch(self, flat, n, layout):
+        """{(net, l): (x_l [n, in], dz_l [n, out])} views of pass 1's flat
+        rows at `layout` (info()'s), cut to the layers' true widths."""
+        out = {}
+        for net in ("actor", "critic"):
+            for l, ((x_off, xw, dz_off, dzw), (_, _, o, i)) in enumerate(zip(
+                    layout[net], self.layers[net])):
+                x = flat[x_off * n:(x_off + xw) * n].view(n, xw)[:, :i]
+                dz = flat[dz_off * n:(dz_off + dzw) * n].view(n, dzw)[:, :o]
+                out[(net, l)] = (x, dz)
+        return out
 
     def _check(self, name, t, shape, dtype=torch.float32):
         if t.device.type != "cuda":
@@ -238,17 +334,32 @@ class FusedUpdate:
         logp = torch.sum(-0.5 * diff * diff / var - logstd - 0.5 * _LOG2PI, dim=1)
         return xs, zs, mu, logstd, var, diff, logp
 
-    def _mlp_bwd(self, xs, zs, Ws, dz):
+    def _mlp_bwd(self, xs, zs, Ws, dz, plan=None):
         """Backward from the last layer's dz [n, out] (compute type):
-        ([dW [out, in] f32], [db [out] f32])."""
+        ([dW [out, in] f32], [db [out] f32]).  With a row plan (nslab,
+        slab_rows) the weight and bias gradients are pass 2's: each slab's
+        dz^T x and row sum, then the slabs added in slab order."""
         dWs, dbs = [None] * len(Ws), [None] * len(Ws)
         for i in reversed(range(len(Ws))):
-            dWs[i] = dz.float().T @ xs[i].float()
-            dbs[i] = dz.float().sum(0)
+            dWs[i], dbs[i] = self.weight_grads_plain(xs[i], dz, plan)
             if i > 0:
                 dh = (dz.float() @ Ws[i].float()).to(self.dtype)
                 dz = dh * self._elu_grad(zs[i - 1])
         return dWs, dbs
+
+    @staticmethod
+    def weight_grads_plain(x, dz, plan=None):
+        """(dz^T x, sum_rows dz) in f32 of x [n, in] and dz [n, out]: in one
+        product, or with a row plan (nslab, slab_rows) slab by slab in slab
+        order, pass 2's order."""
+        if plan is None:
+            return dz.float().T @ x.float(), dz.float().sum(0)
+        nslab, rows = plan
+        dW = db = 0.0
+        for s in range(nslab):
+            d, xx = dz[s * rows:(s + 1) * rows].float(), x[s * rows:(s + 1) * rows].float()
+            dW, db = dW + d.T @ xx, db + d.sum(0)
+        return dW, db
 
     # -- K2 ---------------------------------------------------------------
     def gae(self, staged, obsc, rew, nonterm, timeout_f, gamma, lam):
@@ -268,7 +379,8 @@ class FusedUpdate:
         ret = torch.empty((T, B), dtype=torch.float32, device=dev)
         sums = torch.empty(2, dtype=torch.float32, device=dev)
         err = self._library().bg_gae(
-            self.bf16, staged.data_ptr(), self._offs, obsc.data_ptr(), rew.data_ptr(),
+            self.bf16, staged.data_ptr(), self._offs, self._wpad(dev).data_ptr(), obsc.data_ptr(),
+            rew.data_ptr(),
             nonterm.data_ptr(), timeout_f.data_ptr(), values.data_ptr(), adv.data_ptr(),
             ret.data_ptr(), sums.data_ptr(), T, B, float(gamma), float(lam),
             self._grid(dev, (T + 1) * B), torch.cuda.current_stream(dev).cuda_stream)
@@ -302,10 +414,22 @@ class FusedUpdate:
         tensors are read.  adv_mean and adv_rstd are 0-dim tensors.  p gives
         logstd in f32.  self_old marks the first mini-epoch: the old policy
         is this forward itself, so the ratio is exactly 1 and klsq exactly
-        0, and the caller keeps mu and logp as the old policy."""
+        0, and the caller keeps mu and logp as the old policy.
+
+        On the card one call is four device kernels: the weight copy, pass
+        1, pass 2 and the reduce."""
         if staged.device.type == "cpu":
             return self.grads_stats_plain(staged, p, prep, adv_raw, returns, adv_mean,
                                           adv_rstd, self_old)
+        return self.grads_stats_timed(staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
+                                      self_old, None)
+
+    def grads_stats_timed(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
+                          self_old, events):
+        """grads_stats on the card.  `events`, None or four
+        torch.cuda.Events that have been recorded once, are recorded on the
+        stream before the weight copy and after pass 1, pass 2 and the
+        reduce: the passes' times within a whole call, for measurement."""
         n, na = adv_raw.numel(), self.num_act
         obsc = prep["obsc"]
         self._check("staged", staged, (self.n_params,), self.dtype)
@@ -323,19 +447,21 @@ class FusedUpdate:
         dev = staged.device
         norm = torch.stack([adv_mean, adv_rstd]).float()
         self._check("adv_mean, adv_rstd", norm, (2,))
-        nblk = self._grid(dev, n)
-        part, part_stats, stride = self._partials(dev, nblk)
+        sc = self.k3_scratch(dev, n)
         g = torch.empty(self.n_params, dtype=torch.float32, device=dev)
         stats = torch.empty(4 + na, dtype=torch.float32, device=dev)
         mu = torch.empty((n, na), dtype=torch.float32, device=dev)
         logp = torch.empty(n, dtype=torch.float32, device=dev)
         err = self._library().bg_grads_stats(
-            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
-            prep["act"].data_ptr(), prep["mu_old"].data_ptr(), prep["old_logp"].data_ptr(),
-            adv_raw.data_ptr(), returns.data_ptr(), norm.data_ptr(), int(bool(self_old)), n,
-            1.0 - self.clip_ratio, 1.0 + self.clip_ratio, self.bound_coef / (n * na),
-            part.data_ptr(), part_stats.data_ptr(), stride, self.n_params, g.data_ptr(),
-            stats.data_ptr(), mu.data_ptr(), logp.data_ptr(), nblk,
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, self._wpad(dev).data_ptr(),
+            obsc.data_ptr(), prep["act"].data_ptr(), prep["mu_old"].data_ptr(),
+            prep["old_logp"].data_ptr(), adv_raw.data_ptr(), returns.data_ptr(), norm.data_ptr(),
+            int(bool(self_old)), n, 1.0 - self.clip_ratio, 1.0 + self.clip_ratio,
+            self.bound_coef / (n * na), sc["rows"].data_ptr(), sc["part"].data_ptr(),
+            sc["part_stats"].data_ptr(), sc["stride"], sc["nslab"], sc["slab_rows"],
+            self.n_params, g.data_ptr(), stats.data_ptr(), mu.data_ptr(), logp.data_ptr(),
+            sc["nblk"], None if events is None else (ctypes.c_void_p * 4)(
+                *(e.cuda_event for e in events)),
             torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "grads_stats")
         self.grads_stats_launches += 1
@@ -353,11 +479,12 @@ class FusedUpdate:
             (adv_raw.reshape(n) - adv_mean) * adv_rstd, returns.reshape(n), *old, n)
         return g, stats, mu, logp
 
-    def _loss_grads(self, staged, p, x, act, adv, ret, old_logp, mu_old, n_total):
+    def _loss_grads(self, staged, p, x, act, adv, ret, old_logp, mu_old, n_total, plan=None):
         """K3's and K9's arithmetic on the rows x [n, num_crit] (compute
         type), act [n, num_act] and adv, ret [n] (f32): (g, stats, mu, val,
         logp).  old_logp None makes the forward its own old policy, mu_old
-        None its own mu for klsq; the loss means divide by n_total."""
+        None its own mu for klsq; the loss means divide by n_total.  A row
+        plan sums the weight gradients as pass 2 does (weight_grads_plain)."""
         n, na = adv.numel(), self.num_act
         f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=staged.device)
         aW, _ = self._mlp(staged, "actor")
@@ -393,7 +520,7 @@ class FusedUpdate:
         g = torch.zeros(self.n_params, dtype=torch.float32, device=staged.device)
         for net, xs, zs, Ws, dz in (("actor", xa, za, aW, dmu.to(self.dtype)),
                                     ("critic", xc, zc, cW, dval.to(self.dtype)[:, None])):
-            dWs, dbs = self._mlp_bwd(xs, zs, Ws, dz)
+            dWs, dbs = self._mlp_bwd(xs, zs, Ws, dz, plan)
             for (w, b, o, i), dW, db in zip(self.layers[net], dWs, dbs):
                 g[w:w + o * i] = dW.reshape(-1)
                 g[b:b + o] = db
@@ -458,7 +585,8 @@ class FusedUpdate:
         self._check("obsc", obsc, (n, self.num_crit), self.dtype)
         val = torch.empty(n, dtype=torch.float32, device=dev)
         err = self._library().bg_values(
-            self.bf16, staged.data_ptr(), self._offs, obsc.data_ptr(), n, val.data_ptr(),
+            self.bf16, staged.data_ptr(), self._offs, self._wpad(dev).data_ptr(), obsc.data_ptr(),
+            n, val.data_ptr(),
             self._grid(dev, n), torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "values")
         self.values_launches += 1
@@ -488,19 +616,19 @@ class FusedUpdate:
                            ("old_logp", old_logp, 1)):
             self._check(name, t, (n * k,))
         dev = p.device
-        nblk = self._grid(dev, n)
-        part, part_stats, stride = self._partials(dev, nblk)
+        sc = self.k3_scratch(dev, n)
         g = torch.empty(self.n_params, dtype=torch.float32, device=dev)
         stats = torch.empty(4 + na, dtype=torch.float32, device=dev)
         mu = torch.empty((n, na), dtype=self.dtype, device=dev)
         val = torch.empty(n, dtype=self.dtype, device=dev)
         err = self._library().bg_grads(
-            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
-            act.data_ptr(), old_logp.data_ptr(), adv.data_ptr(), ret.data_ptr(), n, n_total,
-            1.0 - self.clip_ratio, 1.0 + self.clip_ratio, self.bound_coef / (n_total * na),
-            part.data_ptr(), part_stats.data_ptr(), stride, self.n_params, g.data_ptr(),
-            stats.data_ptr(), mu.data_ptr(), val.data_ptr(), nblk,
-            torch.cuda.current_stream(dev).cuda_stream)
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, self._wpad(dev).data_ptr(),
+            obsc.data_ptr(), act.data_ptr(), old_logp.data_ptr(), adv.data_ptr(), ret.data_ptr(),
+            n, n_total, 1.0 - self.clip_ratio, 1.0 + self.clip_ratio,
+            self.bound_coef / (n_total * na), sc["rows"].data_ptr(), sc["part"].data_ptr(),
+            sc["part_stats"].data_ptr(), sc["stride"], sc["nslab"], sc["slab_rows"],
+            self.n_params, g.data_ptr(), stats.data_ptr(), mu.data_ptr(), val.data_ptr(),
+            sc["nblk"], torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "grads")
         self.grads_launches += 1
         return g, mu.float().view(lead + (na,)), val.float().view(lead)
@@ -536,7 +664,8 @@ class FusedUpdate:
         mu = torch.empty((n, na), dtype=torch.float32, device=dev)
         logp = torch.empty(n, dtype=torch.float32, device=dev)
         err = self._library().bg_policy_logp(
-            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, obsc.data_ptr(),
+            self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, self._wpad(dev).data_ptr(),
+            obsc.data_ptr(),
             act.data_ptr(), n, mu.data_ptr(), logp.data_ptr(), self._grid(dev, n),
             torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "policy_old_logp")

@@ -2,7 +2,7 @@
 tools/prof_update.py).
 
     python -m booster_gym_torch.prof_update [--T 24] [--B 4096] [--dtype bf16]
-        [--iters 50] [--trace DIR] [--device cuda]
+        [--iters 50] [--trace DIR] [--device cuda] [--variant NAME:KEY=VALUE,...]...
 
 Makes the reference tool's data from a seed (T1's 47 observation, 14
 privileged and 12 action dims, the ActorCritic's widths, weights drawn from
@@ -13,7 +13,9 @@ kernel: ms per call, the launches its wrapper counted, the bound (the larger
 of its bytes at 3.35 TB/s and its operations at the H100's peak for the
 compute type, counted from the shapes by update_work) and the card's name
 and power limit.  --trace DIR writes a torch.profiler trace of five grads
-calls to DIR/grads_trace.json.
+calls to DIR/grads_trace.json.  Each --variant builds csrc/update.cu again
+with extra -D sizes (all nvcc runs at once) and times grads_stats (K3) in
+that build on the same data: one more record each, "variant" naming it.
 
 It runs on the card unless --device cpu is given, and raises without CUDA.
 On the CPU the wrappers run their plain versions, launch nothing, and the
@@ -145,6 +147,11 @@ def _finite(out):
     return bool(torch.isfinite(out.float()).all())
 
 
+def spec_of(sizes, base):
+    """The -D sizes of a variant build beyond the default build's."""
+    return {k: v for k, v in sizes.items() if base.get(k) != v}
+
+
 def main(argv=None):
     """Returns the printed records, one per kernel."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -154,10 +161,12 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=50)
     parser.add_argument("--trace", default=None)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--variant", action="append", default=[])
     args = parser.parse_args(argv)
 
+    from booster_gym_torch import kernel_build
     from booster_gym_torch.algo.ppo import flat_params
-    from booster_gym_torch.algo.update_kernel import FusedUpdate
+    from booster_gym_torch.algo.update_kernel import SOURCE, FusedUpdate
     from booster_gym_torch.runner import resolve_device
 
     device = resolve_device(args.device)
@@ -168,6 +177,14 @@ def main(argv=None):
     d["p"] = flat_params(net)
     calls = _calls(fused, d)
     work = update_work(fused, args.T, args.B)
+    if args.variant and not cuda:
+        raise ValueError("--variant builds CUDA kernels: it needs the card")
+    variants = {}
+    for spec in args.variant:
+        name, _, rest = spec.partition(":")
+        v = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
+        v.sizes.update({k: int(x) for k, x in (a.split("=") for a in rest.split(",") if a)})
+        variants[name] = (v, kernel_build.start_build(SOURCE, v.sizes))
     records = []
     for method, kernel in KERNELS:
         ms, out = _time(calls[method], args.iters, cuda)
@@ -179,6 +196,17 @@ def main(argv=None):
                "ms" if cuda else "host_ms": ms, "calls": WARMUP + args.iters,
                "launches": getattr(fused, LAUNCHES[method]), "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": work[method][0], "operations": work[method][1]}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+
+    for name, (v, build) in variants.items():
+        kernel_build.finish_build(*build)
+        ms, _ = _time(_calls(v, d)["grads_stats"], args.iters, cuda)
+        rec = {"kernel": "K3", "variant": name, "defines": spec_of(v.sizes, fused.sizes),
+               "method": "grads_stats", "T": args.T, "B": args.B, "dtype": args.dtype,
+               "device": str(device), "card": card, "ms" if cuda else "host_ms": ms,
+               "calls": WARMUP + args.iters, "launches": v.grads_stats_launches,
+               "blocks_per_sm_pass1": v.info(device)["blocks_per_sm_pass1"]}
         print(json.dumps(rec), flush=True)
         records.append(rec)
 

@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
      (csrc/substep.cu) as K1 (plane) and K5 (general terrain) for the toy
      robot and the T1-shaped robot, the terrain sampler K6 + K7
      (csrc/terrain_sample.cu), and the fused update's K2, K3 and K4
-     (csrc/update.cu); ptxas's registers, stack frame and spills, and each
-     substep build's shared memory per block and resident blocks per SM;
+     (csrc/update.cu); ptxas's registers, stack frame and spills, each
+     substep build's shared memory per block and resident blocks per SM,
+     and the same for K3's pass 1 and pass 2 in bf16 and f32;
   3. each kernel against its plain PyTorch version on the card: K1 on both
      robots at B = 4096 and B = 1000 (a ragged last block), several
      substeps; K5 the same with heights from T1.yaml's field and tilted
@@ -22,15 +23,18 @@ Phases, in order; any failure exits non-zero:
      sampler at B = 4096 and 1000 with 65 queries per env, also with
      roots at the field's edge and queries 1-2 m from their root (the
      clamped cases); K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
-     (N = 98,304) and B = 1000 (ragged tiles), K3 and K4 launched twice to
-     show that they repeat bitwise; then the whole fused update() against
-     the xla (autograd) update() from the same parameters and rollout
-     buffers, f32, 3 mini-epochs; then K8 (values), K9 (grads) and K10
-     (policy_old_logp) in bf16 and f32 at the same shapes against their
-     plain versions, K9 launched twice to show that it repeats bitwise,
-     and the cross-checks between independently launched kernels on the
-     same data: K9 on normalised advantages against K3, K8 against K2's
-     value pass and K9's values, K10 against K3's self_old forward;
+     (N = 98,304), 1000 and 4097 (every tile, slab and pass-2 step of K3
+     ragged), K3 and K4 launched twice to show that they repeat bitwise, and
+     K3's weight gradients against torch.matmul on the rows its own pass 1
+     wrote; then the whole fused update() against the xla (autograd)
+     update() from the same parameters and rollout buffers, f32, 3
+     mini-epochs; then K8 (values), K9 (grads) and K10 (policy_old_logp)
+     in bf16 and f32 at the same shapes against their plain versions, K9
+     launched twice to show that it repeats bitwise and checked against
+     its pass 1's rows as K3 is, and the cross-checks between
+     independently launched kernels on the same data: K9 on normalised
+     advantages against K3, K8 against K2's value pass and K9's values,
+     K10 against K3's self_old forward;
   4. the main path: booster_gym_torch.train's Runner on flat T1 (the
      T1-shaped stand-in URDF), 4096 envs, horizon 24, 20 mini-epochs,
      update_backend fused as T1.yaml has it, 3 iterations; per iteration
@@ -52,7 +56,12 @@ Phases, in order; any failure exits non-zero:
      version's time, printed as a `kernels` JSON line (K1-K10): K1 and K5 as
      the main path runs them, one control step at 4096 envs, and beside it
      one substep per launch; K2-K4 and K8-K10 take their times from phase
-     4c.
+     4c; K3 also pass by pass (CUDA events between the passes, and each
+     device kernel's time and count under torch.profiler: one each of the
+     weight copy, pass 1, pass 2 and the reduce per call), its scratch and
+     peak device memory, and beside pass 2 the eight torch.matmul products
+     of its shapes on the same rows (a yardstick; no PyTorch call computes
+     K3's whole function, so its library_ms is null).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -88,6 +97,9 @@ TOL_SAMPLER = 2e-5
 TOL_UPDATE = {"f32": dict(val=2e-4, grad=1e-4, stat=1e-4),
               "bf16": dict(val=2.0 ** -7, grad=2.5 * 2.0 ** -8, stat=1e-2)}
 TOL_K4_RTOL, TOL_K4_ATOL = 1e-5, 1e-7
+# K3's and K9's pass 2 against torch.matmul on pass 1's own scratch rows: the
+# same f32 products summed in another order
+TOL_SPLIT = 1e-4
 # fused update() against the xla update(), f32: the CPU test's tolerances
 TOL_PARAM_RTOL, TOL_PARAM_ATOL, TOL_STAT_RTOL, TOL_STAT_ATOL = 1e-4, 1e-6, 1e-4, 1e-6
 
@@ -446,6 +458,24 @@ def adam_inputs(p, seed):
     return rand(0.3), rand(1e-2), rand(1e-3).abs(), torch.tensor(1e-3, device=p.device)
 
 
+def check_pass2(fused, g, n, label):
+    """K3's or K9's weight and bias gradients g against dz^T x and the row
+    sums of the scratch rows that its own pass 1 wrote (torch.matmul in
+    f32, used here only as the check).  Returns the max rel err."""
+    import torch
+
+    views = fused.scratch_views(torch.device("cuda"), n)
+    worst = 0.0
+    for (net, l), (x, dz) in views.items():
+        w, b, o, i = fused.layers[net][l]
+        worst = max(worst, rel_err(g[w:w + o * i].view(o, i), dz.float().T @ x.float()),
+                    rel_err(g[b:b + o], dz.float().sum(0)))
+    log(f"  {label}: pass 2 against dz^T x of pass 1's rows (8 layers): max rel err {worst:.2e} "
+        f"(tol {TOL_SPLIT:.0e})")
+    require(worst <= TOL_SPLIT, f"{label}: pass 2 disagrees with pass 1's rows")
+    return worst
+
+
 def compare_update_kernels(dtype, B, T=24):
     """K2, K3 (both old-policy modes) and K4 against their plain versions
     on the card at [T, B].  Returns {kernel: max abs error}."""
@@ -501,6 +531,7 @@ def compare_update_kernels(dtype, B, T=24):
                 f"K3 disagrees with its plain version ({tag}, self_old={self_old})")
         require(kl == 0.0 if self_old else kl <= 10 * tol["stat"], f"K3 klsq ({tag})")
         require(rerun == 0.0, f"K3 does not repeat bitwise ({tag})")
+        check_pass2(fused, g, T * B, f"K3 {tag} self_old={int(self_old)}")
         worst["K3"] = max(worst["K3"], float((g - g_p).abs().max()))
 
     gr, m, v, lr = adam_inputs(p, seed=B)
@@ -602,6 +633,7 @@ def compare_anchor_kernels(dtype, B, T=24):
     require(max(e_g, e_b) <= tol["grad"] and e_ls <= 10 * tol["grad"]
             and max(e_mu, e_val) <= tol["val"], f"K9 disagrees with its plain version ({tag})")
     require(rerun == 0.0, f"K9 does not repeat bitwise ({tag})")
+    check_pass2(fused, g, T * B, f"K9 {tag}")
     e_mu10, e_lp10 = rel_err(mu10, mu10_p), rel_err(logp10, logp10_p)
     log(f"  K10 {tag}: rel err mu {e_mu10:.2e} logp {e_lp10:.2e} (tol {tol['val']:.1e})")
     require(max(e_mu10, e_lp10) <= tol["val"], f"K10 disagrees with its plain version ({tag})")
@@ -631,11 +663,93 @@ def compare_anchor_kernels(dtype, B, T=24):
             "K10": max(float((mu10 - mu10_p).abs().max()), float((logp10 - logp10_p).abs().max()))}
 
 
+def device_ms(fn, names, calls=10):
+    """({name: device ms per call}, {name: launches per call}) of the
+    kernels whose names contain each of `names`, from torch.profiler over
+    `calls` calls of fn."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = ev.cuda_time_total if t is None else t
+        for k in names:
+            if k in ev.key:
+                ms[k] += t / 1e3 / calls
+                count[k] += ev.count / calls
+    return ms, count
+
+
+def time_k3_passes(card, fused, args, n, reps=20):
+    """K3's passes at the main path's shapes: the CUDA-event time of pass
+    1 (with the weight copy), pass 2 and the reduce within whole calls
+    (events recorded between the passes), the device time and the count of
+    each kernel under torch.profiler, and, as the yardstick beside pass 2
+    (never on the path), the CUDA-event time of the eight torch.matmul
+    products dz_l^T x_l on pass 1's own rows, at the weight gradients'
+    shapes; then the peak device memory of a first call with a fresh
+    scratch."""
+    import torch
+
+    from booster_gym_torch.testing import seeded_network, time_cuda
+
+    fused.grads_stats(*args)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
+    for ev in marks:
+        for e in ev:
+            e.record()    # creates the event, which the kernel library then records
+    torch.cuda.synchronize()
+    for ev in marks:
+        fused.grads_stats_timed(*args, ev)
+    torch.cuda.synchronize()
+    events = {p: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / reps
+              for i, p in enumerate(("pass1", "pass2", "reduce"))}
+    names = ("k_pad", "k3_pass1", "k3_pass2", "k3_reduce")
+    dev, count = device_ms(lambda: fused.grads_stats(*args), names)
+    kernels = sum(count.values())
+    require(all(c == 1.0 for c in count.values()),
+            f"K3 ran {count} device kernels per call, one each of {names} expected")
+    views = fused.scratch_views(torch.device("cuda"), n)
+    pairs = [(dz.T, x) for x, dz in views.values()]
+    pass2_library_ms, _ = time_cuda(lambda: [torch.matmul(a, b) for a, b in pairs], reps)
+    # a FusedUpdate of the same geometry with no scratch yet
+    fresh = type(fused)(seeded_network("bf16", "cuda", 1), fused.clip_ratio, fused.bound_coef)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fresh.grads_stats(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    sc = fresh.k3_scratch(torch.device("cuda"), n)
+    scratch = sc["rows"].numel() * sc["rows"].element_size() + sc["part"].numel() * 4
+    log(f"K3 passes at N={n} bf16 [{card}]: CUDA events between the passes of whole calls: "
+        f"pass 1 {events['pass1']:.4f} ms (with the weight copy), pass 2 {events['pass2']:.4f} "
+        f"ms, reduce {events['reduce']:.4f} ms; device time per kernel (torch.profiler): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+        + f"; {kernels:g} device kernels per call (torch.profiler); pass 2's yardstick, the 8 "
+        f"torch.matmul products dz^T x of the same rows (bf16 out, CUDA events) "
+        f"{pass2_library_ms:.4f} ms against pass 2's {events['pass2']:.4f} ms; scratch "
+        f"{scratch / 1e6:.1f} MB ({sc['nslab']} slabs of {sc['slab_rows']} rows); peak device "
+        f"memory of a first call {peak / 1e6:.1f} MB beyond its inputs")
+    return {"pass1_ms": events["pass1"], "pass2_ms": events["pass2"],
+            "reduce_ms": events["reduce"], "pass2_library_ms": pass2_library_ms,
+            "device_ms": dev, "device_kernels": kernels, "scratch_bytes": scratch,
+            "peak_bytes": peak}
+
+
 def time_update_kernels(card, launches, max_err, prof):
     """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
     (bf16, T = 24, B = 4096): time per call, bound and work from
     prof_update's records `prof` (phase 4c), beside the plain version's
-    time, measured here."""
+    time, measured here; for K3 also the passes (time_k3_passes), with
+    the torch.matmul yardstick of pass 2 beside them."""
     from booster_gym_torch.testing import time_cuda, update_case
 
     T, B = 24, 4096
@@ -644,10 +758,11 @@ def time_update_kernels(card, launches, max_err, prof):
     rew, nonterm, tf = gae_inputs(d)
     mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
     gr, m, v, lr = adam_inputs(p, seed=2)
+    k3_args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, False)
+    passes = time_k3_passes(card, fused, k3_args, T * B)
     plains = {
         "K2": lambda: fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
-        "K3": lambda: fused.grads_stats_plain(staged, p, prep, d["adv"], d["ret"], mean, rstd,
-                                              False),
+        "K3": lambda: fused.grads_stats_plain(*k3_args),
         "K4": lambda: fused.opt_stage_plain(gr, p, m, v, 7, lr, **ADAM),
         "K8": lambda: fused.values_plain(p, obs, priv),
         "K9": lambda: fused.grads_plain(p, obs, priv, act, d["adv"], d["ret"], prep["old_logp"]),
@@ -670,11 +785,14 @@ def time_update_kernels(card, launches, max_err, prof):
             f"{rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB, {rec['operations'] / 1e9:.3f} Gop "
             f"at {'67 TFLOP/s f32' if k == 'K4' else '989 TFLOP/s bf16 tensor cores'}); "
             f"library: none")
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": "booster_gym_torch/csrc/update.cu",
             "replaces": replaces, "launches": launches[k], "max_abs_err": max_err[k],
             "ms": rec["ms"], "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"], "library_ms": None}
+        if k == "K3":
+            entry["passes"] = passes
+        entries.append(entry)
     return entries
 
 
@@ -746,16 +864,25 @@ def main():
     builds["K2-K4, K8-K10"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
     for name, (path, proc, tmp) in builds.items():
         report = kernel_build.finish_build(path, proc, tmp)
-        log(f"built {name}: {os.path.basename(path)}")
+        log(f"built {name}: {os.path.basename(path)} (done {time.perf_counter() - t0:.1f} s "
+            f"after the builds started)")
         lines = report.splitlines()
         for i, line in enumerate(lines):
             if "registers" in line:
-                fn = lines[i - 2].split(" for ")[-1].strip()[:40] if i >= 2 else ""
+                fn = lines[i - 2].split(" for ")[-1].strip()[:48] if i >= 2 else ""
                 log(f"  ptxas {fn}: {lines[i - 1].strip()}; "
                     f"{line.strip().replace('ptxas info    : ', '')}")
     for k in (*kernels.values(), *general.values(), sampler):
         k.build()   # loads the library just built
     log(f"kernel builds: {time.perf_counter() - t0:.1f} s (set-up)")
+    for dtype in ("bf16", "f32"):
+        info = update_kernel.FusedUpdate(ActorCritic(12, 47, 14, compute_dtype=dtype), 0.2,
+                                         10.0).info(torch.device("cuda"))
+        log(f"K3/K9 {dtype} [{card}]: pass 1 {info['tile']} rows a tile, {info['smem_pass1']} "
+            f"bytes of shared memory per block, resident blocks per SM "
+            f"{info['blocks_per_sm_pass1']}; pass 2 {info['pass2_tiles']} tiles, "
+            f"{info['smem_pass2']} bytes per block, resident blocks per SM "
+            f"{info['blocks_per_sm_pass2']}; scratch {info['scratch_width']} values a row")
     for label, ks in (("K1", kernels), ("K5", general)):
         for n, k in ks.items():
             info = k.info()
@@ -804,7 +931,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 products
     update_err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
     for dtype in ("bf16", "f32"):
-        for B in (4096, 1000):
+        for B in (4096, 1000, 4097):
             for k, e in compare_update_kernels(dtype, B).items():
                 update_err[k] = max(update_err[k], e)
     log("K2, K3 and K4 match their plain versions: max abs err "
@@ -812,7 +939,7 @@ def main():
     compare_fused_with_xla(urdf)
     anchor_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
     for dtype in ("bf16", "f32"):
-        for B in (4096, 1000):
+        for B in (4096, 1000, 4097):
             for k, e in compare_anchor_kernels(dtype, B).items():
                 anchor_err[k] = max(anchor_err[k], e)
     log("K8, K9 and K10 match their plain versions and agree with K2 and K3: max abs err "
