@@ -15,7 +15,7 @@ FusedUpdate, K8, K9 and K10, which the training iteration does not call.
                    the compute-type copy of the new parameters
                                                (replaces _opt_stage_kernel)
   K8  values       the critic on [obs || priv], any leading shape: K2's
-                   value pass                    (replaces _values_kernel)
+                   critic kernel without the walk (replaces _values_kernel)
   K9  grads        K3's gradient on advantages as given, the loss means over
                    n_total rows, no metric sums; mu and values come back
                    rounded to the compute type     (replaces _grads_kernel)
@@ -26,9 +26,19 @@ Each wrapper runs its plain PyTorch version (the *_plain method beside it)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  A wrapper call counts as one launch.  Every launch but K4's first
 copies the staged weights into a zero-padded layer layout (k_pad, one small
-device kernel), so the device kernels per call are: K2 three (the copy, the
-values, the time scan), K3 and K9 four (the copy, pass 1, pass 2, the
-reduce), K4 two (the norm's partial sums, then the update), K8 and K10 two.
+device kernel), so the device kernels per call are: K2 two (the copy, then
+the critic with the GAE walk fused in), K3 and K9 four (the copy, pass 1,
+pass 2, the reduce), K4 two (the norm's partial sums, then the update), K8
+and K10 two.
+
+K2 and K8 run a forward-only critic kernel (csrc/update.cu k2_critic):
+clusters of 2 blocks (4 in f32) share the critic's weights out between
+them, each block keeps its share in shared memory for the whole launch,
+and each layer's outputs cross to the other blocks by distributed shared
+memory; a block's two warp groups each take half of every tile.  K2's
+cluster owns groups of 64 envs (32 in f32) over all T + 1 planes and walks
+them backwards in time at each group's end (critic_grid gives the launch's
+size).
 K8, K9 and K10 take the f32 parameter vector and stage it to the compute
 type per call, as the reference casts its parameters per call.
 
@@ -76,7 +86,8 @@ _LOG2PI = math.log(2.0 * math.pi)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUNCTIONS = {
     "bg_update_info": [_I, _P],
-    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "bg_critic_info": [_I, _I, _P],
+    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P],
     "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -87,9 +98,15 @@ _FUNCTIONS = {
     "bg_policy_logp": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 INFO_KEYS = ("tile", "wpad", "scratch_width", "pass2_tiles", "pass2_rows", "smem_pass1",
-             "smem_pass2", "blocks_per_sm_pass1", "blocks_per_sm_pass2")
+             "smem_pass2", "blocks_per_sm_pass1", "blocks_per_sm_pass2", "k2_tile",
+             "k2_cluster", "k2_max_planes", "k2_threads", "k2_groups")
+CRITIC_INFO_KEYS = ("smem", "clusters", "blocks_per_sm")
 MIN_SLAB_ROWS = 512     # fewer rows than this per slab are not worth a partial
 STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
+# K2's device kernels in launch order: the parts that gae_timed's events
+# split, and the kernels' names
+K2_PARTS = ("copy", "critic")
+K2_KERNELS = ("k_pad", "k2_critic")
 
 
 def row_plan(n, tiles, step, slots):
@@ -102,6 +119,15 @@ def row_plan(n, tiles, step, slots):
     nslab = max(1, min(slots // tiles, -(-n // MIN_SLAB_ROWS)))
     rows = -(-(-(-n // nslab)) // step) * step
     return -(-n // rows), rows
+
+
+def critic_grid(rows, tile, cluster, clusters):
+    """(units, blocks) of a K2 or K8 launch: `rows` envs (K2) or rows (K8)
+    in units of `tile` (the last may be short), one unit per cluster of
+    `cluster` blocks at a time, at most `clusters` clusters and never more
+    clusters than units."""
+    units = -(-rows // tile)
+    return units, max(1, min(units, clusters)) * cluster
 
 
 def param_layout(network):
@@ -118,13 +144,15 @@ class FusedUpdate:
 
     gae_launches, grads_stats_launches, opt_stage_launches, values_launches,
     grads_launches and policy_logp_launches count wrapper calls that launch
-    on the card; each moves only there.  Device kernels per call: K2 three,
-    K3 and K9 four (the weight copy, pass 1, pass 2, the reduce), K4 two, K8
-    and K10 two.  Scratch, kept per (device, N) and reused by every call:
+    on the card; each moves only there.  Device kernels per call: K2 two
+    (the weight copy, the critic with the walk), K3 and K9 four (the weight
+    copy, pass 1, pass 2, the reduce), K4 two, K8 and K10 two.  Scratch, kept
+    per (device, N) and reused by every call:
     K3's and K9's pass-1 rows (N x 2,400 values of the compute type: 0.47 GB
     in bf16, 0.94 GB in f32 at N = 98,304), one f32 partial of the
-    gradient per slab (0.71 MB each), the pass-1 blocks' stat partials, and
-    the padded weights (180,224 values per device)."""
+    gradient per slab (0.71 MB each), the pass-1 blocks' stat partials, K2's
+    block partials and arrival counter (k2_scratch), and the padded weights
+    (180,224 values per device)."""
 
     def __init__(self, network, clip_ratio, bound_coef):
         self.dtype = network.actor.dtype
@@ -206,6 +234,21 @@ class FusedUpdate:
             self._info[device] = info
         return self._info[device]
 
+    def critic_info(self, device, planes):
+        """K2's launch at `planes` = T + 1 planes of values, or K8's at 0
+        (CRITIC_INFO_KEYS): shared memory per block, and at that size the
+        card's resident clusters and resident blocks per SM."""
+        device = self._device(device)
+        key = (device, "critic", planes)
+        if key not in self._info:
+            out = (ctypes.c_int * len(CRITIC_INFO_KEYS))()
+            self._raise_on(self._library().bg_critic_info(self.bf16, planes, out), "critic_info")
+            self._info[key] = dict(zip(CRITIC_INFO_KEYS, out))
+            if self._info[key]["clusters"] < 1:
+                raise RuntimeError(f"the card holds no cluster of K2's blocks at {planes} "
+                                   f"planes: {self._info[key]}")
+        return self._info[key]
+
     def _grid(self, device, rows):
         """Blocks of a tile pass: as many as the SMs hold, at most one per
         tile."""
@@ -219,6 +262,18 @@ class FusedUpdate:
         if key not in self._scratch:
             self._scratch[key] = torch.empty(self.info(device)["wpad"], dtype=self.dtype,
                                              device=device)
+        return self._scratch[key]
+
+    def k2_scratch(self, device, nparts):
+        """K2's scratch, kept per device and grown as needed: {"part": the
+        blocks' partial sums [2 * nparts] f32, "count": the blocks' arrival
+        counter, int32, 0 between calls}."""
+        device = self._device(device)
+        key = (device, "k2")
+        if key not in self._scratch or self._scratch[key]["part"].numel() < 2 * nparts:
+            self._scratch[key] = dict(
+                part=torch.empty(2 * nparts, dtype=torch.float32, device=device),
+                count=torch.zeros(1, dtype=torch.int32, device=device))
         return self._scratch[key]
 
     def k3_scratch(self, device, n):
@@ -368,22 +423,35 @@ class FusedUpdate:
         f32 rewards, nonterm = 1 - (done | timeout) and timeout in {0, 1}."""
         if staged.device.type == "cpu":
             return self.gae_plain(staged, obsc, rew, nonterm, timeout_f, gamma, lam)
+        return self.gae_timed(staged, obsc, rew, nonterm, timeout_f, gamma, lam, None)
+
+    def gae_timed(self, staged, obsc, rew, nonterm, timeout_f, gamma, lam, events):
+        """gae on the card.  `events`, None or len(K2_PARTS) + 1
+        torch.cuda.Events that have been recorded once, are recorded on the
+        stream before the weight copy and after each device kernel."""
         T, B = rew.shape
         self._check("staged", staged, (self.n_params,), self.dtype)
         self._check("obsc", obsc, (T + 1, B, self.num_crit), self.dtype)
         for name, t in (("rew", rew), ("nonterm", nonterm), ("timeout_f", timeout_f)):
             self._check(name, t, (T, B))
         dev = staged.device
-        values = torch.empty((T + 1) * B, dtype=torch.float32, device=dev)
+        info = self.info(dev)
+        if not 1 <= T + 1 <= info["k2_max_planes"] or B < 1:
+            raise ValueError(f"K2 takes 1 <= T <= {info['k2_max_planes'] - 1} and B >= 1 "
+                             f"(its values stay in shared memory), got T={T}, B={B}")
+        groups, nblk = critic_grid(B, info["k2_tile"], info["k2_cluster"],
+                                   self.critic_info(dev, T + 1)["clusters"])
+        sc = self.k2_scratch(dev, groups * info["k2_cluster"] * info["k2_groups"])
         adv = torch.empty((T, B), dtype=torch.float32, device=dev)
         ret = torch.empty((T, B), dtype=torch.float32, device=dev)
         sums = torch.empty(2, dtype=torch.float32, device=dev)
         err = self._library().bg_gae(
             self.bf16, staged.data_ptr(), self._offs, self._wpad(dev).data_ptr(), obsc.data_ptr(),
-            rew.data_ptr(),
-            nonterm.data_ptr(), timeout_f.data_ptr(), values.data_ptr(), adv.data_ptr(),
-            ret.data_ptr(), sums.data_ptr(), T, B, float(gamma), float(lam),
-            self._grid(dev, (T + 1) * B), torch.cuda.current_stream(dev).cuda_stream)
+            rew.data_ptr(), nonterm.data_ptr(), timeout_f.data_ptr(), sc["part"].data_ptr(),
+            sc["count"].data_ptr(), adv.data_ptr(), ret.data_ptr(), sums.data_ptr(), T, B,
+            float(gamma), float(lam), nblk, None if events is None else (
+                ctypes.c_void_p * len(events))(*(e.cuda_event for e in events)),
+            torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "gae")
         self.gae_launches += 1
         return adv, ret, sums[0], sums[1]
@@ -583,11 +651,15 @@ class FusedUpdate:
         staged, obsc = self.stage(p), self._obsc_rows(obs, priv)
         n, dev = obsc.shape[0], p.device
         self._check("obsc", obsc, (n, self.num_crit), self.dtype)
+        if n < 1:
+            raise ValueError("values takes at least one row")
+        info = self.info(dev)
+        _, nblk = critic_grid(n, info["k2_tile"], info["k2_cluster"],
+                              self.critic_info(dev, 0)["clusters"])
         val = torch.empty(n, dtype=torch.float32, device=dev)
         err = self._library().bg_values(
             self.bf16, staged.data_ptr(), self._offs, self._wpad(dev).data_ptr(), obsc.data_ptr(),
-            n, val.data_ptr(),
-            self._grid(dev, n), torch.cuda.current_stream(dev).cuda_stream)
+            n, val.data_ptr(), nblk, torch.cuda.current_stream(dev).cuda_stream)
         self._raise_on(err, "values")
         self.values_launches += 1
         return val.view(obs.shape[:-1])

@@ -4,17 +4,19 @@
 //   K2  bg_gae            replaces booster_gym_tpu/algo/update_kernel.py _gae_kernel
 //   K3  bg_grads_stats    replaces _grads_stats_kernel (_mlp_fwd_T, _mlp_bwd_T)
 //   K4  bg_opt_stage      replaces _opt_stage_kernel
-//   K8  bg_values         replaces _values_kernel: K2's value pass on any rows
+//   K8  bg_values         replaces _values_kernel: K2's critic kernel on any
+//                         rows, without the walk
 //   K9  bg_grads          replaces _grads_kernel: K3's passes without the
 //                         metric sums and the normalisation, n_total apart
 //                         from the row count, mu and values out in type T
 //   K10 bg_policy_logp    replaces _policy_logp_kernel: K3's actor forward and
 //                         log-prob, through the same device code
 //
-// K8-K10 share K2's and K3's device code (net_fwd, net_bwd, the log-prob),
-// so their bounds and their gaps to them are K2's and K3's: K8 and K10 are
-// bound by operations like K2 (the critic's 2.3e5, the actor's 1.3e5 flop
-// per row), K9 like K3.
+// K8-K10 share K2's and K3's device code, so their bounds and their gaps to
+// them are K2's and K3's: K8 is K2's forward-only critic kernel (k2_critic)
+// without the walk, bound by operations like K2 (the critic's 2.3e5 flop per
+// row); K10 runs K3's net_fwd and log-prob (the actor's 1.3e5 flop per row),
+// K9 K3's passes.
 //
 // Each has a bf16 and an f32 instance (the network's compute type T).  In
 // f32 mode the matrix products are f32 FMAs, never TF32.  In bf16 mode they
@@ -35,12 +37,13 @@
 // values is 16 aligned bytes that cp.async can fetch.
 //
 // What bounds them on this card.  K2 and K3 are bound by operations
-// (2.3e5 and 1.0e6 flop per sample against 0.1 to 0.4 KB).  A tile block (16
-// warps, one per SM) keeps one tile of samples (64 in bf16, 32 in f32) with
-// every layer's activations in shared memory; weights stream through L2 in
-// chunks of 32 (bf16) or 16 (f32) reduction rows, double-buffered with
-// cp.async, one block barrier per chunk.  K3 (and K9) is three passes, all
-// on the caller's stream:
+// (2.3e5 and 1.0e6 flop per sample against 0.1 to 0.4 KB).  K2 and K8 run
+// their own forward-only critic kernel, k2_critic (its design is at the
+// kernel).  K3's tile block (16 warps, one per SM; also K10's) keeps one
+// tile of samples (64 in bf16, 32 in f32) with every layer's activations in
+// shared memory; weights stream through L2 in chunks of 32 (bf16) or 16
+// (f32) reduction rows, double-buffered with cp.async, one block barrier per
+// chunk.  K3 (and K9) is three passes, all on the caller's stream:
 //   pass 1 (k3_pass1)  per tile: forward, the per-row loss step, the input
 //                      gradients of both nets; every layer's input x_l and
 //                      output gradient dz_l leave as rows in type T, by bulk
@@ -67,8 +70,10 @@
 // Sums across blocks are deterministic: each pass-1 block owns a fixed set
 // of tiles and adds their stats in a fixed order into its own partial, each
 // pass-2 block owns one tile of one slab, and the reduce adds the partials in
-// block or slab order.  No atomic adds anywhere.
+// block or slab order; K2's blocks each own a fixed set of envs, and its last
+// block adds their partials in block order.  No float atomic adds anywhere.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,7 +202,7 @@ template <typename Net> constexpr HD int scr_xw(int l) { return l == 0 ? X0W : N
 template <typename Net> constexpr HD int scr_dzw(int l) { return l == 3 ? DZ3W : Net::out(l); }
 
 // ---------------------------------------------------------------------------
-// Shared memory of a tile block (K2's value pass, K3's pass 1, K10).  Row
+// Shared memory of a tile block (K3's pass 1, K10).  Row
 // strides are the widths plus PAD.  The x of layers 1 and 3 share xa; z_l
 // holds the pre-activation and then, in the backward, dz of that layer; the
 // last layer's dz (dzl) lies in xb, free once the forward is done.
@@ -613,65 +618,586 @@ __global__ void __launch_bounds__(K4_NT) k_pad(const T* __restrict__ staged, Off
 }
 
 // ---------------------------------------------------------------------------
-// K2, kernel 1 of 2: critic values of every row of obsc (T + 1 planes).  K8
-// launches the same kernel on any [n_rows, NCRIT] plane.
+// K2 and K8: the critic forward on its own, with K2's GAE walk fused in
+// (k2_critic, one launch after the weight copy).
+// The critic's weights stay in shared memory for the whole launch: a
+// cluster of CL blocks (bf16 2, f32 4) splits every hidden layer's output
+// columns, and each block holds its share of the padded weights (124 KB in
+// bf16, 113 KB in f32), loaded once: ~16 MB from L2 per call, where a tile
+// block restaged all 0.23 MB per 64 rows (~0.37 GB).  A tile is TN
+// consecutive rows (bf16 64, f32 32); each of a block's two warp groups
+// takes half of every tile with buffers, mbarriers and block-level barriers
+// of its own, so one group's products run while the other waits for its
+// partners' outputs.  A group's two activation buffers ping-pong and hold
+// ELU outputs only.  After a layer the group sends its columns to the same
+// group of the other blocks by st.async, 16 bytes each, which complete bytes
+// on that group's mbarrier; a group reads a layer's outputs after its
+// barrier and its mbarrier's phase.  No cluster barrier runs in the loop
+// (one costs ~1,200 cycles: NVIDIA H100 80GB HBM3, 700 W, prof_update
+// --variant).  Every value is the same mma.sync (f32: fmaf) chain in
+// ascending k as gemm_epi<FWD> gives it, with the same epilogue, so K2 and
+// K8 equal K3's and K9's values bitwise.
+//
+// K2 (GAE): a cluster owns a group of TN envs over all T + 1 planes (tile
+// (g, t) is rows t B + g TN ...), keeps the values of its block's EW = TN /
+// CL envs in shared memory, and walks them backwards at the group's end, a
+// thread per env, in the reference's arithmetic; each warp group of each
+// block writes its partial of sum(adv) and sum(adv^2), and the last block
+// to arrive (an integer counter, reset to 0 by that block) adds the
+// partials in order.  K8: a cluster walks tiles of rows [0, n_rows); each
+// block writes the values of its rows of a tile.
+//
+// What bounds it: each warp's products (mma.sync fed by ldmatrix from
+// shared memory) and epilogues (ELU's expf for every value), and the waits
+// for the partner blocks' outputs; see PERF.md.
+
+// Diagnostic builds only (-DK2_CLOCKS=1): lane 0 of every warp of k2_critic
+// adds the clock cycles of each phase of a tile to k2_clk[phase];
+// bg_k2_clocks reads and clears them.  The default build has none of it.
+#ifndef K2_CLOCKS
+#define K2_CLOCKS 0
+#endif
+#if K2_CLOCKS
+#define K2_NCLK 8
+__device__ unsigned long long k2_clk[K2_NCLK];
+#define K2_CLK(k)                                                        \
+    do {                                                                 \
+        const long long now_ = clock64();                                \
+        if ((threadIdx.x & 31) == 0) atomicAdd(&k2_clk[k], now_ - t_clk); \
+        t_clk = now_;                                                    \
+    } while (0)
+#define K2_CLK_START long long t_clk = clock64()
+#else
+#define K2_CLK(k)
+#define K2_CLK_START
+#endif
+template <typename T> struct Crit {
+    static constexpr bool F32 = std::is_same<T, float>::value;
+    static constexpr int CL = F32 ? 4 : 2;          // blocks in a cluster
+    static constexpr int TN = F32 ? 32 : 64;        // rows in a tile (a cluster's unit)
+    static constexpr int EW = TN / CL;              // rows (envs) a block keeps values of
+    static constexpr int NTH = 256;                 // threads of a block (16 warps: slower)
+    static constexpr int NWP = NTH / 32;
+    // a block's two warp groups each take half of every tile, with buffers,
+    // mbarriers and block-level barriers of their own
+    static constexpr int NG = 2, TG = TN / NG, EG = TG / CL, GT = NTH / NG, NWG = NWP / NG;
+    static constexpr int V16 = 16 / (int)sizeof(T); // values in 16 bytes
+    // row strides: weights [out][in + PW] (bf16: an odd number of 16-byte
+    // units, so ldmatrix is conflict-free; f32: in + 1, so 32 lanes reading
+    // 32 rows hit 32 banks); activations [TN][HB + PAD]
+    static constexpr int PW = F32 ? 1 : 8;
+    static constexpr int HB = cmax(cmax(CH1, CH2), CH3);
+    static constexpr int LA = HB + CT<T>::PAD, LX = X0W + CT<T>::PAD;
+    static constexpr HD int outs(int l) { return CriticNet::out(l) / CL; }   // l < 3
+    static constexpr HD int lw(int l) { return CriticNet::inp(l) + PW; }
+    static constexpr int W4R = F32 ? 1 : 16;        // rows of the last layer kept
+    static constexpr HD int al(int n) { return rup(n, V16); }
+    static constexpr HD int wo(int l) {             // offset of layer l's share
+        return l == 0 ? 0 : wo(l - 1) + al(outs(l - 1) * lw(l - 1));
+    }
+    static constexpr int NWV = wo(3) + al(W4R * lw(3));
+    static constexpr int NBC = CH1 + CH2 + CH3 + 1;
+    // group g's buffers at XA + g GREG: its xa, xb [TG][LA], then x0 [TG][LX]
+    static constexpr int GREG = 2 * TG * LA + TG * LX;
+    static constexpr int XA = NWV, BIAS = XA + NG * GREG;
+    static constexpr int MBAR = BIAS + al(NBC);              // two mbarriers a group
+    static constexpr int NTV = MBAR + 16 * NG / (int)sizeof(T);
+    // bytes a group receives from the other blocks for layer l's outputs
+    static constexpr HD int rx_bytes(int l) { return (CL - 1) * TG * outs(l) * (int)sizeof(T); }
+    static constexpr size_t fixed = (size_t)NTV * sizeof(T);   // bytes; then the values
+    static HD size_t bytes(int planes) { return fixed + (size_t)planes * EW * sizeof(float); }
+    static constexpr size_t SMEM_MAX = 232448;
+    static constexpr int max_planes = (int)((SMEM_MAX - fixed) / (EW * sizeof(float)));
+};
+static_assert(CH1 % (Crit<float>::CL * 32) == 0 && CH2 % (Crit<float>::CL * 32) == 0
+              && CH3 % (Crit<float>::CL * 32) == 0, "critic widths: multiples of 128");
+static_assert(Crit<float>::max_planes >= 2 && Crit<__nv_bfloat16>::max_planes >= 2,
+              "the critic's shared memory leaves room for the values of T = 1");
+
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
+    uint32_t o;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(o) : "r"(a), "r"(r));
+    return o;
+}
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+                 ::"r"(addr), "r"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+// A warp group's columns [rank outs, + outs) of rows [0, TG) of a layer's
+// outputs at gx + off to the other blocks' same group (rx[r]: that group's
+// buffers in block r as a cluster address), 16 bytes a st.async, each
+// completing its bytes on the group's mbarrier rb[r] in block r.  (A 4-byte
+// st.async per value pair as the epilogue forms it took 4% longer; each
+// warp sending its own rows as soon as it has written them, no faster.)
 template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-k2_values(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
-          const T* __restrict__ obsc, int n_rows, float* __restrict__ values) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    Smem<T> s(smem_raw);
-    constexpr int TN = CT<T>::TN;
-    const int ntiles = (n_rows + TN - 1) / TN;
-    load_bias<T, CriticNet>(s, staged, offs.cb);
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        __syncthreads();
-        load_x0<T>(s, obsc, tile, n_rows);
-        net_fwd<T, CriticNet>(s, wpad, s.val, nullptr, 0, 0);
-        __syncthreads();
-        const long row = (long)tile * TN + threadIdx.x;
-        if (threadIdx.x < TN && row < n_rows) values[row] = s.val[threadIdx.x];
+__device__ __forceinline__ void share_slice(const T* gx, int off, int outs, int rank,
+                                            const uint32_t* rx, const uint32_t* rb, int gtid) {
+    using C = Crit<T>;
+    const int nv = outs / C::V16, cb = rank * outs;
+    for (int c = gtid; c < C::TG * nv; c += C::GT) {
+        const int e = off + (c / nv) * C::LA + cb + (c % nv) * C::V16;
+        const uint4 v = *reinterpret_cast<const uint4*>(gx + e);
+#pragma unroll
+        for (int r = 0; r < C::CL; ++r)
+            if (r != rank)
+                asm volatile(
+                    "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, "
+                    "%3, %4}, [%5];\n" ::"r"(rx[r] + (uint32_t)(e * sizeof(T))),
+                    "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rb[r]) : "memory");
     }
 }
 
-// K2, kernel 2 of 2: timeout bootstrap, the GAE recurrence backwards in time
-// for each env, returns, and sum(adv), sum(adv^2).  One block: a thread
-// walks its envs, then a fixed-order tree adds the threads' sums.
-__global__ void __launch_bounds__(1024, 1)
-k2_scan(const float* __restrict__ values, const float* __restrict__ rew,
-        const float* __restrict__ nonterm, const float* __restrict__ timeout,
-        float* __restrict__ adv, float* __restrict__ ret, float* __restrict__ sums,
-        int T, int B, float gamma, float lam) {
-    __shared__ float s1[1024], s2[1024];
-    float sa = 0.0f, sa2 = 0.0f;
-    for (int b = threadIdx.x; b < B; b += 1024) {
-        float nextv = values[(size_t)T * B + b];
-        float carry = 0.0f;
-        for (int t = T - 1; t >= 0; --t) {
-            const size_t i = (size_t)t * B + b;
-            const float v = values[i], tf = timeout[i], nt = nonterm[i];
-            const float rwd = tf * v + (1.0f - tf) * rew[i];
-            const float delta = rwd + gamma * nt * nextv - v;
-            const float a = delta + gamma * lam * nt * carry;
-            carry = a;
-            nextv = v;
-            adv[i] = a;
-            ret[i] = v + a;
-            sa += a;
-            sa2 += a * a;
+struct K2Args {
+    const float *rew, *nonterm, *timeout;
+    float *adv, *ret, *values, *part, *sums;
+    unsigned* count;
+    int n_rows, T, B;
+    float gamma, lam;
+};
+
+// One hidden layer's share of the block: columns [rank OUTS, + OUTS) of
+// round_T(x W^T) + b, ELU, written to those columns of the destination in
+// every block of the cluster (put)
+template <typename T, int L>
+__device__ __forceinline__ void crit_layer(const T* X, int ldx, const T* Ws, const T* bias,
+                                           T* out, int rank, int gtid) {
+    using C = Crit<T>;
+    constexpr int OUTS = C::outs(L), R = CriticNet::inp(L), NWP = C::NWG;
+    const int lane = gtid & 31, warp = gtid >> 5;
+    const int cb = rank * OUTS;
+    // the layer's epilogue on one value and its (f32) bias
+    auto act = [](float acc, float b) {
+        // layer_fwd's ELU, with exp(z) - 1 formed whatever the sign: written
+        // as a conditional, nvcc branches around it per value, and the
+        // branches' dependency chains then run one after another
+        const float z = rnd<T>(rnd<T>(acc) + b);
+        const float em1 = expf(z) - 1.0f;
+        return z > 0.0f ? z : em1;
+    };
+    bias += CriticNet::hsum(L) + cb;
+    if constexpr (C::F32) {
+        constexpr int NS = C::TG / NWP, J = OUTS / 32;
+        float acc[NS][J];
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+            for (int j = 0; j < J; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k < R; ++k) {
+            float a[NS], b[J];
+#pragma unroll
+            for (int i = 0; i < NS; ++i) a[i] = X[(warp * NS + i) * ldx + k];
+#pragma unroll
+            for (int j = 0; j < J; ++j) b[j] = Ws[(lane + 32 * j) * C::lw(L) + k];
+#pragma unroll
+            for (int i = 0; i < NS; ++i)
+#pragma unroll
+                for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        // every value first, then the stores (which the compiler may not
+        // move past the bias loads: both are shared memory)
+        float bj[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) bj[j] = CT<T>::to_f(bias[lane + 32 * j]);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+            for (int j = 0; j < J; ++j) acc[i][j] = act(acc[i][j], bj[j]);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+                out[(warp * NS + i) * C::LA + cb + lane + 32 * j] = acc[i][j];
+    } else {
+        // NCG column groups of NW8 8-wide tiles, NRG row groups of MT 16-row
+        // tiles: 32 columns a warp where the rows leave enough warps (every
+        // warp writes its share: the mbarriers count the bytes)
+        constexpr int NW8 = (OUTS / 32) * (C::TG / 16) >= NWP ? 4 : 2;
+        constexpr int NCG = OUTS / (8 * NW8), NRG = NWP / NCG, MT = (C::TG / 16) / NRG;
+        static_assert(NCG * NRG == NWP && MT * NRG * 16 == C::TG, "warp tiling");
+        const int m0 = (warp / NCG) * MT * 16, n0 = (warp % NCG) * 8 * NW8;
+        float acc[MT][NW8][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NW8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+        const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;   // A
+        const int fr = (lane & 7) + (lane >> 4) * 8, fc = ((lane >> 3) & 1) * 8;   // B
+#pragma unroll 2
+        for (int kk = 0; kk < R; kk += 16) {
+            uint32_t a[MT][4];
+#pragma unroll
+            for (int i = 0; i < MT; ++i) ldsm4(a[i], X + (m0 + 16 * i + lr) * ldx + kk + lc);
+#pragma unroll
+            for (int jp = 0; jp < NW8 / 2; ++jp) {
+                uint32_t b[4];
+                ldsm4(b, Ws + (n0 + 16 * jp + fr) * C::lw(L) + kk + fc);
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+                    mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+                }
+            }
+        }
+        // every value first, then the stores (which the compiler may not
+        // move past the bias loads: both are shared memory)
+        const int g = lane >> 2, t = lane & 3;
+        float bj[NW8][2];
+#pragma unroll
+        for (int j = 0; j < NW8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) bj[j][e] = CT<T>::to_f(bias[n0 + 8 * j + 2 * t + e]);
+        __nv_bfloat162 x[MT][NW8][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NW8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    x[i][j][h].x = CT<T>::from_f(act(acc[i][j][2 * h], bj[j][0]));
+                    x[i][j][h].y = CT<T>::from_f(act(acc[i][j][2 * h + 1], bj[j][1]));
+                }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NW8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int n = m0 + 16 * i + g + 8 * h, o = n0 + 8 * j + 2 * t;
+                    *reinterpret_cast<__nv_bfloat162*>(out + n * C::LA + cb + o) = x[i][j][h];
+                }
+    }
+}
+
+// The last layer (one output) on the group's EG rows [rank EG, + EG) of its
+// tile X: out(e, value) for each row e of them
+template <typename T, typename Out>
+__device__ __forceinline__ void crit_value(const T* X, const T* W4, const T* bias, int rank,
+                                           int gtid, Out out) {
+    using C = Crit<T>;
+    constexpr int R = CriticNet::inp(3);
+    const float b4 = CT<T>::to_f(bias[CriticNet::hsum(3)]);
+    const int tid = gtid, lane = tid & 31, warp = tid >> 5;
+    if constexpr (C::F32) {
+        if (tid < C::EG) {
+            const T* x = X + (rank * C::EG + tid) * C::LA;
+            float acc = 0.0f;
+#pragma unroll 8
+            for (int k = 0; k < R; ++k) acc = fmaf(x[k], W4[k], acc);
+            out(tid, rnd<T>(rnd<T>(acc) + b4));
+        }
+    } else {
+        constexpr int MW = C::EG / 16;   // warps, a 16-row tile each
+        static_assert(C::EG % 16 == 0 && MW <= C::NWG, "last-layer warps");
+        if (warp < MW) {
+            const int m = rank * C::EG + 16 * warp;
+            const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+            const int fr = (lane & 7) + (lane >> 4) * 8, fc = ((lane >> 3) & 1) * 8;
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int kk = 0; kk < R; kk += 16) {
+                uint32_t a[4], b[4];
+                ldsm4(a, X + (m + lr) * C::LA + kk + lc);
+                ldsm4(b, W4 + fr * C::lw(3) + kk + fc);
+                mma16816(acc, a, b[0], b[1]);
+            }
+            if ((lane & 3) == 0) {   // column 0: rows g and g + 8
+                const int g = lane >> 2;
+                out(16 * warp + g, rnd<T>(rnd<T>(acc[0]) + b4));
+                out(16 * warp + g + 8, rnd<T>(rnd<T>(acc[2]) + b4));
+            }
         }
     }
-    s1[threadIdx.x] = sa;
-    s2[threadIdx.x] = sa2;
-    __syncthreads();
-    for (int w = 512; w > 0; w >>= 1) {
-        if (threadIdx.x < w) {
-            s1[threadIdx.x] += s1[threadIdx.x + w];
-            s2[threadIdx.x] += s2[threadIdx.x + w];
+}
+
+// A group's rows [row0, row0 + TG) of obsc (those r < nvalid) into
+// registers, zero elsewhere and past NCRIT; store puts them in its x0 tile
+template <typename T> struct X0Regs {
+    static constexpr int N = Crit<T>::TG * X0W / Crit<T>::GT;
+    T v[N];
+    // volatile loads: issued here, not moved down to their first use
+    __device__ __forceinline__ void load(const T* __restrict__ obsc, long row0, int nvalid,
+                                         int gtid) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const int idx = gtid + j * Crit<T>::GT, n = idx / X0W, c = idx % X0W;
+            v[j] = CT<T>::from_f(0.0f);
+            if (n < nvalid && c < NCRIT) {
+                const T* src = obsc + (row0 + n) * NCRIT + c;
+                if constexpr (Crit<T>::F32)
+                    asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v[j]) : "l"(src));
+                else
+                    asm volatile("ld.global.nc.b16 %0, [%1];\n"
+                                 : "=h"(reinterpret_cast<unsigned short&>(v[j])) : "l"(src));
+            }
         }
+    }
+    __device__ __forceinline__ void store(T* x0, int gtid) const {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+            const int idx = gtid + j * Crit<T>::GT;
+            x0[(idx / X0W) * Crit<T>::LX + idx % X0W] = v[j];
+        }
+    }
+};
+
+template <typename T, bool GAE>
+__global__ void __launch_bounds__(Crit<T>::NTH, 1)
+k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
+          const T* __restrict__ obsc, K2Args a) {
+    using C = Crit<T>;
+    using Net = CriticNet;
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    float* gv = reinterpret_cast<float*>(smem_raw + C::fixed);   // [planes][EW]
+    const int tid = threadIdx.x, rank = (int)cluster.block_rank();
+    const int cid = blockIdx.x / C::CL, ncl = gridDim.x / C::CL;
+    // this thread's warp group: its threads, buffers and mbarriers; the
+    // group's mbarrier b counts the bytes the other blocks' same group sends
+    // to its buffer b (xa, xb)
+    const int grp = tid / C::GT, gtid = tid % C::GT;
+    T* const gx = sm + C::XA + grp * C::GREG;   // xa, xb, x0 of the group
+    T* const x0 = gx + 2 * C::TG * C::LA;
+    const uint32_t mb = smem_u32(sm + C::MBAR) + 16 * grp;
+    uint32_t rx[C::CL], rb[2][C::CL];
+    for (int r = 0; r < C::CL; ++r) {
+        rx[r] = mapa(smem_u32(gx), r);
+        rb[0][r] = mapa(mb, r);
+        rb[1][r] = mapa(mb + 8, r);
+    }
+    if (gtid == 0) {
+        mbar_init(mb, 1);
+        mbar_init(mb + 8, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the block's share of each hidden layer's rows, and the last layer's
+    // first W4R rows, from wpad; the biases from staged
+    auto load_rows = [&](int off, int src, int rows, int l) {
+        const int in = Net::inp(l), ld = C::lw(l);
+        for (int idx = tid; idx < rows * (in / C::V16); idx += C::NTH) {
+            const int o = idx / (in / C::V16), k = (idx % (in / C::V16)) * C::V16;
+            const T* s = wpad + Net::wp(l) + (size_t)(src + o) * in + k;
+            T* d = sm + off + o * ld + k;
+            if constexpr (C::F32) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) cp_async4(d + u, s + u, true);
+            } else {
+                cp_async16(d, s, true);
+            }
+        }
+    };
+#pragma unroll
+    for (int l = 0; l < 3; ++l) load_rows(C::wo(l), rank * C::outs(l), C::outs(l), l);
+    load_rows(C::wo(3), 0, C::W4R, 3);
+    cp_async_commit();
+    for (int l = 0; l < 4; ++l)
+        for (int o = tid; o < Net::out(l); o += C::NTH)
+            sm[C::BIAS + Net::hsum(l) + o] = staged[offs.cb[l] + o];
+
+    // the cluster's tiles: K2, group g = cid, + ncl, ... and in it plane
+    // t = 0 .. T; K8, tile j = cid, + ncl, ...; warp group grp takes rows
+    // [grp TG, + TG) of each
+    const int planes = a.T + 1;
+    const int units = GAE ? (a.B + C::TN - 1) / C::TN : (a.n_rows + C::TN - 1) / C::TN;
+    const int mine = cid < units ? (units - cid + ncl - 1) / ncl : 0;
+    const int ntile = GAE ? mine * planes : mine;
+    auto tile_at = [&](int k, long& row0, int& nvalid) {
+        if (GAE) {
+            const int g = cid + (k / planes) * ncl, t = k % planes;
+            row0 = (long)t * a.B + (long)g * C::TN + grp * C::TG;
+            nvalid = a.B - g * C::TN - grp * C::TG;
+        } else {
+            row0 = (long)(cid + k * ncl) * C::TN + grp * C::TG;
+            nvalid = (int)(a.n_rows - row0);
+        }
+    };
+    X0Regs<T> x0r;
+    long row0 = 0;
+    int nvalid = 0;
+    if (ntile > 0) {
+        tile_at(0, row0, nvalid);
+        x0r.load(obsc, row0, nvalid, gtid);
+    }
+    cp_async_wait<0>();
+    // the group's envs of env group g (EG a block), walked backwards in time
+    // from the values in gv, a thread per env: the timeout bootstrap, delta,
+    // the carry, the advantage and the return, as the reference computes
+    // them; then the group's partial sums
+    auto walk = [&](int g) {
+        const int e = gtid, col = grp * C::EG + e;
+        const long b = (long)g * C::TN + grp * C::TG + rank * C::EG + e;
+        float sa = 0.0f, sa2 = 0.0f;
+        if (e < C::EG && b < a.B) {
+            float nextv = gv[a.T * C::EW + col], carry = 0.0f;
+            for (int t0 = a.T - 1; t0 >= 0; t0 -= 8) {
+                float rw[8], nt[8], tf[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const size_t i = (size_t)(t0 - u) * a.B + b;
+                    const bool in = t0 - u >= 0;
+                    rw[u] = in ? a.rew[i] : 0.0f;
+                    nt[u] = in ? a.nonterm[i] : 0.0f;
+                    tf[u] = in ? a.timeout[i] : 0.0f;
+                }
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const int t = t0 - u;
+                    if (t < 0) break;
+                    const size_t i = (size_t)t * a.B + b;
+                    const float v = gv[t * C::EW + col];
+                    const float rwd = tf[u] * v + (1.0f - tf[u]) * rw[u];
+                    const float delta = rwd + a.gamma * nt[u] * nextv - v;
+                    const float adv = delta + a.gamma * a.lam * nt[u] * carry;
+                    carry = adv;
+                    nextv = v;
+                    a.adv[i] = adv;
+                    a.ret[i] = v + adv;
+                    sa += adv;
+                    sa2 += adv * adv;
+                }
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            sa += __shfl_xor_sync(0xffffffffu, sa, o);
+            sa2 += __shfl_xor_sync(0xffffffffu, sa2, o);
+        }
+        if (gtid == 0) {   // visible on the card before the block arrives
+            const int i = (g * C::CL + rank) * C::NG + grp;
+            a.part[2 * i] = sa;
+            a.part[2 * i + 1] = sa2;
+            __threadfence();
+        }
+    };
+    // tile k's last layer on the group's P0; K2 walks an env group after its
+    // last plane.  Only the group's first warp takes part (one 16-row tile,
+    // or EG f32 rows): the others go on to the next tile's first layer.
+    auto finish = [&](int k, long r0, int nv) {
+        const T* p0 = gx + (k & 1) * C::TG * C::LA;
+        if (gtid >= 32) return;
+        if constexpr (GAE) {
+            const int t = k % planes;
+            crit_value<T>(p0, sm + C::wo(3), sm + C::BIAS, rank, gtid,
+                          [&](int e, float v) { gv[t * C::EW + grp * C::EG + e] = v; });
+            if (t < a.T) return;
+            __syncwarp();   // gv's rows
+            walk(cid + (k / planes) * ncl);
+        } else {
+            crit_value<T>(p0, sm + C::wo(3), sm + C::BIAS, rank, gtid, [&](int e, float v) {
+                const int n = rank * C::EG + e;
+                if (n < nv) a.values[r0 + n] = v;
+            });
+        }
+    };
+    // a layer's outputs are in when the group's threads have written theirs
+    // (its own block barrier), and, after the group has sent its columns to
+    // the other blocks, their bytes have completed on the buffer's mbarrier
+    int ph = 0;   // bit b: the parity of mbarrier b's current phase
+    auto outputs_in = [&](int b, int l) {
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(C::GT) : "memory");
+        share_slice<T>(gx, b * C::TG * C::LA, C::outs(l), rank, rx, rb[b], gtid);
+        if (gtid == 0) mbar_expect(mb + 8 * b, C::rx_bytes(l));
+        mbar_wait(mb + 8 * b, (ph >> b) & 1);
+        ph ^= 1 << b;
+    };
+    if (ntile > 0) x0r.store(x0, gtid);
+    long r0 = row0, r0_prev = 0;
+    int nv = nvalid, nv_prev = 0;
+    if (ntile > 1) {
+        tile_at(1, row0, nvalid);
+        x0r.load(obsc, row0, nvalid, gtid);
+    }
+    // every block of the cluster has started, holds its weights and its
+    // mbarriers, and the first x0 tiles are in
+    cluster.sync();
+    K2_CLK_START;
+    // group 1 starts once group 0 has its first layer's outputs: from then on
+    // one group's products tend to run while the other waits, where started
+    // together they wait together (K2 0.188 against 0.206 ms: NVIDIA H100
+    // 80GB HBM3, 700 W, prof_update --variant)
+    if (grp == 1 && ntile > 0) asm volatile("bar.sync 3, %0;\n" ::"n"(2 * C::GT) : "memory");
+    // Each group's tiles alternate its two buffers (P0 = buffer k % 2, P1
+    // the other): tile k's first layer writes the P1 of tile k - 1, its
+    // second layer the P0 of tile k - 1, whose last reader (tile k - 1's last
+    // layer) runs here before tile k's first layer.  A group writes a buffer
+    // of another block's same group only after it has received that group's
+    // outputs of the layer that read the buffer last, so the data's own flow
+    // orders every reuse.  The two groups of a block share only the weights.
+    for (int k = 0; k < ntile; ++k) {
+        const int b0 = k & 1, b1 = 1 - b0;
+        T* const p0 = gx + b0 * C::TG * C::LA;
+        T* const p1 = gx + b1 * C::TG * C::LA;
+        if (k > 0) finish(k - 1, r0_prev, nv_prev);
+        K2_CLK(0);
+        crit_layer<T, 0>(x0, C::LX, sm + C::wo(0), sm + C::BIAS, p0, rank, gtid);
+        K2_CLK(1);
+        outputs_in(b0, 0);
+        if (grp == 0 && k == 0) asm volatile("bar.arrive 3, %0;\n" ::"n"(2 * C::GT) : "memory");
+        K2_CLK(2);
+        crit_layer<T, 1>(p0, C::LA, sm + C::wo(1), sm + C::BIAS, p1, rank, gtid);
+        K2_CLK(3);
+        outputs_in(b1, 1);
+        K2_CLK(4);
+        crit_layer<T, 2>(p1, C::LA, sm + C::wo(2), sm + C::BIAS, p0, rank, gtid);
+        K2_CLK(5);
+        r0_prev = r0;
+        nv_prev = nv;
+        if (k + 1 < ntile) {   // x0 was last read by this tile's first layer
+            x0r.store(x0, gtid);
+            r0 = row0;
+            nv = nvalid;
+            if (k + 2 < ntile) {
+                tile_at(k + 2, row0, nvalid);
+                x0r.load(obsc, row0, nvalid, gtid);
+            }
+        }
+        K2_CLK(6);
+        outputs_in(b0, 2);
+        K2_CLK(7);
+    }
+    if (ntile > 0) finish(ntile - 1, r0_prev, nv_prev);
+    if constexpr (GAE) {
+        // the last block to arrive adds the blocks' partials in order.  Each
+        // partial's writer has fenced it; the barrier holds the arrival back
+        // until both warp groups have (group 1 runs a layer behind group 0)
         __syncthreads();
+        int last = 0;
+        if (tid == 0) {
+            __threadfence();
+            last = atomicAdd(a.count, 1u) == gridDim.x - 1;
+        }
+        if (__syncthreads_or(last) && tid == 0) {
+            __threadfence();
+            const int np = units * C::CL * C::NG;
+            float s1 = 0.0f, s2 = 0.0f;
+            for (int i = 0; i < np; ++i) {
+                s1 += __ldcg(a.part + 2 * i);
+                s2 += __ldcg(a.part + 2 * i + 1);
+            }
+            a.sums[0] = s1;
+            a.sums[1] = s2;
+            *a.count = 0u;
+        }
     }
-    if (threadIdx.x == 0) { sums[0] = s1[0]; sums[1] = s2[0]; }
 }
 
 // ---------------------------------------------------------------------------
@@ -1116,22 +1642,49 @@ static int allow_smem(Kernel k, size_t bytes) {
     return (int)cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// K2's and K8's launch: clusters of Crit<T>::CL blocks, nblk blocks in all
+template <typename T, bool GAE>
+static cudaLaunchConfig_t critic_config(int nblk, size_t bytes, cudaStream_t st,
+                                        cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nblk);
+    cfg.blockDim = dim3(Crit<T>::NTH);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = Crit<T>::CL;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+template <typename T, bool GAE>
+static int critic_launch(const void* staged, const Offs& f, const void* wpad, const void* obsc,
+                         const K2Args& a, int nblk, cudaStream_t st) {
+    const size_t bytes = Crit<T>::bytes(GAE ? a.T + 1 : 0);
+    CHECK((cudaError_t)allow_smem(k2_critic<T, GAE>, bytes));
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = critic_config<T, GAE>(nblk, bytes, st, &attr);
+    return (int)cudaLaunchKernelEx(&cfg, k2_critic<T, GAE>, (const T*)staged, (const T*)wpad, f,
+                                   (const T*)obsc, a);
+}
+
+// ev: null, or three events recorded before the weight copy, after it and
+// after the critic kernel (the parts' times, for measurement)
 template <typename T>
 static int gae_launch(const void* staged, const int* offs, void* wpad, const void* obsc,
-                      const float* rew, const float* nonterm, const float* timeout, float* values,
-                      float* adv, float* ret, float* sums, int T_, int B, float gamma, float lam,
-                      int nblk, void* stream) {
+                      K2Args a, int nblk, void* const* ev, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const Offs f = make_offs(offs);
-    CHECK((cudaError_t)allow_smem(k2_values<T>, Smem<T>::bytes));
+    auto mark = [&](int i) { return ev ? cudaEventRecord((cudaEvent_t)ev[i], st) : cudaSuccess; };
+    CHECK(mark(0));
     CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
-    const int n_rows = (T_ + 1) * B;
-    const int ntiles = (n_rows + CT<T>::TN - 1) / CT<T>::TN;
-    k2_values<T><<<(nblk < ntiles ? nblk : ntiles), NT, Smem<T>::bytes, st>>>(
-        (const T*)staged, (const T*)wpad, f, (const T*)obsc, n_rows, values);
-    CHECK(cudaGetLastError());
-    k2_scan<<<1, 1024, 0, st>>>(values, rew, nonterm, timeout, adv, ret, sums, T_, B, gamma, lam);
-    return (int)cudaGetLastError();
+    CHECK(mark(1));
+    CHECK((cudaError_t)(critic_launch<T, true>(staged, f, wpad, obsc, a, nblk, st)));
+    CHECK(mark(2));
+    return 0;
 }
 
 template <typename T>
@@ -1139,11 +1692,11 @@ static int values_launch(const void* staged, const int* offs, void* wpad, const 
                          int n_rows, float* values, int nblk, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const Offs f = make_offs(offs);
-    CHECK((cudaError_t)allow_smem(k2_values<T>, Smem<T>::bytes));
+    K2Args a = {};
+    a.values = values;
+    a.n_rows = n_rows;
     CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
-    k2_values<T><<<nblk, NT, Smem<T>::bytes, st>>>((const T*)staged, (const T*)wpad, f,
-                                                   (const T*)obsc, n_rows, values);
-    return (int)cudaGetLastError();
+    return critic_launch<T, false>(staged, f, wpad, obsc, a, nblk, st);
 }
 
 // ev: null, or four events recorded before the weight copy and after pass
@@ -1208,8 +1761,11 @@ template <typename Net> static void scratch_layout(int* out) {
     }
 }
 
+constexpr int N_INFO = 14;   // values of info() before the scratch layout
+
 template <typename T>
 static int info(int* out) {
+    using C = Crit<T>;
     out[0] = CT<T>::TN;
     out[1] = NWPAD;
     out[2] = SCR_WIDTH;
@@ -1223,30 +1779,81 @@ static int info(int* out) {
                                                         Smem<T>::bytes));
     CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[8], k3_pass2<T>, P2_NT,
                                                         P2<T>::bytes));
-    scratch_layout<ActorNet>(out + 9);
-    scratch_layout<CriticNet>(out + 25);
+    out[9] = C::TN;
+    out[10] = C::CL;
+    out[11] = C::max_planes;
+    out[12] = C::NTH;
+    out[13] = C::NG;
+    scratch_layout<ActorNet>(out + N_INFO);
+    scratch_layout<CriticNet>(out + N_INFO + 16);
+    return 0;
+}
+
+// K2's (planes = T + 1) or K8's (planes = 0) launch: its shared memory per
+// block, and at that size the card's resident clusters and resident blocks
+// per SM
+template <typename T, bool GAE>
+static int critic_info(int planes, int* out) {
+    const size_t bytes = Crit<T>::bytes(planes);
+    CHECK((cudaError_t)allow_smem(k2_critic<T, GAE>, bytes));
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = critic_config<T, GAE>(Crit<T>::CL, bytes, 0, &attr);
+    out[0] = (int)bytes;
+    CHECK(cudaOccupancyMaxActiveClusters(&out[1], k2_critic<T, GAE>, &cfg));
+    CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k2_critic<T, GAE>, Crit<T>::NTH,
+                                                        bytes));
     return 0;
 }
 
 extern "C" {
 
-// out[41]: samples per tile of a tile block, padded weight values (wpad),
-// scratch values per row, pass-2 tiles, pass-2 rows per step, the shared
-// memory of a tile block and of a pass-2 block, K3's pass-1 and pass-2
-// resident blocks per SM, then the scratch layout of the actor's four
-// layers and the critic's (x offset, x width, dz offset, dz width each)
+#if K2_CLOCKS
+// k2_critic's phase clocks summed over warps since the last call, then
+// cleared: out[K2_NCLK]
+int bg_k2_clocks(unsigned long long* out) {
+    CHECK(cudaMemcpyFromSymbol(out, k2_clk, sizeof(k2_clk)));
+    static const unsigned long long zeros[K2_NCLK] = {};
+    return (int)cudaMemcpyToSymbol(k2_clk, zeros, sizeof(k2_clk));
+}
+#endif
+
+// out[N_INFO + 32]: samples per tile of a tile block, padded weight values
+// (wpad), scratch values per row, pass-2 tiles, pass-2 rows per step, the
+// shared memory of a tile block and of a pass-2 block, K3's pass-1 and
+// pass-2 resident blocks per SM; K2's and K8's rows per tile, blocks per
+// cluster, most planes (T + 1) of values, threads per block and warp groups
+// per block; then the scratch layout of the actor's four layers and the
+// critic's (x offset, x width, dz offset, dz width each)
 int bg_update_info(int bf16, int* out) {
     return bf16 ? info<__nv_bfloat16>(out) : info<float>(out);
 }
 
-// wpad: [NWPAD] of type T scratch
+// out[3]: K2's launch at `planes` = T + 1 planes, or K8's at 0: shared memory
+// per block, resident clusters on the card, resident blocks per SM
+int bg_critic_info(int bf16, int planes, int* out) {
+    const int most = bf16 ? Crit<__nv_bfloat16>::max_planes : Crit<float>::max_planes;
+    if (planes < 0 || planes > most) return (int)cudaErrorInvalidValue;
+    if (bf16)
+        return planes ? critic_info<__nv_bfloat16, true>(planes, out)
+                      : critic_info<__nv_bfloat16, false>(0, out);
+    return planes ? critic_info<float, true>(planes, out) : critic_info<float, false>(0, out);
+}
+
+// wpad: [NWPAD] of type T scratch; part: [2 * ceil(B / rows per tile) *
+// blocks per cluster * warp groups] f32 scratch; count: one unsigned, 0 before the first
+// call (each call leaves it 0); nblk: a multiple of the cluster's blocks;
+// ev: null, or three CUDA events that time the weight copy and the critic
+// kernel (gae_launch)
 int bg_gae(int bf16, const void* staged, const int* offs, void* wpad, const void* obsc,
-           const float* rew, const float* nonterm, const float* timeout, float* values, float* adv,
-           float* ret, float* sums, int T_, int B, float gamma, float lam, int nblk, void* stream) {
-    return bf16 ? gae_launch<__nv_bfloat16>(staged, offs, wpad, obsc, rew, nonterm, timeout, values,
-                                            adv, ret, sums, T_, B, gamma, lam, nblk, stream)
-                : gae_launch<float>(staged, offs, wpad, obsc, rew, nonterm, timeout, values, adv,
-                                    ret, sums, T_, B, gamma, lam, nblk, stream);
+           const float* rew, const float* nonterm, const float* timeout, float* part,
+           unsigned* count, float* adv, float* ret, float* sums, int T_, int B, float gamma,
+           float lam, int nblk, void* const* ev, void* stream) {
+    K2Args a = {};
+    a.rew = rew; a.nonterm = nonterm; a.timeout = timeout; a.adv = adv; a.ret = ret;
+    a.part = part; a.sums = sums; a.count = count; a.T = T_; a.B = B; a.gamma = gamma;
+    a.lam = lam;
+    return bf16 ? gae_launch<__nv_bfloat16>(staged, offs, wpad, obsc, a, nblk, ev, stream)
+                : gae_launch<float>(staged, offs, wpad, obsc, a, nblk, ev, stream);
 }
 
 // wpad as for bg_gae; scratch: [n * SCR_WIDTH] of type T; part: [nslab *
@@ -1271,7 +1878,7 @@ int bg_grads_stats(int bf16, const void* staged, const float* p, const int* offs
                                                    stats, nblk, ev, stream);
 }
 
-// K8: critic values of rows [0, n_rows) of obsc
+// K8: critic values of rows [0, n_rows) of obsc; nblk as for bg_gae
 int bg_values(int bf16, const void* staged, const int* offs, void* wpad, const void* obsc,
               int n_rows, float* values, int nblk, void* stream) {
     return bf16 ? values_launch<__nv_bfloat16>(staged, offs, wpad, obsc, n_rows, values, nblk,

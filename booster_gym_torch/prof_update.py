@@ -3,6 +3,7 @@ tools/prof_update.py).
 
     python -m booster_gym_torch.prof_update [--T 24] [--B 4096] [--dtype bf16]
         [--iters 50] [--trace DIR] [--device cuda] [--variant NAME:KEY=VALUE,...]...
+        [--variant-of K3] [--split]
 
 Makes the reference tool's data from a seed (T1's 47 observation, 14
 privileged and 12 action dims, the ActorCritic's widths, weights drawn from
@@ -14,8 +15,12 @@ of its bytes at 3.35 TB/s and its operations at the H100's peak for the
 compute type, counted from the shapes by update_work) and the card's name
 and power limit.  --trace DIR writes a torch.profiler trace of five grads
 calls to DIR/grads_trace.json.  Each --variant builds csrc/update.cu again
-with extra -D sizes (all nvcc runs at once) and times grads_stats (K3) in
-that build on the same data: one more record each, "variant" naming it.
+with extra -D sizes (all nvcc runs at once) and times the kernels that
+--variant-of names (default K3) in that build on the same data: one more
+record each, "variant" naming it.
+--split adds a record of K2 part by part (k2_split): CUDA events between its
+device kernels, and each kernel's device time and count under
+torch.profiler.
 
 It runs on the card unless --device cpu is given, and raises without CUDA.
 On the CPU the wrappers run their plain versions, launch nothing, and the
@@ -126,6 +131,71 @@ def _calls(fused, d):
     }
 
 
+def k2_split(fused, d, reps=20):
+    """K2 at the data's shape, part by part: the CUDA-event time of each of
+    its device kernels (K2_PARTS) within whole calls (events recorded
+    between them), and each kernel's device time and count per call under
+    torch.profiler.  On the card only."""
+    from booster_gym_torch.algo.update_kernel import K2_KERNELS, K2_PARTS
+
+    staged = fused.stage(d["p"])
+    obsc = fused.prepare(d["obs"], d["priv"], d["act"], d["mu0"], d["old_logp"], d["obs_last"],
+                         d["priv_last"])["obsc"]
+    args = (staged, obsc, d["rew"], d["nonterm"], d["timeout_f"], GAMMA, LAM)
+    fused.gae(*args)
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(len(K2_PARTS) + 1)]
+             for _ in range(reps)]
+    for ev in marks:
+        for e in ev:
+            e.record()    # creates the event, which the kernel library then records
+    torch.cuda.synchronize()
+    for ev in marks:
+        fused.gae_timed(*args, ev)
+    torch.cuda.synchronize()
+    parts = {p: sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / reps
+             for i, p in enumerate(K2_PARTS)}
+    dev, count = testing.device_ms(lambda: fused.gae(*args), K2_KERNELS)
+    return {"parts_ms": parts, "device_ms": dev, "device_kernels": sum(count.values()),
+            "count": count}
+
+
+# the tile before's last layer (and the walk), each hidden layer and the
+# wait for its outputs (a block barrier, then the mbarrier), the next x0 tile
+K2_PHASES = ("layer4", "layer1", "wait1", "layer2", "wait2", "layer3", "x0", "wait3")
+
+
+def k2_clocks(net, d, calls=5):
+    """Cycles per warp and tile of each phase of K2's critic kernel
+    (K2_PHASES), from a -DK2_CLOCKS=1 build of csrc/update.cu: lane 0 of
+    every warp adds clock64() deltas per phase, bg_k2_clocks reads them.
+    On the card only."""
+    import ctypes
+
+    from booster_gym_torch import kernel_build
+    from booster_gym_torch.algo.update_kernel import SOURCE, FusedUpdate
+
+    v = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
+    v.sizes["K2_CLOCKS"] = 1
+    v.build()
+    lib = ctypes.CDLL(kernel_build.library_path(SOURCE, v.sizes))
+    clocks = (ctypes.c_ulonglong * len(K2_PHASES))()
+    read = lambda: lib.bg_k2_clocks(ctypes.cast(clocks, ctypes.c_void_p))
+    gae = _calls(v, d)["gae"]
+    gae()
+    torch.cuda.synchronize()
+    read()
+    for _ in range(calls):
+        gae()
+    torch.cuda.synchronize()
+    if read() != 0:
+        raise RuntimeError("reading K2's phase clocks failed")
+    info = v.info(d["p"].device)
+    T, B = d["rew"].shape
+    groups = -(-B // info["k2_tile"])
+    warps = calls * groups * info["k2_cluster"] * info["k2_threads"] // 32 * (T + 1)
+    return {p: clocks[i] / warps for i, p in enumerate(K2_PHASES)}
+
+
 def _time(fn, iters, cuda):
     """ms per call after WARMUP calls: CUDA events on the card, the host
     clock on the CPU; returns (ms, the last call's outputs)."""
@@ -162,6 +232,11 @@ def main(argv=None):
     parser.add_argument("--trace", default=None)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--variant", action="append", default=[])
+    parser.add_argument("--variant-of", default="K3",
+                        help="the kernels each --variant build times, e.g. K2,K8")
+    parser.add_argument("--split", action="store_true",
+                        help="also time K2 part by part (k2_split) and read its phase clocks "
+                             "(k2_clocks), on the card")
     args = parser.parse_args(argv)
 
     from booster_gym_torch import kernel_build
@@ -199,16 +274,28 @@ def main(argv=None):
         print(json.dumps(rec), flush=True)
         records.append(rec)
 
-    for name, (v, build) in variants.items():
-        kernel_build.finish_build(*build)
-        ms, _ = _time(_calls(v, d)["grads_stats"], args.iters, cuda)
-        rec = {"kernel": "K3", "variant": name, "defines": spec_of(v.sizes, fused.sizes),
-               "method": "grads_stats", "T": args.T, "B": args.B, "dtype": args.dtype,
-               "device": str(device), "card": card, "ms" if cuda else "host_ms": ms,
-               "calls": WARMUP + args.iters, "launches": v.grads_stats_launches,
-               "blocks_per_sm_pass1": v.info(device)["blocks_per_sm_pass1"]}
+    if args.split:
+        if not cuda:
+            raise ValueError("--split times device kernels: it needs the card")
+        rec = {"kernel": "K2", "split": k2_split(fused, d), "T": args.T, "B": args.B,
+               "dtype": args.dtype, "card": card,
+               "cycles_per_warp_tile": k2_clocks(net, d)}
         print(json.dumps(rec), flush=True)
         records.append(rec)
+
+    methods = {kernel: method for method, kernel in KERNELS}
+    for name, (v, build) in variants.items():
+        kernel_build.finish_build(*build)
+        for kernel in args.variant_of.split(","):
+            method = methods[kernel]
+            ms, _ = _time(_calls(v, d)[method], args.iters, cuda)
+            rec = {"kernel": kernel, "variant": name, "defines": spec_of(v.sizes, fused.sizes),
+                   "method": method, "T": args.T, "B": args.B, "dtype": args.dtype,
+                   "device": str(device), "card": card, "ms" if cuda else "host_ms": ms,
+                   "calls": WARMUP + args.iters, "launches": getattr(v, LAUNCHES[method]),
+                   "blocks_per_sm_pass1": v.info(device)["blocks_per_sm_pass1"]}
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
 
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)

@@ -486,3 +486,34 @@ def time_cuda(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def device_ms(fn, names, calls=10):
+    """({name: device ms per call}, {name: launches per call}) of the
+    kernels whose names contain each of `names`, from torch.profiler over
+    `calls` calls of fn.  A first call runs in the profiler's warm-up step,
+    which records nothing: the trace that is read starts with tracing on
+    (without it, the first kernel of a trace was once missing, 9 of 10)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    warm = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=warm) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    ms, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = ev.cuda_time_total if t is None else t
+        for k in names:
+            if k in ev.key:
+                ms[k] += t / 1e3 / calls
+                count[k] += ev.count / calls
+    return ms, count

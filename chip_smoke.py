@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
      (csrc/terrain_sample.cu), and the fused update's K2, K3 and K4
      (csrc/update.cu); ptxas's registers, stack frame and spills, each
      substep build's shared memory per block and resident blocks per SM,
-     and the same for K3's pass 1 and pass 2 in bf16 and f32;
+     and the same for K3's pass 1 and pass 2 and for K2's (at the main
+     path's T + 1 planes) and K8's critic kernel (its clusters too) in
+     bf16 and f32;
   3. each kernel against its plain PyTorch version on the card: K1 on both
      robots at B = 4096 and B = 1000 (a ragged last block), several
      substeps; K5 the same with heights from T1.yaml's field and tilted
@@ -24,7 +26,9 @@ Phases, in order; any failure exits non-zero:
      roots at the field's edge and queries 1-2 m from their root (the
      clamped cases); K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
      (N = 98,304), 1000 and 4097 (every tile, slab and pass-2 step of K3
-     ragged), K3 and K4 launched twice to show that they repeat bitwise, and
+     ragged; K2's groups of envs ragged at 1000 and 4097), K2, K3 and K4
+     launched twice to show that they repeat bitwise (K2's block partials
+     filled with NaN between its two launches), and
      K3's weight gradients against torch.matmul on the rows its own pass 1
      wrote; then the whole fused update() against the xla (autograd)
      update() from the same parameters and rollout buffers, f32, 3
@@ -33,7 +37,8 @@ Phases, in order; any failure exits non-zero:
      launched twice to show that it repeats bitwise and checked against
      its pass 1's rows as K3 is, and the cross-checks between
      independently launched kernels on the same data: K9 on normalised
-     advantages against K3, K8 against K2's value pass and K9's values,
+     advantages against K3, K8 (rows in no whole tile at B = 1000 and
+     4097) against K2's value pass and K9's values,
      K10 against K3's self_old forward;
   4. the main path: booster_gym_torch.train's Runner on flat T1 (the
      T1-shaped stand-in URDF), 4096 envs, horizon 24, 20 mini-epochs,
@@ -61,7 +66,8 @@ Phases, in order; any failure exits non-zero:
      weight copy, pass 1, pass 2 and the reduce per call), its scratch and
      peak device memory, and beside pass 2 the eight torch.matmul products
      of its shapes on the same rows (a yardstick; no PyTorch call computes
-     K3's whole function, so its library_ms is null).
+     K3's whole function, so its library_ms is null); K2 part by part the
+     same way (the weight copy and the critic kernel, one each per call).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -490,13 +496,21 @@ def compare_update_kernels(dtype, B, T=24):
 
     rew, nonterm, tf = gae_inputs(d)
     out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+    # the blocks' partial sums poisoned between the calls: a partial that the
+    # summing block reads before its writer stored it shows as NaN, where a
+    # stale copy of the first call's would repeat it bitwise
+    fused.k2_scratch(staged.device, 0)["part"].fill_(float("nan"))
+    out2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
     ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(out, ref)]
+    rerun = float(torch.stack([(a - b).abs().max() for a, b in zip(out, out2)]).max())  # NaN stays
     log(f"  K2 {tag}: rel err adv {errs[0]:.2e} returns {errs[1]:.2e} (tol {tol['val']:.1e}) "
-        f"sum {errs[2]:.2e} sum^2 {errs[3]:.2e} (tol {tol['stat']:.1e})")
+        f"sum {errs[2]:.2e} sum^2 {errs[3]:.2e} (tol {tol['stat']:.1e}); run-to-run max abs "
+        f"diff {rerun:.1e}")
     require(max(errs[:2]) <= tol["val"] and max(errs[2:]) <= tol["stat"],
             f"K2 disagrees with its plain version ({tag})")
+    require(rerun == 0.0, f"K2 does not repeat bitwise ({tag})")
     worst["K2"] = max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2]))
 
     mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
@@ -618,7 +632,9 @@ def compare_anchor_kernels(dtype, B, T=24):
     mu10_p, logp10_p = fused.policy_old_logp_plain(p, prep)
     torch.cuda.synchronize()
     e_v = rel_err(v, v_p)
-    log(f"  K8 {tag}: rel err {e_v:.2e} (tol {tol['val']:.1e})")
+    tile = fused.info(torch.device("cuda"))["k2_tile"]
+    log(f"  K8 {tag}: rel err {e_v:.2e} (tol {tol['val']:.1e}); {T * B} rows, "
+        f"{'a ragged last' if (T * B) % tile else 'no ragged'} tile of {tile}")
     require(e_v <= tol["val"], f"K8 disagrees with its plain version ({tag})")
     rerun = max(float((a - b).abs().max()) for a, b in ((g, g2), (mu, mu2), (val, val2)))
     e_g = max(rel_err(g[w:w + o * i], g_p[w:w + o * i])
@@ -663,29 +679,6 @@ def compare_anchor_kernels(dtype, B, T=24):
             "K10": max(float((mu10 - mu10_p).abs().max()), float((logp10 - logp10_p).abs().max()))}
 
 
-def device_ms(fn, names, calls=10):
-    """({name: device ms per call}, {name: launches per call}) of the
-    kernels whose names contain each of `names`, from torch.profiler over
-    `calls` calls of fn."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        t = ev.cuda_time_total if t is None else t
-        for k in names:
-            if k in ev.key:
-                ms[k] += t / 1e3 / calls
-                count[k] += ev.count / calls
-    return ms, count
-
-
 def time_k3_passes(card, fused, args, n, reps=20):
     """K3's passes at the main path's shapes: the CUDA-event time of pass
     1 (with the weight copy), pass 2 and the reduce within whole calls
@@ -697,7 +690,7 @@ def time_k3_passes(card, fused, args, n, reps=20):
     scratch."""
     import torch
 
-    from booster_gym_torch.testing import seeded_network, time_cuda
+    from booster_gym_torch.testing import device_ms, seeded_network, time_cuda
 
     fused.grads_stats(*args)
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
@@ -744,6 +737,29 @@ def time_k3_passes(card, fused, args, n, reps=20):
             "peak_bytes": peak}
 
 
+def time_k2_parts(card, T=24, B=4096):
+    """K2 at the main path's shapes (prof_update's data), part by part:
+    CUDA events between the weight copy and the critic kernel within whole
+    calls, and each device kernel's time and count under torch.profiler (one
+    each per call required)."""
+    from booster_gym_torch import prof_update
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.algo.update_kernel import K2_KERNELS, FusedUpdate
+
+    net, d = prof_update.make_data(T, B, "bf16", "cuda")
+    d["p"] = flat_params(net)
+    split = prof_update.k2_split(FusedUpdate(net, 0.2, 10.0), d)
+    require(all(split["count"][k] == 1.0 for k in K2_KERNELS),
+            f"K2 ran {split['count']} device kernels per call, one each of {K2_KERNELS} "
+            f"expected")
+    log(f"K2 parts at N={T * B} bf16 [{card}]: CUDA events within whole calls: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split["parts_ms"].items())
+        + "; device time per kernel (torch.profiler): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split["device_ms"].items())
+        + f"; {split['device_kernels']:g} device kernels per call")
+    return split
+
+
 def time_update_kernels(card, launches, max_err, prof):
     """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
     (bf16, T = 24, B = 4096): time per call, bound and work from
@@ -760,6 +776,7 @@ def time_update_kernels(card, launches, max_err, prof):
     gr, m, v, lr = adam_inputs(p, seed=2)
     k3_args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, False)
     passes = time_k3_passes(card, fused, k3_args, T * B)
+    k2_parts = time_k2_parts(card)
     plains = {
         "K2": lambda: fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
         "K3": lambda: fused.grads_stats_plain(*k3_args),
@@ -792,6 +809,8 @@ def time_update_kernels(card, launches, max_err, prof):
             "bound_by": rec["bound_by"], "library_ms": None}
         if k == "K3":
             entry["passes"] = passes
+        if k == "K2":
+            entry["parts"] = k2_parts
         entries.append(entry)
     return entries
 
@@ -875,14 +894,24 @@ def main():
     for k in (*kernels.values(), *general.values(), sampler):
         k.build()   # loads the library just built
     log(f"kernel builds: {time.perf_counter() - t0:.1f} s (set-up)")
+    planes = main_path_cfg(urdf)["runner"]["horizon_length"] + 1   # K2's T + 1 on the path
     for dtype in ("bf16", "f32"):
-        info = update_kernel.FusedUpdate(ActorCritic(12, 47, 14, compute_dtype=dtype), 0.2,
-                                         10.0).info(torch.device("cuda"))
+        fused = update_kernel.FusedUpdate(ActorCritic(12, 47, 14, compute_dtype=dtype), 0.2, 10.0)
+        info = fused.info(torch.device("cuda"))
         log(f"K3/K9 {dtype} [{card}]: pass 1 {info['tile']} rows a tile, {info['smem_pass1']} "
             f"bytes of shared memory per block, resident blocks per SM "
             f"{info['blocks_per_sm_pass1']}; pass 2 {info['pass2_tiles']} tiles, "
             f"{info['smem_pass2']} bytes per block, resident blocks per SM "
             f"{info['blocks_per_sm_pass2']}; scratch {info['scratch_width']} values a row")
+        for name, n in (("K2", planes), ("K8", 0)):
+            ci = fused.critic_info(torch.device("cuda"), n)
+            log(f"{name} {dtype} [{card}]: k2_critic {info['k2_tile']} rows a tile, clusters of "
+                f"{info['k2_cluster']} blocks of {info['k2_threads']} threads, {ci['smem']} bytes "
+                f"of shared memory per block at {n} planes of values (at most "
+                f"{info['k2_max_planes']}), resident blocks per SM {ci['blocks_per_sm']}, "
+                f"resident clusters {ci['clusters']}")
+            require(ci["blocks_per_sm"] >= 1 and ci["clusters"] >= 1,
+                    f"{name}'s critic kernel does not fit the card ({dtype})")
     for label, ks in (("K1", kernels), ("K5", general)):
         for n, k in ks.items():
             info = k.info()

@@ -410,6 +410,22 @@ def test_update_library_name_carries_the_network_sizes():
         assert len(decl.split(",")) == len(argtypes), name
 
 
+@pytest.mark.parametrize("rows,tile,cluster,clusters,expect", [
+    (4096, 64, 2, 66, (64, 128)),      # 64 groups of 64 envs, one per cluster
+    (4097, 64, 2, 66, (65, 130)),      # a last group of one env
+    (1000, 64, 2, 66, (16, 32)),       # 15 full groups and one of 40
+    (98328, 64, 2, 66, (1537, 132)),   # K8's rows: more tiles than clusters
+    (4096, 32, 4, 30, (128, 120)),     # the f32 geometry
+    (1, 64, 2, 66, (1, 2)),
+])
+def test_critic_grid(rows, tile, cluster, clusters, expect):
+    """K2's and K8's launch size: one unit (group of envs, or tile of rows)
+    per cluster at a time, never more clusters than units, whole clusters."""
+    units, blocks = update_kernel.critic_grid(rows, tile, cluster, clusters)
+    assert (units, blocks) == expect
+    assert blocks % cluster == 0 and units * tile >= rows > (units - 1) * tile
+
+
 def rel_err(a, b):
     return float((a - b).norm() / b.norm())
 
@@ -438,6 +454,52 @@ def test_gae_kernel_matches_plain_on_card(gpu, dtype, B):
     torch.testing.assert_close(sa2, (adv * adv).sum(), rtol=1e-4, atol=1e-2)
     with pytest.raises(ValueError):
         fused.gae(staged, prep["obsc"], rew.double(), nonterm, tf, 0.995, 0.95)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("B", [1000, 4097])      # ragged last groups of envs
+def test_gae_kernel_repeats_bitwise_on_card(gpu, dtype, B):
+    """The blocks' partial sums are added in block order, not by float
+    atomics: two launches on the same data agree bitwise.  The partials are
+    poisoned with NaN between the launches, so a partial that the summing
+    block reads before its writer has stored it cannot repeat the first
+    launch's value."""
+    T = 24
+    fused, p, staged, prep, d = update_case(dtype, T, B, gpu)
+    *_, rew, done, timeout = d["buf"]
+    nonterm, tf = 1.0 - (done | timeout).float(), timeout.float()
+    out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    fused.k2_scratch(staged.device, 0)["part"].fill_(float("nan"))
+    out2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    torch.cuda.synchronize()
+    assert fused.gae_launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    assert max(rel_err(out2[k], ref[k]) for k in (2, 3)) <= TOL[dtype]["stat"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_gae_kernel_takes_its_most_planes_on_card(gpu, dtype):
+    """K2 keeps every plane's values in shared memory: it runs at the most
+    planes the library reports, T + 1 = k2_max_planes, and raises past it."""
+    B = 100
+    fused = update_case(dtype, 1, B, gpu)[0]
+    most = fused.info(gpu)["k2_max_planes"]
+    fused, p, staged, prep, d = update_case(dtype, most - 1, B, gpu)
+    *_, rew, done, timeout = d["buf"]
+    nonterm, tf = 1.0 - (done | timeout).float(), timeout.float()
+    adv, ret, sa, sa2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    adv_p, ret_p, sa_p, sa2_p = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["val"]
+    assert rel_err(adv, adv_p) <= tol and rel_err(ret, ret_p) <= tol
+    assert fused.critic_info(gpu, most)["smem"] > fused.critic_info(gpu, 0)["smem"]
+    longer = torch.zeros((most, B), device=gpu)
+    obsc = torch.zeros((most + 1, B, fused.num_crit), dtype=fused.dtype, device=gpu)
+    with pytest.raises(ValueError):
+        fused.gae(staged, obsc, longer, longer, longer, 0.995, 0.95)
 
 
 @pytest.mark.cuda
@@ -578,6 +640,30 @@ def test_policy_logp_kernel_matches_plain_on_card(gpu, dtype, B):
     assert fused.policy_logp_launches == 1
     tol = TOL[dtype]["val"]
     assert rel_err(mu, mu_p) <= tol and rel_err(logp, logp_p) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_values_kernel_equals_k2_and_k9_values_on_card(gpu, dtype):
+    """K8 on rows that fill no whole tile (24 x 4097) against K2's value pass
+    (its advantage at zero reward, nonterm and timeout is -value) and K9's
+    values: one device code, so bitwise."""
+    T, B = 24, 4097
+    fused, p, d = anchor(dtype, T, B, gpu)
+    assert (T * B) % fused.info(gpu)["k2_tile"] != 0
+    gen = torch.Generator(device=gpu).manual_seed(4)
+    obs_last, priv_last = torch.randn(B, 47, generator=gen, device=gpu), torch.randn(
+        B, 14, generator=gen, device=gpu)
+    prep = fused.prepare(d["obs"], d["priv"], d["act"], torch.zeros_like(d["act"]),
+                         d["old_logp"], obs_last, priv_last)
+    v8 = fused.values(p, d["obs"], d["priv"])
+    v8_last = fused.values(p, obs_last, priv_last)
+    zeros = torch.zeros(T, B, device=gpu)
+    adv2 = fused.gae(fused.stage(p), prep["obsc"], zeros, zeros, zeros, 0.995, 0.95)[0]
+    val9 = fused.grads(p, d["obs"], d["priv"], d["act"], d["adv"], d["ret"], d["old_logp"])[2]
+    torch.cuda.synchronize()
+    assert torch.equal(-adv2, v8) and torch.equal(val9, v8)
+    assert torch.isfinite(v8_last).all() and v8_last.shape == (B,)
 
 
 @pytest.mark.cuda

@@ -86,7 +86,17 @@ def prepare(fused, d):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("B", [128, 96])   # 96: the JAX kernel pads its lanes
 def test_gae_plain_matches_jax_kernel(B):
-    T = 5
+    gae_matches_jax(5, B)
+
+
+def test_gae_plain_matches_jax_kernel_over_a_long_horizon():
+    """The JAX kernel walks one plane per grid step and takes any horizon;
+    so does the port's plain version, past the 235 planes (T = 234) that
+    the bf16 card kernel keeps in shared memory."""
+    gae_matches_jax(240, 8)
+
+
+def gae_matches_jax(T, B):
     jfused, jnet, params, fused, net, p = make("f32")
     rng = np.random.default_rng(B)
     d = batch(jnet, params, rng, T, B)
