@@ -28,8 +28,9 @@ raises.  A wrapper call counts as one launch.  Every launch but K4's first
 copies the staged weights into a zero-padded layer layout (k_pad, one small
 device kernel), so the device kernels per call are: K2 two (the copy, then
 the critic with the GAE walk fused in), K3 and K9 four (the copy, pass 1,
-pass 2, the reduce), K4 two (the norm's partial sums, then the update), K8
-and K10 two.
+pass 2, the reduce), K4 one (a cooperative launch of 64 blocks that read g,
+m, v and p once into registers, sum the squares per block and share the
+norm through one grid barrier), K8 and K10 two.
 
 K2 and K8 run a forward-only critic kernel (csrc/update.cu k2_critic):
 clusters of 2 blocks (4 in f32) share the critic's weights out between
@@ -38,7 +39,9 @@ and each layer's outputs cross to the other blocks by distributed shared
 memory; a block's two warp groups each take half of every tile.  K2's
 cluster owns groups of 64 envs (32 in f32) over all T + 1 planes and walks
 them backwards in time at each group's end (critic_grid gives the launch's
-size).
+size).  Shared memory holds the values of k2_max_planes planes (235 in
+bf16); at a longer horizon the planes past them spill to a global scratch
+(k2_scratch), which the same warps read back for the walk.
 K8, K9 and K10 take the f32 parameter vector and stage it to the compute
 type per call, as the reference casts its parameters per call.
 
@@ -87,7 +90,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUNCTIONS = {
     "bg_update_info": [_I, _P],
     "bg_critic_info": [_I, _I, _P],
-    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P],
+    "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P,
+               _P],
     "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -99,7 +103,8 @@ _FUNCTIONS = {
 }
 INFO_KEYS = ("tile", "wpad", "scratch_width", "pass2_tiles", "pass2_rows", "smem_pass1",
              "smem_pass2", "blocks_per_sm_pass1", "blocks_per_sm_pass2", "k2_tile",
-             "k2_cluster", "k2_max_planes", "k2_threads", "k2_groups")
+             "k2_cluster", "k2_max_planes", "k2_threads", "k2_groups", "k4_blocks",
+             "k4_threads")
 CRITIC_INFO_KEYS = ("smem", "clusters", "blocks_per_sm")
 MIN_SLAB_ROWS = 512     # fewer rows than this per slab are not worth a partial
 STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
@@ -119,6 +124,14 @@ def row_plan(n, tiles, step, slots):
     nslab = max(1, min(slots // tiles, -(-n // MIN_SLAB_ROWS)))
     rows = -(-(-(-n // nslab)) // step) * step
     return -(-n // rows), rows
+
+
+def k2_planes(planes, most):
+    """(kept, spilled): of K2's `planes` = T + 1 planes of values, those
+    that shared memory holds (at most `most`, the library's k2_max_planes)
+    and those past them, which spill to the global scratch."""
+    kept = min(planes, most)
+    return kept, planes - kept
 
 
 def critic_grid(rows, tile, cluster, clusters):
@@ -146,13 +159,13 @@ class FusedUpdate:
     grads_launches and policy_logp_launches count wrapper calls that launch
     on the card; each moves only there.  Device kernels per call: K2 two
     (the weight copy, the critic with the walk), K3 and K9 four (the weight
-    copy, pass 1, pass 2, the reduce), K4 two, K8 and K10 two.  Scratch, kept
+    copy, pass 1, pass 2, the reduce), K4 one, K8 and K10 two.  Scratch, kept
     per (device, N) and reused by every call:
     K3's and K9's pass-1 rows (N x 2,400 values of the compute type: 0.47 GB
     in bf16, 0.94 GB in f32 at N = 98,304), one f32 partial of the
     gradient per slab (0.71 MB each), the pass-1 blocks' stat partials, K2's
-    block partials and arrival counter (k2_scratch), and the padded weights
-    (180,224 values per device)."""
+    block partials, arrival counter and spill (k2_scratch), K4's block sums
+    (k4_part) and the padded weights (180,224 values per device)."""
 
     def __init__(self, network, clip_ratio, bound_coef):
         self.dtype = network.actor.dtype
@@ -264,16 +277,30 @@ class FusedUpdate:
                                              device=device)
         return self._scratch[key]
 
-    def k2_scratch(self, device, nparts):
+    def k2_scratch(self, device, nparts, nspill=0):
         """K2's scratch, kept per device and grown as needed: {"part": the
         blocks' partial sums [2 * nparts] f32, "count": the blocks' arrival
-        counter, int32, 0 between calls}."""
+        counter, int32, 0 between calls, "spill": [nspill] f32 (at least),
+        the values of the planes past k2_max_planes}."""
         device = self._device(device)
         key = (device, "k2")
-        if key not in self._scratch or self._scratch[key]["part"].numel() < 2 * nparts:
-            self._scratch[key] = dict(
+        sc = self._scratch.get(key)
+        if sc is None or sc["part"].numel() < 2 * nparts:
+            sc = self._scratch[key] = dict(
                 part=torch.empty(2 * nparts, dtype=torch.float32, device=device),
-                count=torch.zeros(1, dtype=torch.int32, device=device))
+                count=torch.zeros(1, dtype=torch.int32, device=device),
+                spill=torch.empty(0, dtype=torch.float32, device=device))
+        if sc["spill"].numel() < nspill:
+            sc["spill"] = torch.empty(nspill, dtype=torch.float32, device=device)
+        return sc
+
+    def k4_part(self, device):
+        """K4's block sums [k4_blocks] f32, kept per device."""
+        device = self._device(device)
+        key = (device, "k4")
+        if key not in self._scratch:
+            self._scratch[key] = torch.empty(self.info(device)["k4_blocks"],
+                                             dtype=torch.float32, device=device)
         return self._scratch[key]
 
     def k3_scratch(self, device, n):
@@ -434,21 +461,24 @@ class FusedUpdate:
         self._check("obsc", obsc, (T + 1, B, self.num_crit), self.dtype)
         for name, t in (("rew", rew), ("nonterm", nonterm), ("timeout_f", timeout_f)):
             self._check(name, t, (T, B))
+        if T < 1 or B < 1:
+            raise ValueError(f"K2 takes T >= 1 and B >= 1, got T={T}, B={B}")
         dev = staged.device
         info = self.info(dev)
-        if not 1 <= T + 1 <= info["k2_max_planes"] or B < 1:
-            raise ValueError(f"K2 takes 1 <= T <= {info['k2_max_planes'] - 1} and B >= 1 "
-                             f"(its values stay in shared memory), got T={T}, B={B}")
+        splanes, spilled = k2_planes(T + 1, info["k2_max_planes"])
         groups, nblk = critic_grid(B, info["k2_tile"], info["k2_cluster"],
-                                   self.critic_info(dev, T + 1)["clusters"])
-        sc = self.k2_scratch(dev, groups * info["k2_cluster"] * info["k2_groups"])
+                                   self.critic_info(dev, splanes)["clusters"])
+        ew = info["k2_tile"] // info["k2_cluster"]
+        sc = self.k2_scratch(dev, groups * info["k2_cluster"] * info["k2_groups"],
+                             nblk * spilled * ew)
         adv = torch.empty((T, B), dtype=torch.float32, device=dev)
         ret = torch.empty((T, B), dtype=torch.float32, device=dev)
         sums = torch.empty(2, dtype=torch.float32, device=dev)
         err = self._library().bg_gae(
             self.bf16, staged.data_ptr(), self._offs, self._wpad(dev).data_ptr(), obsc.data_ptr(),
             rew.data_ptr(), nonterm.data_ptr(), timeout_f.data_ptr(), sc["part"].data_ptr(),
-            sc["count"].data_ptr(), adv.data_ptr(), ret.data_ptr(), sums.data_ptr(), T, B,
+            sc["count"].data_ptr(), sc["spill"].data_ptr() if spilled else None, adv.data_ptr(),
+            ret.data_ptr(), sums.data_ptr(), T, B,
             float(gamma), float(lam), nblk, None if events is None else (
                 ctypes.c_void_p * len(events))(*(e.cuda_event for e in events)),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -608,10 +638,13 @@ class FusedUpdate:
         for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
             self._check(name, t, (self.n_params,))
         self._check("lr", lr, ())
+        for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned (K4 loads float4)")
         dev = g.device
         p2, m2, v2 = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
         staged = torch.empty(self.n_params, dtype=self.dtype, device=dev)
-        part = torch.empty(64, dtype=torch.float32, device=dev)
+        part = self.k4_part(dev)
         err = self._library().bg_opt_stage(
             self.bf16, g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), lr.data_ptr(),
             int(cnt), self.logstd_off, self.n_params, float(entropy_coef), float(b1),

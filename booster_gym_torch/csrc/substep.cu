@@ -24,11 +24,11 @@
 //   9. quaternion-exponential integration and joint-limit projection;
 //  10. feet poses from the start-of-substep FK.
 // K5 takes a terrain height h [NPT, B] and a unit normal n [3 NPT, B] per
-// contact point, constant over the substep (over the control step in
-// bg_control): the depth is h + radius - z, the approach speed and the
-// push-out target lie along n, the friction cone opens about n, and the
-// points' world xy from step 1's FK go out as ptxy [2 NPT, B] for the
-// caller's next terrain query.  K1 is the same code with h = 0 and n = +z
+// contact point (bg_control_terrain: at any element strides), constant over
+// the substep (over the control step in bg_control): the depth is h +
+// radius - z, the approach speed and the push-out target lie along n, the
+// friction cone opens about n, and the points' world xy from step 1's FK
+// go out as ptxy [2 NPT, B] for the caller's next terrain query.  K1 is the same code with h = 0 and n = +z
 // as compile-time constants.  Every operation into which h or n enters, and
 // every sum that consumes one of them, is written with the _rn intrinsics,
 // which nvcc neither contracts into FMAs nor reorders, so the compiler
@@ -39,6 +39,29 @@
 // booster_gym_torch/physics/engine.py::make_substep (its `step` for K1, its
 // `step.terrain_form` for K5), and SubstepKernel.control_step_plain for
 // bg_control.
+//
+// The control step's epilogue (control_kernel, after the last substep)
+// replaces the env's post-physics tensor ops and the terrain sampler's
+// launch (K6 + K7, booster_gym_tpu/terrain/sample_kernel.py), which read
+// what the kernel already holds on chip at its end.  Both builds: the foot
+// edge points in the world frame, p_f + R_f e_k for each foot f and each
+// of NE offsets e_k (a table passed in), in envs/t1.py's operation order,
+// every operation an _rn intrinsic, so the points equal the torch ops'
+// bitwise and K5 = K1 on plane inputs holds for them as for every output.
+// K5 also samples the terrain under the step's NQ = NPT + 1 + NF NE queries
+// (the contact points' xy from the last substep's FK, the root, the edge
+// points; t1.py's order) with terrain_sample.cuh, the standalone sampler's
+// own device functions, and writes heights [B, NQ] and normals [B, NQ, 3],
+// the standalone sampler's layout, env-major so that a warp's stores are
+// contiguous: the next control step reads their first NPT columns in place
+// (strides he = NQ, ne = 3 NQ).  The contact points' xy are recomputed from
+// the last substep's FK, which w still holds, by the same device function
+// (point_world): bit for bit the ptxy that substep wrote, without reading
+// it back.  On an NVIDIA H100 80GB HBM3 at 700 W the epilogue costs K5
+// 12-20 us a control step, two thirds of it by being compiled in at all
+// (PERF.md, section 6).
+// -DEPILOGUE=0 compiles the epilogue out (its outputs are then not
+// written): a diagnostic build that times the control step without it.
 //
 // Design.  A warp per env and EPB envs per block (a -D size in the
 // library's name; 8, so that 4 blocks of 56.7 KB and 64 registers a thread
@@ -77,6 +100,8 @@
 
 #include <cuda_runtime.h>
 
+#include "terrain_sample.cuh"
+
 #if !defined(NB) || !defined(ND) || !defined(NPT) || !defined(NS) || !defined(NF)
 #error "compile with -DNB=.. -DND=.. -DNPT=.. -DNS=.. -DNF=.."
 #endif
@@ -90,6 +115,12 @@
 #ifndef PHASE_CLOCKS
 #define PHASE_CLOCKS 0
 #endif
+#ifndef NE
+#define NE 0    // foot edge points per foot
+#endif
+#ifndef EPILOGUE
+#define EPILOGUE 1
+#endif
 #ifndef MINB
 #define MINB (32 / EPB)  // resident blocks per SM asked of ptxas: 32 warps
 #endif                   // per SM, 64 registers a thread
@@ -98,6 +129,9 @@
 #define NSTATE (13 + 2 * ND)
 #define NDYN (10 * NB + 2 * NS)
 #define PPL ((NPT + 31) / 32)   // contact points per lane
+#define NEDGE (NF * NE)          // foot edge points
+#define NQ (NPT + 1 + NEDGE)     // terrain queries of a control step
+#define QPL ((NQ + 31) / 32)     // queries per lane
 #define DPL ((ND + 31) / 32)    // dofs per lane
 #define RPL ((NV + 31) / 32)    // matrix rows per lane
 #define LDG (NV | 1)            // odd row strides: no bank conflicts
@@ -372,6 +406,16 @@ __device__ __forceinline__ void wrench_du(EnvWS& w, const float* m,
   gen_force(w, lane);
   for (int i = lane; i < NV; i += 32) w.un[i] = w.uf[i] + g_row(w, i, w.sv);
   __syncwarp();
+}
+
+// contact point p's world position from the FK in w: R_b ppos_p + P_b (the
+// epilogue recomputes the last substep's this way, bit for bit)
+__device__ __forceinline__ void point_world(const EnvWS& w, const float* m, int p,
+                                            float (&wp)[3]) {
+  const int b = ti(m, OFF_PBODY + p);
+  mv33(w.R[b], m + OFF_PPOS + 3 * p, wp);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) wp[k] += w.P[b][k];
 }
 
 // ---------------------------------------------------------------------------
@@ -717,14 +761,10 @@ __device__ __forceinline__ void substep(EnvWS& w, const float* m, const int* pai
     const int p = lane + 32 * s;
     pa[s] = pmu[s] = vtz[s] = 0.0f;
     if (p < NPT) {
-      const int b = ti(m, OFF_PBODY + p);
       float wp[3];
-      mv33(w.R[b], m + OFF_PPOS + 3 * p, wp);
+      point_world(w, m, p, wp);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        wp[k] += w.P[b][k];
-        pr[s][k] = wp[k] - p0[k];
-      }
+      for (int k = 0; k < 3; ++k) pr[s][k] = wp[k] - p0[k];
       const float depth = __fsub_rn(__fadd_rn(ph[s], m[OFF_PRAD + p]), wp[2]);
       if (ptxy != nullptr) {
         ptxy[(size_t)(2 * p) * B + e] = wp[0];
@@ -932,10 +972,17 @@ __device__ __forceinline__ EnvWS* setup_block(const float* __restrict__ mdl, flo
   return reinterpret_cast<EnvWS*>(pairs + NPAIR);
 }
 
+// the element strides of K5's terrain inputs: height p of env e at
+// h_in[p hc + e he], normal component c = 3 p + k at n_in[c nc + e ne]
+struct TerrainIn {
+  int hc, he, nc, ne;
+};
+
 // each lane's points' terrain: read once (K5), or the plane's constants (K1)
 __device__ __forceinline__ void load_terrain(const float* __restrict__ h_in,
-                                             const float* __restrict__ n_in, int lane, int e,
-                                             int B, float (&ph)[PPL], float (&pn)[PPL][3]) {
+                                             const float* __restrict__ n_in,
+                                             const TerrainIn& st, int lane, int e,
+                                             float (&ph)[PPL], float (&pn)[PPL][3]) {
 #pragma unroll
   for (int s = 0; s < PPL; ++s) {
     const int p = lane + 32 * s;
@@ -945,9 +992,10 @@ __device__ __forceinline__ void load_terrain(const float* __restrict__ h_in,
     pn[s][2] = 1.0f;
 #if !PLANE
     if (p < NPT) {
-      ph[s] = h_in[(size_t)p * B + e];
+      ph[s] = h_in[(size_t)p * st.hc + (size_t)e * st.he];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) pn[s][k] = n_in[(size_t)(3 * p + k) * B + e];
+      for (int k = 0; k < 3; ++k)
+        pn[s][k] = n_in[(size_t)(3 * p + k) * st.nc + (size_t)e * st.ne];
     }
 #endif
   }
@@ -974,6 +1022,67 @@ __device__ __forceinline__ void store_outputs(const EnvWS& w, const float* m, in
   }
 }
 
+// The control step's epilogue, env-major outputs (a warp's stores are
+// contiguous): each lane's queries q = lane + 32 s; foot edge point k
+// (query NPT + 1 + k) as p + R e in t1.py's order, ((p_i + R_i0 e_0) +
+// R_i1 e_1) + R_i2 e_2, to edge_out [B, 3, NEDGE]; K5 with a field hf also
+// each query's height and normal to h_out [B, NQ] and n_out [B, NQ, 3], on
+// the patch of the env's root (its origin found once a lane), the contact
+// points' xy from the last substep's FK by point_world, as the substep
+// computed them (the ptxy it wrote), the root's from the state.  The slots
+// are unrolled, so one slot's loads wait beside the others'.
+__device__ __forceinline__ void control_epilogue(const EnvWS& w, const float* m, int lane, int e,
+                                                 int B, const float* __restrict__ edge_pos,
+                                                 float* __restrict__ edge_out,
+                                                 const float* __restrict__ hf, int R, int C,
+                                                 float bp, float hs, float* __restrict__ h_out,
+                                                 float* __restrict__ n_out) {
+#if !PLANE
+  int ox = 0, oy = 0;
+  if (hf != nullptr) terrain_patch(R, C, bp, hs, w.st[0], w.st[1], &ox, &oy);
+#endif
+#pragma unroll
+  for (int s = 0; s < QPL; ++s) {
+    const int q = lane + 32 * s;
+    if (q >= NQ) break;
+    float x = 0.0f, y = 0.0f;
+#if NE > 0
+    if (q > NPT) {
+      const int k = q - NPT - 1, b = ti(m, OFF_FEET + k / NE);
+      const float* ep = edge_pos + 3 * (k % NE);
+      float c[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        c[i] = __fadd_rn(__fadd_rn(__fadd_rn(w.P[b][i], __fmul_rn(w.R[b][3 * i], ep[0])),
+                                   __fmul_rn(w.R[b][3 * i + 1], ep[1])),
+                         __fmul_rn(w.R[b][3 * i + 2], ep[2]));
+        edge_out[((size_t)e * 3 + i) * NEDGE + k] = c[i];
+      }
+      x = c[0];
+      y = c[1];
+    }
+#endif
+#if !PLANE
+    if (hf != nullptr) {
+      if (q < NPT) {
+        float wp[3];
+        point_world(w, m, q, wp);
+        x = wp[0];
+        y = wp[1];
+      } else if (q == NPT) {
+        x = w.st[0];
+        y = w.st[1];
+      }
+      float h, n[3];
+      terrain_sample_at(hf, R, C, bp, hs, ox, oy, x, y, &h, n);
+      h_out[(size_t)e * NQ + q] = h;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) n_out[((size_t)e * NQ + q) * 3 + k] = n[k];
+    }
+#endif
+  }
+}
+
 // One substep; every tensor component-major [comp, B].
 __global__ void __launch_bounds__(32 * EPB, MINB)
 substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
@@ -992,7 +1101,7 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
   for (int j = lane; j < ND; j += 32) w.tau[j] = tau_in[(size_t)j * B + e];
   if (lane < 6) w.ext[lane] = ext_in[(size_t)lane * B + e];
   float ph[PPL], pn[PPL][3];
-  load_terrain(h_in, n_in, lane, e, B, ph, pn);
+  load_terrain(h_in, n_in, TerrainIn{B, 1, B, 1}, lane, e, ph, pn);
   __syncwarp();
   substep(w, m, pairs, lane, ph, pn, PLANE ? nullptr : ptxy_out, e, B);
   store_outputs(w, m, lane, e, B, s_out, f_out, feet_out);
@@ -1000,10 +1109,12 @@ substep_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
 
 // One control step: `decimation` substeps, each after the delay latch
 // (last = targets from substep delay on), PD, Coulomb joint friction and the
-// torque clip; the push on substep 0 only.  The state, dyn and the contact
-// points' terrain stay on chip; the per-dof inputs and outputs are
-// batch-leading [B, ND] (lanes read an env's row), delay [B] int64, lim
-// [ND], ext [B, 6]; the rest component-major [comp, B].
+// torque clip; the push on substep 0 only; then the epilogue.  The state,
+// dyn and the contact points' terrain stay on chip; the per-dof inputs and
+// outputs are batch-leading [B, ND] (lanes read an env's row), delay [B]
+// int64, lim [ND], ext [B, 6], edge_pos [NE, 3]; the rest component-major
+// [comp, B], the terrain inputs at tin's strides, the epilogue's outputs
+// env-major.
 __global__ void __launch_bounds__(32 * EPB, MINB)
 control_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
                const float* __restrict__ targets, const float* __restrict__ last_in,
@@ -1011,10 +1122,13 @@ control_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
                const float* __restrict__ kd_in, const float* __restrict__ fric_in,
                const float* __restrict__ lim_in, const float* __restrict__ ext_in,
                const float* __restrict__ h_in, const float* __restrict__ n_in,
-               float* __restrict__ ptxy_out, const float* __restrict__ mdl,
+               TerrainIn tin, float* __restrict__ ptxy_out, const float* __restrict__ mdl,
                float* __restrict__ s_out, float* __restrict__ last_out,
                float* __restrict__ tsum_out, float* __restrict__ f_out,
-               float* __restrict__ feet_out, int B, int decimation) {
+               float* __restrict__ feet_out, int B, int decimation,
+               const float* __restrict__ edge_pos, float* __restrict__ edge_out,
+               const float* __restrict__ hf, int R, int C, float bp, float hs,
+               float* __restrict__ h_out, float* __restrict__ n_out) {
   float* m;
   int* pairs;
   EnvWS* ws = setup_block(mdl, m, pairs);
@@ -1024,7 +1138,7 @@ control_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
   load_state(w, s_in, dyn, lane, e, B);
   if (lane < 6) w.ext[lane] = ext_in[(size_t)e * 6 + lane];
   float ph[PPL], pn[PPL][3];
-  load_terrain(h_in, n_in, lane, e, B, ph, pn);
+  load_terrain(h_in, n_in, tin, lane, e, ph, pn);
   // each lane's dofs carry the latched target and the torque sum; the
   // gains, friction, limit and target are read where they are used (L1)
   float last[DPL], tsum[DPL];
@@ -1069,6 +1183,9 @@ control_kernel(const float* __restrict__ s_in, const float* __restrict__ dyn,
       tsum_out[(size_t)e * ND + j] = tsum[r];
     }
   }
+#if EPILOGUE
+  control_epilogue(w, m, lane, e, B, edge_pos, edge_out, hf, R, C, bp, hs, h_out, n_out);
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -1093,20 +1210,32 @@ static int launch_substep(const float* s_in, const float* dyn, const float* tau,
   return (int)cudaGetLastError();
 }
 
+// the epilogue's arguments: the edge offsets and points, and K5's field
+// (null: no sampling) with its size and scale and the queries' outputs
+struct Epilogue {
+  const float* edge_pos;
+  float* edge_out;
+  const float* hf;
+  int R, C;
+  float bp, hs;
+  float *h_out, *n_out;
+};
+
 static int launch_control(const float* s_in, const float* dyn, const float* targets,
                           const float* last_in, const long long* delay, const float* kp,
                           const float* kd, const float* fric, const float* lim,
                           const float* ext, const float* h_in, const float* n_in,
-                          const float* mdl, float* s_out, float* last_out, float* tsum_out,
-                          float* f_out, float* feet_out, float* ptxy_out, int B, int decimation,
-                          void* stream) {
+                          const TerrainIn& tin, const float* mdl, float* s_out, float* last_out,
+                          float* tsum_out, float* f_out, float* feet_out, float* ptxy_out,
+                          int B, int decimation, const Epilogue& ep, void* stream) {
   if (B <= 0) return 0;
   static int ready = allow_smem((const void*)control_kernel);
   if (ready != 0) return ready;
   const int grid = (B + EPB - 1) / EPB;
   control_kernel<<<grid, 32 * EPB, SMEM_BYTES, (cudaStream_t)stream>>>(
-      s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, h_in, n_in, ptxy_out, mdl,
-      s_out, last_out, tsum_out, f_out, feet_out, B, decimation);
+      s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, h_in, n_in, tin, ptxy_out, mdl,
+      s_out, last_out, tsum_out, f_out, feet_out, B, decimation, ep.edge_pos, ep.edge_out, ep.hf,
+      ep.R, ep.C, ep.bp, ep.hs, ep.h_out, ep.n_out);
   return (int)cudaGetLastError();
 }
 
@@ -1144,15 +1273,18 @@ extern "C" int bg_substep(const float* s_in, const float* dyn, const float* tau,
                         nullptr, B, stream);
 }
 
+// edge_pos [NE, 3], edge_out [3 NF NE, B] (null when NE = 0)
 extern "C" int bg_control(const float* s_in, const float* dyn, const float* targets,
                           const float* last_in, const long long* delay, const float* kp,
                           const float* kd, const float* fric, const float* lim,
-                          const float* ext, const float* mdl, float* s_out, float* last_out,
-                          float* tsum_out, float* f_out, float* feet_out, int B,
-                          int decimation, void* stream) {
+                          const float* ext, const float* mdl, const float* edge_pos,
+                          float* s_out, float* last_out, float* tsum_out, float* f_out,
+                          float* feet_out, float* edge_out, int B, int decimation,
+                          void* stream) {
+  const Epilogue ep = {edge_pos, edge_out, nullptr, 0, 0, 0.0f, 0.0f, nullptr, nullptr};
   return launch_control(s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, nullptr,
-                        nullptr, mdl, s_out, last_out, tsum_out, f_out, feet_out, nullptr, B,
-                        decimation, stream);
+                        nullptr, TerrainIn{0, 0, 0, 0}, mdl, s_out, last_out, tsum_out, f_out,
+                        feet_out, nullptr, B, decimation, ep, stream);
 }
 #else
 extern "C" int bg_substep_terrain(const float* s_in, const float* dyn, const float* tau,
@@ -1163,16 +1295,24 @@ extern "C" int bg_substep_terrain(const float* s_in, const float* dyn, const flo
                         B, stream);
 }
 
+// h_in, n_in: the points' heights and normals at the element strides hc,
+// he, nc, ne (TerrainIn); edge_pos, edge_out as for bg_control; hf [R, C]
+// the field under the queries, or null (then h_out and n_out are not
+// written): its border pixels bp and horizontal scale hs; h_out [B, NQ],
+// n_out [B, NQ, 3]
 extern "C" int bg_control_terrain(const float* s_in, const float* dyn, const float* targets,
                                   const float* last_in, const long long* delay,
                                   const float* kp, const float* kd, const float* fric,
                                   const float* lim, const float* ext, const float* h_in,
-                                  const float* n_in, const float* mdl, float* s_out,
-                                  float* last_out, float* tsum_out, float* f_out,
-                                  float* feet_out, float* ptxy_out, int B, int decimation,
-                                  void* stream) {
+                                  const float* n_in, const float* mdl, const float* edge_pos,
+                                  const float* hf, float* s_out, float* last_out,
+                                  float* tsum_out, float* f_out, float* feet_out,
+                                  float* ptxy_out, float* edge_out, float* h_out, float* n_out,
+                                  int hc, int he, int nc, int ne, int R, int C, float bp,
+                                  float hs, int B, int decimation, void* stream) {
+  const Epilogue ep = {edge_pos, edge_out, hf, R, C, bp, hs, h_out, n_out};
   return launch_control(s_in, dyn, targets, last_in, delay, kp, kd, fric, lim, ext, h_in, n_in,
-                        mdl, s_out, last_out, tsum_out, f_out, feet_out, ptxy_out, B,
-                        decimation, stream);
+                        TerrainIn{hc, he, nc, ne}, mdl, s_out, last_out, tsum_out, f_out,
+                        feet_out, ptxy_out, B, decimation, ep, stream);
 }
 #endif

@@ -65,7 +65,8 @@
 // restages all weights, ~0.7 MB per 64 rows), the epilogues and the scratch
 // stores in lock step, so each of those costs about as much as the tensor
 // work; then pass 2's reads of the scratch (0.47 GB bf16 at 98,304 rows).
-// K4 is bound by bytes (four vectors read, four written).
+// K4 is bound by bytes (four vectors read, four written); it is one launch
+// (k4_opt, its design is at the kernel).
 //
 // Sums across blocks are deterministic: each pass-1 block owns a fixed set
 // of tiles and adds their stats in a fixed order into its own partial, each
@@ -640,8 +641,11 @@ __global__ void __launch_bounds__(K4_NT) k_pad(const T* __restrict__ staged, Off
 //
 // K2 (GAE): a cluster owns a group of TN envs over all T + 1 planes (tile
 // (g, t) is rows t B + g TN ...), keeps the values of its block's EW = TN /
-// CL envs in shared memory, and walks them backwards at the group's end, a
-// thread per env, in the reference's arithmetic; each warp group of each
+// CL envs in shared memory, the first max_planes planes of them (past that,
+// at horizons that shared memory does not hold, the rest go to the block's
+// rows of a global spill, written and read back by the same warp), and
+// walks them backwards at the group's end, a thread per env, in the
+// reference's arithmetic; each warp group of each
 // block writes its partial of sum(adv) and sum(adv^2), and the last block
 // to arrive (an integer counter, reset to 0 by that block) adds the
 // partials in order.  K8: a cluster walks tiles of rows [0, n_rows); each
@@ -765,8 +769,10 @@ __device__ __forceinline__ void share_slice(const T* gx, int off, int outs, int 
 struct K2Args {
     const float *rew, *nonterm, *timeout;
     float *adv, *ret, *values, *part, *sums;
+    float* spill;    // K2: [blocks][T + 1 - splanes][EW] f32, null if splanes = T + 1
     unsigned* count;
     int n_rows, T, B;
+    int splanes;     // K2: the planes of values kept in shared memory
     float gamma, lam;
 };
 
@@ -1030,6 +1036,13 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
             nvalid = (int)(a.n_rows - row0);
         }
     };
+    // plane t's value of column col: in shared memory for t < splanes, past
+    // them in the block's rows of the spill
+    auto vslot = [&](int t, int col) -> float* {
+        return t < a.splanes ? gv + t * C::EW + col
+                             : a.spill + ((size_t)blockIdx.x * (planes - a.splanes)
+                                          + (t - a.splanes)) * C::EW + col;
+    };
     X0Regs<T> x0r;
     long row0 = 0;
     int nvalid = 0;
@@ -1047,7 +1060,7 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
         const long b = (long)g * C::TN + grp * C::TG + rank * C::EG + e;
         float sa = 0.0f, sa2 = 0.0f;
         if (e < C::EG && b < a.B) {
-            float nextv = gv[a.T * C::EW + col], carry = 0.0f;
+            float nextv = *vslot(a.T, col), carry = 0.0f;
             for (int t0 = a.T - 1; t0 >= 0; t0 -= 8) {
                 float rw[8], nt[8], tf[8];
 #pragma unroll
@@ -1063,7 +1076,7 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
                     const int t = t0 - u;
                     if (t < 0) break;
                     const size_t i = (size_t)t * a.B + b;
-                    const float v = gv[t * C::EW + col];
+                    const float v = *vslot(t, col);
                     const float rwd = tf[u] * v + (1.0f - tf[u]) * rw[u];
                     const float delta = rwd + a.gamma * nt[u] * nextv - v;
                     const float adv = delta + a.gamma * a.lam * nt[u] * carry;
@@ -1097,9 +1110,9 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
         if constexpr (GAE) {
             const int t = k % planes;
             crit_value<T>(p0, sm + C::wo(3), sm + C::BIAS, rank, gtid,
-                          [&](int e, float v) { gv[t * C::EW + grp * C::EG + e] = v; });
+                          [&](int e, float v) { *vslot(t, grp * C::EG + e) = v; });
             if (t < a.T) return;
-            __syncwarp();   // gv's rows
+            __syncwarp();   // the values' rows (shared memory and spill)
             walk(cid + (k / planes) * ncl);
         } else {
             crit_value<T>(p0, sm + C::wo(3), sm + C::BIAS, rank, gtid, [&](int e, float v) {
@@ -1552,67 +1565,178 @@ k3_reduce(const float* __restrict__ part, int nslab, const float* __restrict__ p
 }
 
 // ---------------------------------------------------------------------------
-// K4, kernel 1 of 2: per-block sums of squares of the gradient (entropy
-// coefficient added on logstd first), fixed order inside the block.
-constexpr int K4_BLOCKS = 64;
+// K4 (opt_stage): the entropy coefficient on logstd, the global-norm clip,
+// Adam at step cnt + 1 with lr read from device memory, and the copy of the
+// new parameters in type T, in one launch of K4_BLOCKS blocks of
+// K4_THREADS threads.  Each thread loads its share of g, m, v and p once,
+// K4_VPT float4 vectors of each (thread t of the launch takes vectors t,
+// t + threads, ...), all issued before the first is used, adds the
+// coefficient on logstd and keeps them in registers; each block sums the
+// squares of g in a fixed order (each thread's own in vector order, then a
+// shuffle tree per warp, then warp 0 over the warps).  The launch is
+// cooperative, its blocks all resident: the block sums go to a global
+// partial [K4_BLOCKS], then grid.sync(), then thread 0 of every block adds
+// them in block order, so every block sees the same norm bit for bit.  The
+// clip and Adam then run on the values still in registers, and p', m', v'
+// and staged are written once, 16 bytes a thread at a time.  A g longer than the
+// registers hold (n > 4 K4_VPT K4_BLOCKS K4_THREADS) is read again past
+// them; the last n % 4 values go one to a thread.
+//
+// What bounds it on an H100 (SXM, 3.35 TB/s): bytes, 5.34 MB at the T1
+// networks' 177,945 parameters in bf16 (g, p, m, v read; p', m', v' and
+// staged written): 1.6 us.  What holds it is the latency of one round of
+// loads, the barrier, and one round of stores: more blocks put more bytes
+// in flight and make the barrier dearer.  On an NVIDIA H100 80GB HBM3 at
+// 700 W, 64 blocks measured fastest beside 32 and 132, and a 16-block
+// cluster sharing the sums through distributed shared memory slower still
+// (PERF.md, section 6).
+#ifndef K4_BLOCKS
+#define K4_BLOCKS 64
+#endif
+#ifndef K4_THREADS
+#define K4_THREADS 256
+#endif
+#ifndef K4_VPT
+#define K4_VPT 3         // float4 vectors of each of g, m, v, p a thread keeps
+#endif
+static_assert(K4_THREADS % 32 == 0 && K4_THREADS / 32 <= 32, "K4's warps");
 
-__device__ __forceinline__ float k4_grad(const float* __restrict__ g, int i, int logstd_off,
-                                         float entropy_coef) {
-    float x = g[i];
-    if (i >= logstd_off && i < logstd_off + NACT) x += entropy_coef;
-    return x;
-}
-
-__global__ void __launch_bounds__(K4_NT)
-k4_sumsq(const float* __restrict__ g, int n, int logstd_off, float entropy_coef,
-         float* __restrict__ part) {
-    __shared__ float sm[K4_NT];
-    const int chunk = (n + K4_BLOCKS - 1) / K4_BLOCKS;
-    const int lo = blockIdx.x * chunk, hi = lo + chunk < n ? lo + chunk : n;
-    float sum = 0.0f;
-    for (int i = lo + threadIdx.x; i < hi; i += K4_NT) {
-        const float x = k4_grad(g, i, logstd_off, entropy_coef);
-        sum += x * x;
-    }
-    sm[threadIdx.x] = sum;
-    __syncthreads();
-    for (int w = K4_NT / 2; w > 0; w >>= 1) {
-        if (threadIdx.x < w) sm[threadIdx.x] += sm[threadIdx.x + w];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) part[blockIdx.x] = sm[0];
-}
-
-// K4, kernel 2 of 2: every thread adds the same partials in the same order,
-// so all see one norm; then clip, Adam, and the copy of the new parameters
-// in type T.  lr is read from device memory.
 struct K4Args {
-    const float *g, *p, *m, *v, *lr, *part;
+    const float *g, *p, *m, *v, *lr;
     float *p2, *m2, *v2;
+    float* part;     // [K4_BLOCKS] f32 scratch: the block sums
     int n, cnt, logstd_off;
     float entropy_coef, b1, omb1, b2, omb2, logb1, logb2, eps, max_norm;
 };
 
+// g[i] with the entropy coefficient added on logstd
+__device__ __forceinline__ float k4_grad(const K4Args& a, int i, float x) {
+    return (i >= a.logstd_off && i < a.logstd_off + NACT) ? x + a.entropy_coef : x;
+}
+
+__device__ __forceinline__ float4 k4_load(const K4Args& a, int j) {
+    float4 x = reinterpret_cast<const float4*>(a.g)[j];
+    x.x = k4_grad(a, 4 * j, x.x);
+    x.y = k4_grad(a, 4 * j + 1, x.y);
+    x.z = k4_grad(a, 4 * j + 2, x.z);
+    x.w = k4_grad(a, 4 * j + 3, x.w);
+    return x;
+}
+
+__device__ __forceinline__ float k4_sq4(float4 x, float s) {
+    return fmaf(x.w, x.w, fmaf(x.z, x.z, fmaf(x.y, x.y, fmaf(x.x, x.x, s))));
+}
+
+// Adam on one value: (p', m', v') from g (clipped), m, v, p
+struct K4Step { float scale, bc1, bc2, lr; };
+__device__ __forceinline__ void k4_adam1(const K4Args& a, const K4Step& k, float g, float m,
+                                         float v, float p, float& p2, float& m2, float& v2) {
+    g *= k.scale;
+    m2 = a.b1 * m + a.omb1 * g;
+    v2 = a.b2 * v + a.omb2 * (g * g);
+    p2 = p + (-k.lr) * ((m2 / k.bc1) / (sqrtf(v2 / k.bc2) + a.eps));
+}
+
+// vector j's update from its g, m, v, p
 template <typename T>
-__global__ void __launch_bounds__(K4_NT) k4_adam(K4Args a, T* __restrict__ staged) {
-    const int i = blockIdx.x * K4_NT + threadIdx.x;
-    if (i >= a.n) return;
+__device__ __forceinline__ void k4_store4(const K4Args& a, const K4Step& k, int j, float4 g,
+                                          float4 m, float4 v, float4 p, T* __restrict__ staged) {
+    float4 p2, m2, v2;
+    k4_adam1(a, k, g.x, m.x, v.x, p.x, p2.x, m2.x, v2.x);
+    k4_adam1(a, k, g.y, m.y, v.y, p.y, p2.y, m2.y, v2.y);
+    k4_adam1(a, k, g.z, m.z, v.z, p.z, p2.z, m2.z, v2.z);
+    k4_adam1(a, k, g.w, m.w, v.w, p.w, p2.w, m2.w, v2.w);
+    reinterpret_cast<float4*>(a.p2)[j] = p2;
+    reinterpret_cast<float4*>(a.m2)[j] = m2;
+    reinterpret_cast<float4*>(a.v2)[j] = v2;
+    if constexpr (std::is_same<T, float>::value) {
+        reinterpret_cast<float4*>(staged)[j] = p2;
+    } else {
+        __nv_bfloat162 lo, hi;
+        lo.x = CT<T>::from_f(p2.x);
+        lo.y = CT<T>::from_f(p2.y);
+        hi.x = CT<T>::from_f(p2.z);
+        hi.y = CT<T>::from_f(p2.w);
+        uint2 u;
+        u.x = *reinterpret_cast<uint32_t*>(&lo);
+        u.y = *reinterpret_cast<uint32_t*>(&hi);
+        reinterpret_cast<uint2*>(staged)[j] = u;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K4_THREADS, 1) k4_opt(K4Args a, T* __restrict__ staged) {
+    namespace cg = cooperative_groups;
+    __shared__ float warp_sq[K4_THREADS / 32];
+    __shared__ float block_sq, total_sq;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nthr = K4_BLOCKS * K4_THREADS, gt = blockIdx.x * K4_THREADS + tid;
+    const int n4 = a.n / 4, tail = 4 * n4 + gt;
+    const float4* m4 = reinterpret_cast<const float4*>(a.m);
+    const float4* v4 = reinterpret_cast<const float4*>(a.v);
+    const float4* p4 = reinterpret_cast<const float4*>(a.p);
+    float4 gr[K4_VPT], mr[K4_VPT], vr[K4_VPT], pr[K4_VPT];
+#pragma unroll
+    for (int u = 0; u < K4_VPT; ++u) {
+        const int j = gt + u * nthr;
+        if (j < n4) {
+            gr[u] = k4_load(a, j);
+            mr[u] = m4[j];
+            vr[u] = v4[j];
+            pr[u] = p4[j];
+        }
+    }
     float sq = 0.0f;
-    for (int b = 0; b < K4_BLOCKS; ++b) sq += a.part[b];
-    const float g_norm = sqrtf(sq);
-    const float scale = g_norm < a.max_norm ? 1.0f : a.max_norm / g_norm;
+#pragma unroll
+    for (int u = 0; u < K4_VPT; ++u)
+        if (gt + u * nthr < n4) sq = k4_sq4(gr[u], sq);
+    for (int j = gt + K4_VPT * nthr; j < n4; j += nthr) sq = k4_sq4(k4_load(a, j), sq);
+    float g_tail = 0.0f;
+    if (tail < a.n) {
+        g_tail = k4_grad(a, tail, a.g[tail]);
+        sq = fmaf(g_tail, g_tail, sq);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    if (lane == 0) warp_sq[warp] = sq;
+    __syncthreads();
+    if (warp == 0) {
+        float w = lane < K4_THREADS / 32 ? warp_sq[lane] : 0.0f;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
+        if (lane == 0) block_sq = w;
+    }
+    cg::grid_group grid = cg::this_grid();
+    if (tid == 0) a.part[blockIdx.x] = block_sq;
+    grid.sync();
+    if (tid == 0) {
+        float t = 0.0f;
+        for (int b = 0; b < K4_BLOCKS; ++b) t += __ldcg(a.part + b);
+        total_sq = t;
+    }
+    __syncthreads();
+    const float g_norm = sqrtf(total_sq);
     const float cnt2 = (float)(a.cnt + 1);
-    const float bc1 = 1.0f - expf(cnt2 * a.logb1);
-    const float bc2 = 1.0f - expf(cnt2 * a.logb2);
-    const float g = k4_grad(a.g, i, a.logstd_off, a.entropy_coef) * scale;
-    const float m2 = a.b1 * a.m[i] + a.omb1 * g;
-    const float v2 = a.b2 * a.v[i] + a.omb2 * (g * g);
-    const float upd = (-a.lr[0]) * ((m2 / bc1) / (sqrtf(v2 / bc2) + a.eps));
-    const float p2 = a.p[i] + upd;
-    a.p2[i] = p2;
-    a.m2[i] = m2;
-    a.v2[i] = v2;
-    staged[i] = CT<T>::from_f(p2);
+    K4Step k;
+    k.scale = g_norm < a.max_norm ? 1.0f : a.max_norm / g_norm;
+    k.bc1 = 1.0f - expf(cnt2 * a.logb1);
+    k.bc2 = 1.0f - expf(cnt2 * a.logb2);
+    k.lr = a.lr[0];
+#pragma unroll
+    for (int u = 0; u < K4_VPT; ++u) {
+        const int j = gt + u * nthr;
+        if (j < n4) k4_store4<T>(a, k, j, gr[u], mr[u], vr[u], pr[u], staged);
+    }
+    for (int j = gt + K4_VPT * nthr; j < n4; j += nthr)
+        k4_store4<T>(a, k, j, k4_load(a, j), m4[j], v4[j], p4[j], staged);
+    if (tail < a.n) {
+        float p2, m2, v2;
+        k4_adam1(a, k, g_tail, a.m[tail], a.v[tail], a.p[tail], p2, m2, v2);
+        a.p2[tail] = p2;
+        a.m2[tail] = m2;
+        a.v2[tail] = v2;
+        staged[tail] = CT<T>::from_f(p2);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1663,7 +1787,7 @@ static cudaLaunchConfig_t critic_config(int nblk, size_t bytes, cudaStream_t st,
 template <typename T, bool GAE>
 static int critic_launch(const void* staged, const Offs& f, const void* wpad, const void* obsc,
                          const K2Args& a, int nblk, cudaStream_t st) {
-    const size_t bytes = Crit<T>::bytes(GAE ? a.T + 1 : 0);
+    const size_t bytes = Crit<T>::bytes(GAE ? a.splanes : 0);
     CHECK((cudaError_t)allow_smem(k2_critic<T, GAE>, bytes));
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = critic_config<T, GAE>(nblk, bytes, st, &attr);
@@ -1740,14 +1864,13 @@ static int policy_logp_launch(const void* staged, const int* offs, void* wpad, c
     return (int)cudaGetLastError();
 }
 
+// K4's one launch: a cooperative launch of K4_BLOCKS resident blocks
 template <typename T>
-static int opt_stage_launch(K4Args a, float* part, void* staged, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    k4_sumsq<<<K4_BLOCKS, K4_NT, 0, st>>>(a.g, a.n, a.logstd_off, a.entropy_coef, part);
-    CHECK(cudaGetLastError());
-    a.part = part;
-    k4_adam<T><<<(a.n + K4_NT - 1) / K4_NT, K4_NT, 0, st>>>(a, (T*)staged);
-    return (int)cudaGetLastError();
+static int opt_stage_launch(K4Args a, void* staged, void* stream) {
+    T* out = (T*)staged;
+    void* args[] = {&a, &out};
+    return (int)cudaLaunchCooperativeKernel((const void*)k4_opt<T>, dim3(K4_BLOCKS),
+                                            dim3(K4_THREADS), args, 0, (cudaStream_t)stream);
 }
 
 // A net's scratch layout: per layer x_l's offset and width, dz_l's offset
@@ -1761,7 +1884,7 @@ template <typename Net> static void scratch_layout(int* out) {
     }
 }
 
-constexpr int N_INFO = 14;   // values of info() before the scratch layout
+constexpr int N_INFO = 16;   // values of info() before the scratch layout
 
 template <typename T>
 static int info(int* out) {
@@ -1784,6 +1907,8 @@ static int info(int* out) {
     out[11] = C::max_planes;
     out[12] = C::NTH;
     out[13] = C::NG;
+    out[14] = K4_BLOCKS;
+    out[15] = K4_THREADS;
     scratch_layout<ActorNet>(out + N_INFO);
     scratch_layout<CriticNet>(out + N_INFO + 16);
     return 0;
@@ -1821,15 +1946,17 @@ int bg_k2_clocks(unsigned long long* out) {
 // (wpad), scratch values per row, pass-2 tiles, pass-2 rows per step, the
 // shared memory of a tile block and of a pass-2 block, K3's pass-1 and
 // pass-2 resident blocks per SM; K2's and K8's rows per tile, blocks per
-// cluster, most planes (T + 1) of values, threads per block and warp groups
-// per block; then the scratch layout of the actor's four layers and the
+// cluster, most planes (T + 1) of values in shared memory, threads per block
+// and warp groups per block; K4's blocks and threads per block; then the
+// scratch layout of the actor's four layers and the
 // critic's (x offset, x width, dz offset, dz width each)
 int bg_update_info(int bf16, int* out) {
     return bf16 ? info<__nv_bfloat16>(out) : info<float>(out);
 }
 
-// out[3]: K2's launch at `planes` = T + 1 planes, or K8's at 0: shared memory
-// per block, resident clusters on the card, resident blocks per SM
+// out[3]: K2's launch at `planes` = T + 1 planes (at most max_planes: the
+// planes in shared memory), or K8's at 0: shared memory per block, resident
+// clusters on the card, resident blocks per SM
 int bg_critic_info(int bf16, int planes, int* out) {
     const int most = bf16 ? Crit<__nv_bfloat16>::max_planes : Crit<float>::max_planes;
     if (planes < 0 || planes > most) return (int)cudaErrorInvalidValue;
@@ -1841,17 +1968,23 @@ int bg_critic_info(int bf16, int planes, int* out) {
 
 // wpad: [NWPAD] of type T scratch; part: [2 * ceil(B / rows per tile) *
 // blocks per cluster * warp groups] f32 scratch; count: one unsigned, 0 before the first
-// call (each call leaves it 0); nblk: a multiple of the cluster's blocks;
-// ev: null, or three CUDA events that time the weight copy and the critic
-// kernel (gae_launch)
+// call (each call leaves it 0); spill: for T + 1 > max_planes, [nblk * (T + 1 -
+// max_planes) * rows per tile / blocks per cluster] f32 scratch, else null; nblk:
+// a multiple of the cluster's blocks; ev: null, or three CUDA events that
+// time the weight copy and the critic kernel (gae_launch)
 int bg_gae(int bf16, const void* staged, const int* offs, void* wpad, const void* obsc,
            const float* rew, const float* nonterm, const float* timeout, float* part,
-           unsigned* count, float* adv, float* ret, float* sums, int T_, int B, float gamma,
-           float lam, int nblk, void* const* ev, void* stream) {
+           unsigned* count, float* spill, float* adv, float* ret, float* sums, int T_, int B,
+           float gamma, float lam, int nblk, void* const* ev, void* stream) {
+    const int most = bf16 ? Crit<__nv_bfloat16>::max_planes : Crit<float>::max_planes;
     K2Args a = {};
     a.rew = rew; a.nonterm = nonterm; a.timeout = timeout; a.adv = adv; a.ret = ret;
     a.part = part; a.sums = sums; a.count = count; a.T = T_; a.B = B; a.gamma = gamma;
     a.lam = lam;
+    a.splanes = T_ + 1 < most ? T_ + 1 : most;
+    a.spill = spill;
+    if (T_ < 1 || B < 1 || (a.splanes < T_ + 1 && spill == nullptr))
+        return (int)cudaErrorInvalidValue;
     return bf16 ? gae_launch<__nv_bfloat16>(staged, offs, wpad, obsc, a, nblk, ev, stream)
                 : gae_launch<float>(staged, offs, wpad, obsc, a, nblk, ev, stream);
 }
@@ -1916,7 +2049,8 @@ int bg_policy_logp(int bf16, const void* staged, const float* p, const int* offs
                                             stream);
 }
 
-// part: [64] f32 scratch
+// g, p, m, v, p2, m2, v2 [n] f32 and staged [n] of type T, 16-byte aligned;
+// part: [k4_blocks] f32 scratch (the block sums)
 int bg_opt_stage(int bf16, const float* g, const float* p, const float* m, const float* v,
                  const float* lr, int cnt, int logstd_off, int n, float entropy_coef, float b1,
                  float omb1, float b2, float omb2, float logb1, float logb2, float eps,
@@ -1927,8 +2061,8 @@ int bg_opt_stage(int bf16, const float* g, const float* p, const float* m, const
     a.n = n; a.cnt = cnt; a.logstd_off = logstd_off; a.entropy_coef = entropy_coef;
     a.b1 = b1; a.omb1 = omb1; a.b2 = b2; a.omb2 = omb2; a.logb1 = logb1; a.logb2 = logb2;
     a.eps = eps; a.max_norm = max_norm;
-    return bf16 ? opt_stage_launch<__nv_bfloat16>(a, part, staged, stream)
-                : opt_stage_launch<float>(a, part, staged, stream);
+    return bf16 ? opt_stage_launch<__nv_bfloat16>(a, staged, stream)
+                : opt_stage_launch<float>(a, staged, stream);
 }
 
 }  // extern "C"

@@ -14,12 +14,13 @@ the first substep of a control step.
 sim.backend is the JAX package's key.  By default the whole decimation loop
 is one call of physics/substep_kernel.py's control_step: on the GPU one
 launch of K1 (plane) or K5 (trimesh) that keeps the state on chip across
-the 10 substeps, on the CPU the same loop around the plain substep.  On
-trimesh each env carries the terrain height and normal under its contact
-points through the 10 substeps, and one call of the terrain sampler
-(terrain/sample_kernel.py) per control step answers the contact points, the
-root and the foot edges.  sim.backend: xla
-runs the eager engine, which queries the terrain inside every substep.
+the 10 substeps, on the CPU the same loop around the plain substep.  Its
+epilogue also gives the foot edge points and, on trimesh, the terrain
+sampler's answers (K6 + K7, folded into the launch) for the contact
+points, the root and the foot edges: each env carries the terrain height
+and normal under its contact points through the next control step's 10
+substeps.  sim.backend: xla runs the eager engine, which queries the
+terrain inside every substep.
 """
 
 import dataclasses
@@ -41,9 +42,8 @@ from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
 from booster_gym_torch.physics.kinematics import point_world_positions
-from booster_gym_torch.physics.substep_kernel import SubstepKernel
+from booster_gym_torch.physics.substep_kernel import SubstepKernel, feet_edge_world
 from booster_gym_torch.terrain import Terrain
-from booster_gym_torch.terrain.sample_kernel import make_terrain_sampler
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -169,18 +169,18 @@ class T1:
         cc = cfg["commands"]
         self.curriculum_shape = (1 + 2 * cc["lin_vel_levels"], 1 + 2 * cc["ang_vel_levels"])
 
-        # the kernel path (substep kernel + terrain sampler), or the eager
-        # engine with the terrain queried inside the substep
+        # the kernel path (the substep kernel's control step, whose epilogue
+        # samples the terrain on trimesh; terrain_sampler is the standalone
+        # sampler of the same queries), or the eager engine with the terrain
+        # queried inside the substep
         plane = self.terrain.type == "plane"
         self.kernel_backend = cfg["sim"].get("backend", "auto") != "xla"
         self.substep = self.engine_substep = self.terrain_sampler = None
         if self.kernel_backend:
             self.substep = SubstepKernel(self.model, self.sim_cfg, self.feet_indices, dev,
-                                         plane=plane)
-            if not plane:
-                n_queries = (self.model.num_points + 1
-                             + len(self.feet_indices) * self.feet_edge_pos.shape[0])
-                self.terrain_sampler = make_terrain_sampler(self.terrain, n_queries, dev)
+                                         plane=plane, feet_edge_pos=self.feet_edge_pos,
+                                         terrain=None if plane else self.terrain)
+            self.terrain_sampler = self.substep.sampler
         else:
             self.engine_substep = make_substep(self.model, self.sim_cfg, self.feet_indices, dev,
                                                terrain=self.terrain)
@@ -321,8 +321,8 @@ class T1:
     # ------------------------------------------------------------------
     def _refresh_point_terrain(self, state):
         """The carried per-point terrain heights and normals from the
-        current pose (reset_all only: while stepping, the sampler refreshes
-        them once per control step)."""
+        current pose (reset_all only: while stepping, the control step's
+        epilogue samples them once per control step)."""
         body_R, body_pos = self.fk(state.sim)
         xy = point_world_positions(self.consts, body_R, body_pos)[..., :2]
         h, n = self.terrain.heights_and_normals(xy)
@@ -331,8 +331,9 @@ class T1:
     # ------------------------------------------------------------------
     def _physics_inner_loop_engine(self, params, state, dof_targets, push_f_w, push_t_w):
         """sim.backend xla: the batch-leading decimation loop around the
-        eager engine.  Same outputs as _physics_inner_loop; pt_xy is unused
-        (the engine queries the terrain itself) and comes back as zeros."""
+        eager engine.  Same outputs as _physics_inner_loop; the edge points
+        come from feet_edge_world, and no terrain comes back (the engine
+        queries the terrain itself)."""
         sim, last, tsum = state.sim, state.last_dof_targets, torch.zeros_like(state.torques)
         zeros3 = torch.zeros_like(push_f_w)
         for i in range(self.decimation):
@@ -345,7 +346,7 @@ class T1:
                 push_t_w if i == 0 else zeros3)
             tsum = tsum + tau
         return (sim, last, tsum / self.decimation, forces, feet_pos, feet_R,
-                self._zeros(self.num_envs, self.model.num_points, 2))
+                self._feet_edge_world(feet_pos, feet_R), None, None)
 
     def _physics_inner_loop(self, params, state, dof_targets, push_f_w, push_t_w):
         """Decimation loop: delay latch, PD, Coulomb joint friction, torque
@@ -353,26 +354,31 @@ class T1:
         the substep kernel's control step, with the state on chip; on the
         CPU its plain version, the same loop around the plain substep.  On
         trimesh the carried point heights and normals go to every substep
-        unchanged, and the last substep's contact-point xy comes back."""
+        unchanged.  Besides the physics, the step's epilogue: the foot edge
+        points (x, y, z), each [B, nf, ne], and on trimesh the terrain
+        heights [B, NQ] and normals [B, NQ, 3] under the new contact points,
+        the root and the edge points (None on the plane)."""
         sub = self.substep
-        B, npt = self.num_envs, self.model.num_points
+        B = self.num_envs
         if sub.plane:
-            ph = pn = None
+            ph = pn = hf = None
         else:
-            ph = state.point_heights.T.contiguous()
-            pn = state.point_normals.reshape(B, -1).T.contiguous()
-        psim, last, tsum, pforces, pfeet, pptxy = sub.control_step(
+            # read in place, at their strides
+            ph = state.point_heights.T
+            pn = state.point_normals.reshape(B, -1).T
+            hf = params.height_field
+        out = sub.control_step(
             sub.pack_sim(state.sim), sub.pack_dyn(params.dyn), dof_targets.contiguous(),
             state.last_dof_targets.contiguous(), state.delay_steps.contiguous(),
             params.dof_stiffness.contiguous(), params.dof_damping.contiguous(),
             params.dof_friction.contiguous(), self.torque_limits,
-            torch.cat([push_f_w, push_t_w], dim=-1), ph, pn, decimation=self.decimation)
-        nb, nf = self.model.num_bodies, len(self.feet_indices)
-        feet = pfeet.T.reshape(B, nf, 12)
-        pt_xy = self._zeros(B, npt, 2) if sub.plane else pptxy.T.reshape(B, npt, 2)
-        return (sub.unpack_sim(psim), last, tsum / self.decimation,
-                pforces.T.reshape(B, nb, 3), feet[..., 0:3],
-                feet[..., 3:12].reshape(B, nf, 3, 3), pt_xy)
+            torch.cat([push_f_w, push_t_w], dim=-1), ph, pn, hf, decimation=self.decimation)
+        nb, nf, ne = self.model.num_bodies, len(self.feet_indices), sub.ne
+        feet = out.feet.T.reshape(B, nf, 12)
+        edge_xyz = tuple(out.edges.view(B, 3, nf, ne).unbind(1))
+        return (sub.unpack_sim(out.state), out.last, out.tsum / self.decimation,
+                out.forces.T.reshape(B, nb, 3), feet[..., 0:3],
+                feet[..., 3:12].reshape(B, nf, 3, 3), edge_xyz, out.heights, out.normals)
 
     # ------------------------------------------------------------------
     def _reset_envs(self, params, state, mask, gen):
@@ -520,22 +526,16 @@ class T1:
         push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
         inner = (self._physics_inner_loop if self.kernel_backend
                  else self._physics_inner_loop_engine)
-        sim, last_targets, torques, forces, feet_pos, feet_R, pt_xy = inner(
-            params, state, dof_targets, push_f_w, push_t_w)
+        (sim, last_targets, torques, forces, feet_pos, feet_R, edge_xyz, h_all,
+         n_all) = inner(params, state, dof_targets, push_f_w, push_t_w)
         state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
                               contact_forces=forces)
 
-        edge_xyz = self._feet_edge_world(feet_pos, feet_R)
         edge_h = None
-        if self.terrain_sampler is not None:
-            # one sampler call answers every terrain query of the step: the
+        B, npt = self.num_envs, self.model.num_points
+        if h_all is not None:
+            # the control step sampled every terrain query of the step: the
             # contact points, the root and the foot edge points
-            B, npt = self.num_envs, self.model.num_points
-            edge_xy = torch.stack([edge_xyz[0].reshape(B, -1), edge_xyz[1].reshape(B, -1)], -1)
-            root_xy = sim.root_pos[:, :2].contiguous()
-            queries = torch.cat([pt_xy, root_xy[:, None, :], edge_xy], dim=1)
-            h_all, n_all = self.terrain_sampler(params.height_field, root_xy, queries)
-            pt_h, pt_n = h_all[:, :npt], n_all[:, :npt]
             root_h = h_all[:, npt]
             edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
         else:
@@ -561,16 +561,18 @@ class T1:
             # reset or teleported envs stand somewhere else now: they take
             # the terrain under their new root, for the root height and, on
             # the kernel path, for every contact point until their next
-            # step's sampler call (the other envs carry the sampled values)
+            # control step samples again (the other envs carry the sampled
+            # values)
             fix = reset_mask | moved_mask
             h_root, n_root = self.terrain.heights_and_normals(
                 state.sim.root_pos[:, :2], params.height_field)
             state = state.replace(terrain_height_root=torch.where(
                 fix, h_root, state.terrain_height_root))
-            if self.terrain_sampler is not None:
+            if h_all is not None:
                 state = state.replace(
-                    point_heights=torch.where(fix[:, None], h_root[:, None], pt_h),
-                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :], pt_n))
+                    point_heights=torch.where(fix[:, None], h_root[:, None], h_all[:, :npt]),
+                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :],
+                                              n_all[:, :npt]))
         state = self._resample_commands(state, gen)
         # refresh derived quantities for the envs that were reset
         state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
@@ -587,13 +589,7 @@ class T1:
     # ------------------------------------------------------------------
     def _feet_edge_world(self, feet_pos, feet_R):
         """Foot edge points in the world frame as (x, y, z), each [B, nf, ne]."""
-        px, py, pz = feet_pos.unbind(-1)
-        xs, ys, zs = [], [], []
-        for lx, ly, lz in self.feet_edge_pos.tolist():
-            xs.append(px + feet_R[..., 0, 0] * lx + feet_R[..., 0, 1] * ly + feet_R[..., 0, 2] * lz)
-            ys.append(py + feet_R[..., 1, 0] * lx + feet_R[..., 1, 1] * ly + feet_R[..., 1, 2] * lz)
-            zs.append(pz + feet_R[..., 2, 0] * lx + feet_R[..., 2, 1] * ly + feet_R[..., 2, 2] * lz)
-        return torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(zs, -1)
+        return feet_edge_world(feet_pos, feet_R, self.feet_edge_pos.tolist())
 
     def _refresh_post_physics(self, params, state, feet_pos=None, feet_R=None,
                               reset_mask=None, edge_xyz=None, edge_heights=None):

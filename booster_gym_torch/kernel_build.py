@@ -3,14 +3,17 @@
 Every kernel source under csrc/ has a plain C interface.  nvcc compiles it
 for sm_90a into a shared library under build/kernels/ at first use, and
 ctypes loads it.  The library's name carries the -D sizes it was built for
-and a hash of the source, so a changed source or another robot or network
-never loads an old library.  Several builds may run at once (start_build
+and a hash of the source and of every local header it includes, so a
+changed source or header, or another robot or network, never loads an old
+library.  Several builds may run at once (start_build
 for each, then finish_build for each).
 """
 
 import ctypes
 import hashlib
+import itertools
 import os
+import re
 import subprocess
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -25,26 +28,55 @@ def source_path(source):
     return os.path.join(CSRC_DIR, source)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source):
+    """The headers under csrc/ that csrc/<source> includes with quotes,
+    directly or through one another, in the order of first inclusion."""
+    seen, todo = [], [source]
+    while todo:
+        with open(source_path(todo.pop(0)), "rb") as f:
+            for name in _LOCAL_INCLUDE.findall(f.read()):
+                name = name.decode()
+                if name not in seen and os.path.exists(source_path(name)):
+                    seen.append(name)
+                    todo.append(name)
+    return seen
+
+
+def source_digest(source):
+    """The first 10 hex digits of the sha256 of csrc/<source>'s bytes
+    followed by those of each of its local_headers."""
+    h = hashlib.sha256()
+    for name in [source, *local_headers(source)]:
+        with open(source_path(name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:10]
+
+
 def library_path(source, sizes):
     """Build output of csrc/<source> for these -D sizes."""
-    with open(source_path(source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:10]
+    digest = source_digest(source)
     stem = os.path.splitext(source)[0]
     tag = "_".join(f"{k.lower()}{v}" for k, v in sizes.items())
     return os.path.join(BUILD_DIR, f"{stem}_{tag}_{digest}.so")
 
 
+_BUILDS = itertools.count()
+
+
 def start_build(source, sizes):
     """Start nvcc on csrc/<source> with -D<size>=<value> for each size;
     returns (path, proc, tmp), proc None if the library is already built.
-    Each build writes a temporary file that finish_build renames into
-    place."""
+    Each build writes a temporary file of its own that finish_build renames
+    into place (two builds of one library may run at once)."""
     path = library_path(source, sizes)
     if os.path.exists(path):
         return path, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    tmp = f"{path}.{os.getpid()}.tmp"
+    tmp = f"{path}.{os.getpid()}.{next(_BUILDS)}.tmp"
     cmd = [nvcc, *NVCC_FLAGS, *[f"-D{k}={v}" for k, v in sizes.items()],
            "-o", tmp, source_path(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

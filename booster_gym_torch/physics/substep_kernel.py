@@ -21,7 +21,16 @@ state, dyn and terrain tensors are component-major [comp, B] f32:
 
 control_step takes the per-dof inputs batch-leading, as the env holds them:
 targets, last targets, kp, kd, friction [B, nd], the delay [B] int64, the
-torque limits [nd], the push [B, 6] (force, torque; substep 0 only).
+torque limits [nd], the push [B, 6] (force, torque; substep 0 only); K5's
+ph [npt, B] and pn [3 npt, B] may be strided views (the env passes the
+[B, npt] columns of the last step's heights in place).  Its epilogue
+computes what the env reads after the physics, from what the kernel holds
+at its end: the foot edge points in the world frame [B, 3, nf ne]
+(coordinate i of foot f's edge point k at [:, i, f ne + k]) and, on K5
+given the height field, the terrain under the step's NQ = npt + 1 + nf ne
+queries (the contact points, the root, the edge points): heights [B, NQ]
+and normals [B, NQ, 3], the standalone sampler's layout, K6 + K7 folded
+into the launch.
 
 The wrappers run their plain versions (physics/engine.py; the decimation
 loop of control_step_plain) only for tensors on the CPU; for CUDA tensors
@@ -29,6 +38,7 @@ they launch the kernel or raise.
 """
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ import torch
 from booster_gym_torch import kernel_build
 from booster_gym_torch.physics import engine
 from booster_gym_torch.physics.types import SimState
+from booster_gym_torch.terrain.sample_kernel import TerrainSampler
 
 SOURCE = "substep.cu"
 CSRC = kernel_build.source_path(SOURCE)
@@ -91,12 +102,44 @@ def model_tables(model, cfg, feet_indices):
 ENVS_PER_BLOCK = 8
 
 
-def kernel_sizes(model, feet_indices, plane=True):
-    """The -D sizes of a build: the robot's, the terrain form, and the envs
-    (warps) per block."""
+def kernel_sizes(model, feet_indices, plane=True, num_edges=0):
+    """The -D sizes of a build: the robot's, the foot edge points per foot,
+    the terrain form, and the envs (warps) per block."""
     return dict(NB=model.num_bodies, ND=model.num_dofs, NPT=model.num_points,
-                NS=len(model.shape_body), NF=len(feet_indices), PLANE=int(plane),
-                EPB=ENVS_PER_BLOCK)
+                NS=len(model.shape_body), NF=len(feet_indices), NE=int(num_edges),
+                PLANE=int(plane), EPB=ENVS_PER_BLOCK)
+
+
+def feet_edge_world(feet_pos, feet_R, edge_pos):
+    """Foot edge points in the world frame as (x, y, z), each [B, nf, ne]:
+    p + R e for each offset e of edge_pos (a list of [x, y, z]), every
+    coordinate ((p_i + R_i0 e_0) + R_i1 e_1) + R_i2 e_2 as separate tensor
+    ops, the order the control step's epilogue rounds in."""
+    px, py, pz = feet_pos.unbind(-1)
+    xs, ys, zs = [], [], []
+    for lx, ly, lz in edge_pos:
+        xs.append(px + feet_R[..., 0, 0] * lx + feet_R[..., 0, 1] * ly + feet_R[..., 0, 2] * lz)
+        ys.append(py + feet_R[..., 1, 0] * lx + feet_R[..., 1, 1] * ly + feet_R[..., 1, 2] * lz)
+        zs.append(pz + feet_R[..., 2, 0] * lx + feet_R[..., 2, 1] * ly + feet_R[..., 2, 2] * lz)
+    return torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(zs, -1)
+
+
+class ControlStep(NamedTuple):
+    """control_step's outputs.  state [nstate, B]; last (the latched
+    targets) and tsum (the torque sum over the substeps) [B, nd]; the last
+    substep's forces [3 nb, B] and feet [12 nf, B]; K5 only, the contact
+    points' xy [2 npt, B]; the foot edge points [B, 3, nf ne] (None without
+    edge offsets); K5 given the field, heights [B, NQ] and normals
+    [B, NQ, 3] of the queries (points, root, edges), else None."""
+    state: torch.Tensor
+    last: torch.Tensor
+    tsum: torch.Tensor
+    forces: torch.Tensor
+    feet: torch.Tensor
+    ptxy: Optional[torch.Tensor]
+    edges: Optional[torch.Tensor]
+    heights: Optional[torch.Tensor]
+    normals: Optional[torch.Tensor]
 
 
 class SubstepKernel:
@@ -106,21 +149,42 @@ class SubstepKernel:
     launch.
 
     `launches` counts kernel launches of either entry point; it moves only
-    where the CUDA kernel is launched."""
+    where the CUDA kernel is launched.  `fused_sampler_launches` counts the
+    control-step launches whose epilogue sampled the terrain (K6 + K7
+    folded in).
 
-    def __init__(self, model, cfg, feet_indices, device, plane=True):
+    feet_edge_pos: the foot edge offsets [ne, 3] in each foot's frame
+    (none: no edge points).  terrain: K5's heightfield Terrain, whose
+    queries control_step's epilogue answers; `sampler` is then the
+    standalone TerrainSampler of the same NQ queries, whose plain version
+    control_step_plain runs."""
+
+    def __init__(self, model, cfg, feet_indices, device, plane=True, feet_edge_pos=None,
+                 terrain=None):
         self.plane = bool(plane)
         self.feet_indices = [int(i) for i in feet_indices]
         self.nb, self.nd, self.npt = model.num_bodies, model.num_dofs, model.num_points
         self.ns, self.nf = len(model.shape_body), len(self.feet_indices)
         self.nstate = 13 + 2 * self.nd
         self.ndyn = 10 * self.nb + 2 * self.ns
-        self.sizes = kernel_sizes(model, self.feet_indices, self.plane)
         self.device = torch.device(device)
+        edge = np.zeros((0, 3), np.float32) if feet_edge_pos is None else np.asarray(
+            feet_edge_pos, np.float32).reshape(-1, 3)
+        self.ne = edge.shape[0]
+        self.edge_list = edge.tolist()
+        self.edge_pos = torch.as_tensor(edge, device=self.device)
+        self.nq = self.npt + 1 + self.nf * self.ne
+        self.sampler = None
+        if terrain is not None:
+            if self.plane:
+                raise ValueError("the plane kernel samples no terrain")
+            self.sampler = TerrainSampler(terrain, self.nq, self.device)
+        self.sizes = kernel_sizes(model, self.feet_indices, self.plane, self.ne)
         self.plain = engine.make_substep(model, cfg, self.feet_indices, device)
         self.tables = torch.as_tensor(model_tables(model, cfg, self.feet_indices),
                                       device=self.device)
         self.launches = 0
+        self.fused_sampler_launches = 0
         self._launch = self._control = None
 
     # -- layout ---------------------------------------------------------
@@ -161,14 +225,16 @@ class SubstepKernel:
     def build(self):
         """Build (if needed) and load the library; returns nvcc's report."""
         path, report = kernel_build.build(SOURCE, self.sizes)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if self.plane:
-            names, pointers = ("bg_substep", "bg_control"), (8, 16)
+            names = ("bg_substep", "bg_control")
+            control = [ptr] * 18 + [i32, i32, ptr]
         else:
-            names, pointers = ("bg_substep_terrain", "bg_control_terrain"), (11, 19)
+            names = ("bg_substep_terrain", "bg_control_terrain")
+            control = [ptr] * 24 + [i32] * 6 + [f32, f32, i32, i32, ptr]
         lib = kernel_build.load(path, {
-            names[0]: [ptr] * pointers[0] + [i32, ptr],
-            names[1]: [ptr] * pointers[1] + [i32, i32, ptr],
+            names[0]: [ptr] * (8 if self.plane else 11) + [i32, ptr],
+            names[1]: control,
             "bg_substep_info": [ptr]})
         self._launch, self._control = getattr(lib, names[0]), getattr(lib, names[1])
         self._info = lib.bg_substep_info
@@ -188,7 +254,7 @@ class SubstepKernel:
         return dict(smem_bytes=out[0], envs_per_block=out[1], blocks_per_sm_substep=out[2],
                     blocks_per_sm_control=out[3])
 
-    def _check(self, name, t, shape, dtype=torch.float32):
+    def _check(self, name, t, shape, dtype=torch.float32, strided=False):
         if t.device != self.tables.device:
             raise ValueError(f"{name} is on {t.device}, the kernel's tables on "
                              f"{self.tables.device}")
@@ -196,16 +262,19 @@ class SubstepKernel:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if not (strided or t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous")
 
-    def _check_terrain(self, ph, pn, B):
+    def _check_terrain(self, ph, pn, B, strided=False):
+        """ph [npt, B] and pn [3 npt, B] for K5 only, contiguous unless
+        `strided` (control_step reads them at their strides)."""
         if (ph is None) != self.plane or (pn is None) != self.plane:
             raise ValueError("point heights and normals go to the general-terrain kernel "
                              f"only (plane={self.plane})")
         if not self.plane and ph.device.type == "cuda":
-            self._check("point heights", ph, (self.npt, B))
-            self._check("point normals", pn, (3 * self.npt, B))
+            for name, t, rows in (("point heights", ph, self.npt),
+                                  ("point normals", pn, 3 * self.npt)):
+                self._check(name, t, (rows, B), strided=strided)
 
     def _packed_plain(self, psim, pdyn, ptau, pext, ph, pn):
         """The plain version of packed_call, on any device."""
@@ -251,14 +320,49 @@ class SubstepKernel:
         self.launches += 1
         return s_out, f_out, feet, ptxy
 
+    def _check_field(self, hf):
+        if hf is None:
+            return
+        if self.sampler is None:
+            raise ValueError("control_step samples a height field only on a general-terrain "
+                             "kernel built with its terrain")
+        if hf.dim() != 2:
+            raise ValueError(f"the height field must be [R, C], got {tuple(hf.shape)}")
+        if hf.device.type == "cuda":
+            self._check("height field", hf, tuple(hf.shape))
+
+    def _epilogue_plain(self, psim, pfeet, pptxy, hf):
+        """The epilogue's outputs from the plain loop's: the edge points by
+        feet_edge_world, the queries' terrain by the sampler's plain
+        version, in the kernel's layouts."""
+        B, nf = psim.shape[1], self.nf
+        edges = heights = normals = None
+        edge_xyz = None
+        if self.ne:
+            feet = pfeet.T.reshape(B, nf, 12)
+            edge_xyz = feet_edge_world(feet[..., 0:3], feet[..., 3:12].reshape(B, nf, 3, 3),
+                                       self.edge_list)
+            edges = torch.stack([c.reshape(B, -1) for c in edge_xyz], dim=1)
+        if hf is not None:
+            root_xy = psim[0:2].T.contiguous()
+            queries = [pptxy.T.reshape(B, self.npt, 2), root_xy[:, None, :]]
+            if edge_xyz is not None:
+                queries.append(torch.stack([edge_xyz[0].reshape(B, -1),
+                                            edge_xyz[1].reshape(B, -1)], -1))
+            heights, normals = self.sampler.plain(hf, root_xy, torch.cat(queries, dim=1))
+        return edges, heights, normals
+
     def control_step_plain(self, psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext,
-                           ph=None, pn=None, decimation=10):
+                           ph=None, pn=None, hf=None, decimation=10):
         """The decimation loop around the plain substep, in the packed
         layout: per substep i the delay latch (last = targets where delay
         == i), PD kp (last - q) - kd qd, Coulomb joint friction
         min(|pd|, fric) sign(pd), the clip to +-lim, the push on substep 0
-        only, then the substep.  Returns control_step's outputs."""
+        only, then the substep; then the epilogue's outputs
+        (_epilogue_plain).  Returns control_step's outputs."""
         nd = self.nd
+        if ph is not None:   # contiguous: the plain substep's CPU rounding follows the layout
+            ph, pn = ph.contiguous(), pn.contiguous()
         p_targets, p_last = targets.T, last.T
         kp, kd, fric_lim = kp.T, kd.T, fric.T
         p_ext = ext.T.contiguous()
@@ -274,23 +378,25 @@ class SubstepKernel:
             psim, pforces, pfeet, pptxy = self._packed_plain(
                 psim, pdyn, p_tau, p_ext if i == 0 else p_ext0, ph, pn)
             p_tsum = p_tsum + p_tau
-        return psim, p_last.T, p_tsum.T, pforces, pfeet, pptxy
+        return ControlStep(psim, p_last.T, p_tsum.T, pforces, pfeet, pptxy,
+                           *self._epilogue_plain(psim, pfeet, pptxy, hf))
 
     def control_step(self, psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext,
-                     ph=None, pn=None, decimation=10):
+                     ph=None, pn=None, hf=None, decimation=10):
         """One control step, `decimation` substeps, in one launch.
 
         psim [nstate, B] and pdyn [ndyn, B] as packed_call's; targets, last
         (the latched targets), kp, kd, fric [B, nd]; delay [B] int64 (the
         substep from which the new targets act); lim [nd]; ext [B, 6] (push
         force and torque, substep 0 only); K5 also ph [npt, B], pn [3 npt,
-        B], the terrain under the points for the whole control step.
-        Returns (state' [nstate, B], last' [B, nd], the torque sum over the
-        substeps [B, nd], the last substep's forces [3 nb, B], feet
-        [12 nf, B] and, K5 only, point xy [2 npt, B])."""
+        B] (views at any strides), the terrain under the points for the
+        whole control step, and optionally hf [R, C], the height field whose
+        terrain the epilogue samples under the step's queries.  Returns a
+        ControlStep."""
         B = psim.shape[1]
-        self._check_terrain(ph, pn, B)
-        args = (psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext, ph, pn)
+        self._check_terrain(ph, pn, B, strided=True)
+        self._check_field(hf)
+        args = (psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext, ph, pn, hf)
         if psim.device.type == "cpu":
             return self.control_step_plain(*args, decimation=decimation)
         if psim.device.type != "cuda":
@@ -312,21 +418,33 @@ class SubstepKernel:
         new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=psim.device)
         s_out, last_out, tsum = torch.empty_like(psim), new(B, nd), new(B, nd)
         f_out, feet = new(3 * self.nb, B), new(12 * self.nf, B)
-        ptr = lambda *ts: [t.data_ptr() for t in ts]
+        edges = new(B, 3, self.nf * self.ne) if self.ne else None
+        ptr = lambda *ts: [None if t is None else t.data_ptr() for t in ts]
         stream = torch.cuda.current_stream(psim.device).cuda_stream
         inputs = ptr(psim, pdyn, targets, last, delay, kp, kd, fric, lim, ext)
         outputs = ptr(s_out, last_out, tsum, f_out, feet)
+        epos = self.edge_pos if self.ne else None
+        ptxy = heights = normals = None
         if self.plane:
-            ptxy = None
-            err = self._control(*inputs, self.tables.data_ptr(), *outputs, B, decimation, stream)
+            err = self._control(*inputs, *ptr(self.tables, epos), *outputs, *ptr(edges), B,
+                                decimation, stream)
         else:
             ptxy = new(2 * self.npt, B)
-            err = self._control(*inputs, *ptr(ph, pn, self.tables), *outputs, ptxy.data_ptr(),
-                                B, decimation, stream)
+            R = C = 0
+            bp = hs = 0.0
+            if hf is not None:
+                heights, normals = new(B, self.nq), new(B, self.nq, 3)
+                R, C = hf.shape
+                bp, hs = self.sampler.bp, self.sampler.hs
+            err = self._control(*inputs, *ptr(ph, pn, self.tables, epos, hf), *outputs,
+                                *ptr(ptxy, edges, heights, normals), *ph.stride(), *pn.stride(),
+                                R, C, bp, hs, B, decimation, stream)
         if err != 0:
             raise RuntimeError(f"control-step kernel launch failed: cudaError {err}")
         self.launches += 1
-        return s_out, last_out, tsum, f_out, feet, ptxy
+        if hf is not None:
+            self.fused_sampler_launches += 1
+        return ControlStep(s_out, last_out, tsum, f_out, feet, ptxy, edges, heights, normals)
 
     def _unpack_out(self, ps, pf, pfeet, B):
         feet = pfeet.T.reshape(B, self.nf, 12)

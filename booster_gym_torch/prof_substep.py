@@ -12,8 +12,10 @@ resident blocks per SM of each.  Then, with CUDA events, one control step
 spends in each phase of a substep (the clocks build, 4096 envs); and the
 default build at each batch size of --batches: at 132 envs each SM holds one
 warp, so that time is a warp's own chain.  The inputs are
-testing.control_inputs' (the env's gains, standing robots).  The last line
-is one JSON object with the numbers.  Needs a GPU.
+testing.control_inputs' (the env's gains, standing robots); the kernel is
+the env's, with T1.yaml's foot edge points and, on trimesh, the epilogue
+sampling T1.yaml's field.  The last line is one JSON object with the
+numbers.  Needs a GPU.
 """
 
 import argparse
@@ -48,14 +50,24 @@ def main(argv=None):
     model = load_urdf(write_t1_shaped_urdf(tempfile.mkdtemp()), cylinder_rim_points=4)
     feet = [i for i, n in enumerate(model.body_names) if "foot" in n]
     plane = args.terrain == "plane"
-    terrain = None if plane else Terrain(load_task_cfg("T1")["terrain"], seed=0, device="cuda")
+    t1_cfg = load_task_cfg("T1")
+    terrain = None if plane else Terrain(t1_cfg["terrain"], seed=0, device="cuda")
+    edges = t1_cfg["asset"]["feet_edge_pos"]
+
+    def path_args(k, B):
+        """control_step's inputs as the env's path has them: on trimesh the
+        field too, whose terrain the epilogue samples."""
+        cargs = control_inputs(k, model, B, "cuda", seed=5, terrain=terrain)
+        return cargs if plane else cargs + [terrain.height_field]
+
     variants = {"default": {}, "clocks": {"PHASE_CLOCKS": 1}}
     for spec in args.variant:
         name, _, rest = spec.partition(":")
         variants[name] = {k: int(v) for k, v in (a.split("=") for a in rest.split(",") if a)}
     kernels = {}
     for name, extra in variants.items():
-        k = sk.SubstepKernel(model, SimConfig(), feet, "cuda", plane=plane)
+        k = sk.SubstepKernel(model, SimConfig(), feet, "cuda", plane=plane, feet_edge_pos=edges,
+                             terrain=terrain)
         k.sizes.update(extra)
         kernels[name] = k
     builds = {n: kernel_build.start_build(sk.SOURCE, k.sizes) for n, k in kernels.items()}
@@ -68,7 +80,7 @@ def main(argv=None):
         k.build()
         info = k.info()
         B = 4096
-        cargs = control_inputs(k, model, B, "cuda", seed=5, terrain=terrain)
+        cargs = path_args(k, B)
         ms, _ = time_cuda(lambda: k.control_step(*cargs), 20)
         out["builds"][name] = {"sizes": k.sizes, "ptxas": ptxas, **info, "control_step_ms": ms}
         print(f"{name} [{card}]: {ms * 1e3:.1f} us per control step at {B} envs "
@@ -79,7 +91,7 @@ def main(argv=None):
     lib = ctypes.CDLL(kernel_build.library_path(sk.SOURCE, k.sizes))
     clocks = (ctypes.c_ulonglong * len(PHASES))()
     read = lambda: lib.bg_substep_clocks(ctypes.cast(clocks, ctypes.c_void_p))
-    cargs = control_inputs(k, model, 4096, "cuda", seed=5, terrain=terrain)
+    cargs = path_args(k, 4096)
     read()
     k.control_step(*cargs)
     torch.cuda.synchronize()
@@ -94,7 +106,7 @@ def main(argv=None):
     k = kernels["default"]
     out["batches"] = {}
     for B in (int(b) for b in args.batches.split(",")):
-        cargs = control_inputs(k, model, B, "cuda", seed=5, terrain=terrain)
+        cargs = path_args(k, B)
         ms, _ = time_cuda(lambda: k.control_step(*cargs), 10)
         out["batches"][B] = ms
         print(f"B={B}: {ms * 1e3:.1f} us per control step ({ms * 1e2:.1f} us per substep)",

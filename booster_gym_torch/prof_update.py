@@ -17,7 +17,9 @@ and power limit.  --trace DIR writes a torch.profiler trace of five grads
 calls to DIR/grads_trace.json.  Each --variant builds csrc/update.cu again
 with extra -D sizes (all nvcc runs at once) and times the kernels that
 --variant-of names (default K3) in that build on the same data: one more
-record each, "variant" naming it.
+record each, "variant" naming it, with the device time and the device
+kernels per call under torch.profiler (a variant with no -D sizes, e.g.
+`--variant default:`, gives the default build's beside them).
 --split adds a record of K2 part by part (k2_split): CUDA events between its
 device kernels, and each kernel's device time and count under
 torch.profiler.
@@ -289,11 +291,14 @@ def main(argv=None):
         for kernel in args.variant_of.split(","):
             method = methods[kernel]
             ms, _ = _time(_calls(v, d)[method], args.iters, cuda)
+            kernels = testing.device_kernels(_calls(v, d)[method])
             rec = {"kernel": kernel, "variant": name, "defines": spec_of(v.sizes, fused.sizes),
                    "method": method, "T": args.T, "B": args.B, "dtype": args.dtype,
                    "device": str(device), "card": card, "ms" if cuda else "host_ms": ms,
                    "calls": WARMUP + args.iters, "launches": getattr(v, LAUNCHES[method]),
-                   "blocks_per_sm_pass1": v.info(device)["blocks_per_sm_pass1"]}
+                   "blocks_per_sm_pass1": v.info(device)["blocks_per_sm_pass1"],
+                   "device_ms": sum(testing.per_call(n) * t for n, t in kernels.values()),
+                   "device_kernels": sum(n for n, _ in kernels.values())}
             print(json.dumps(rec), flush=True)
             records.append(rec)
 

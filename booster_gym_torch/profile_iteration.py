@@ -2,6 +2,7 @@
 
     python -m booster_gym_torch.profile_iteration [--update fused|xla]
                                                   [--terrain plane|trimesh]
+                                                  [--out FILE]
 
 Runs the main path of chip_smoke.py (testing.main_path_cfg: flat T1 on the
 T1-shaped stand-in URDF, 4096 envs, horizon 24, 20 mini-epochs, the fused
@@ -16,8 +17,9 @@ on trimesh) per launch, which is one control step of the env's 10
 substeps, and per substep.  The device is synchronised at the
 phase boundaries, so a kernel belongs to the phase in whose span it
 starts.  The profiler adds host-side cost per launch, so the wall time and
-the idle share it reports are upper bounds of the unprofiled run's.  Needs
-a GPU.
+the idle share it reports are upper bounds of the unprofiled run's.  The
+JSON line (and --out FILE) also holds every kernel's device time and
+launches per iteration, by name, for each phase.  Needs a GPU.
 """
 
 import argparse
@@ -48,9 +50,11 @@ class _PhaseSpans:
 
 
 def main(argv=None):
+    """Returns the JSON record it prints."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--update", choices=("fused", "xla"), default="fused")
     parser.add_argument("--terrain", choices=("plane", "trimesh"), default="plane")
+    parser.add_argument("--out", help="also write the JSON record to this file")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_iteration needs a CUDA card")
@@ -105,7 +109,9 @@ def main(argv=None):
             print(f"  {ms:8.2f} ms  {n // PROFILED_ITERS:6d} launches  {name[:90]}")
         return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "launches_per_iter": launches,
                 "top": [{"name": k[:90], "ms": v[0], "launches": v[1] // PROFILED_ITERS}
-                        for k, v in top]}
+                        for k, v in top],
+                "kernels": {k[:120]: {"ms": v[0], "launches": v[1] / PROFILED_ITERS}
+                            for k, v in by_name.items()}}
 
     print(f"card: {card}; update_backend {args.update}; terrain {args.terrain}")
     out = {"card": card, "update_backend": args.update, "terrain": args.terrain,
@@ -128,6 +134,10 @@ def main(argv=None):
         phase_ms = sum(b - a for a, b in spans_of) / 1e3 / PROFILED_ITERS
         out[phase] = summary(phase, inside, phase_ms)
     print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
 
 
 if __name__ == "__main__":

@@ -80,8 +80,10 @@ class Runner:
     def _kernel_launches(self):
         fused = self.ppo.fused
         count = lambda kernel: 0 if kernel is None else kernel.launches
-        return {"substep_kernel_launches": count(self.env.substep),
+        sub = self.env.substep
+        return {"substep_kernel_launches": count(sub),
                 "terrain_sampler_launches": count(self.env.terrain_sampler),
+                "fused_sampler_launches": 0 if sub is None else sub.fused_sampler_launches,
                 "gae_launches": fused.gae_launches,
                 "grads_stats_launches": fused.grads_stats_launches,
                 "opt_stage_launches": fused.opt_stage_launches}
@@ -92,8 +94,10 @@ class Runner:
         env_steps_per_sec and the CUDA kernels' launches in the iteration,
         all 0 on the CPU: substep_kernel_launches for K1 on the plane or K5
         on trimesh, one per control step (the decimation loop is one
-        launch), terrain_sampler_launches for the trimesh sampler, and
-        gae_launches, grads_stats_launches and opt_stage_launches for the
+        launch), terrain_sampler_launches for the standalone trimesh
+        sampler (0 on the env's path), fused_sampler_launches for the
+        control steps whose epilogue sampled the terrain (K6 + K7 in K5's
+        launch), and gae_launches, grads_stats_launches and opt_stage_launches for the
         fused update's K2, K3 and K4)."""
         recorder = Recorder(self.cfg)
         env_params, ts = self.ppo.init(self.gen)

@@ -7,9 +7,13 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); CUDA must be available;
   2. build the CUDA kernels, the nvcc runs in parallel: the substep kernel
      (csrc/substep.cu) as K1 (plane) and K5 (general terrain) for the toy
-     robot and the T1-shaped robot, the terrain sampler K6 + K7
-     (csrc/terrain_sample.cu), and the fused update's K2, K3 and K4
-     (csrc/update.cu); ptxas's registers, stack frame and spills, each
+     robot and the T1-shaped robot, both with T1.yaml's foot edge points
+     (the control step's epilogue; K5's also samples the terrain, K6 + K7
+     folded in), and for the T1-shaped robot each again with the epilogue
+     compiled out (-DEPILOGUE=0, for phase 6's cost of it), the standalone
+     terrain sampler K6 + K7 (csrc/terrain_sample.cu), and the fused
+     update's K2, K3 and K4 (csrc/update.cu); ptxas's registers, stack
+     frame and spills (the control kernels' and K4's among them), each
      substep build's shared memory per block and resident blocks per SM,
      and the same for K3's pass 1 and pass 2 and for K2's (at the main
      path's T + 1 planes) and K8's critic kernel (its clusters too) in
@@ -21,10 +25,17 @@ Phases, in order; any failure exits non-zero:
      0; then both through control_step (the decimation loop in one launch)
      against the plain loop, with delays spread over 0..9 and a push,
      launched twice to show that it repeats bitwise, beside ten
-     single-substep launches, and K5 on plane inputs against K1 again; the
+     single-substep launches, and K5 on plane inputs against K1 again (the
+     foot edge points too); the epilogue's edge points against the torch
+     ops on the kernel's own feet poses (bitwise), and K5's fused heights
+     and normals against the standalone sampler kernel on the kernel's own
+     queries (bitwise) and its plain version (2e-5); the standalone
      sampler at B = 4096 and 1000 with 65 queries per env, also with
      roots at the field's edge and queries 1-2 m from their root (the
-     clamped cases); K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
+     clamped cases); K2 past the planes its shared memory holds (T + 1 =
+     k2_max_planes + 1 and 2 k2_max_planes, B = 1000, bf16 and f32, the
+     spill poisoned with NaN between two launches that must agree
+     bitwise); K2, K3 and K4 in bf16 and f32 at T = 24 with B = 4096
      (N = 98,304), 1000 and 4097 (every tile, slab and pass-2 step of K3
      ragged; K2's groups of envs ragged at 1000 and 4097), K2, K3 and K4
      launched twice to show that they repeat bitwise (K2's block partials
@@ -49,8 +60,10 @@ Phases, in order; any failure exits non-zero:
      beside the fused path's from the same run;
   4b. the rough path: the same Runner on T1.yaml's own terrain (trimesh,
      a 900 x 200 field), 4096 envs, 3 iterations; per iteration K5 must be
-     launched 24 times, K1 never, the sampler 24 times and K2, K3 and
-     K4 20 times each;
+     launched 24 times, each sampling the terrain in its epilogue, K1
+     never, the standalone sampler never, and K2, K3 and K4 20 times each;
+     then both paths' launches per iteration, rollout and update, from
+     booster_gym_torch.profile_iteration (torch.profiler);
   4c. the path of K8-K10: booster_gym_torch.prof_update at its defaults
      (T = 24, B = 4096, bf16, 50 timed calls of each of K8, K9, K10, K2,
      K3, K4 after 3 warm-up calls); every call must count one launch;
@@ -59,9 +72,14 @@ Phases, in order; any failure exits non-zero:
      and on a small heightfield (one substep-kernel launch each);
   6. each kernel's time at its path's shapes beside its bound and the plain
      version's time, printed as a `kernels` JSON line (K1-K10): K1 and K5 as
-     the main path runs them, one control step at 4096 envs, and beside it
-     one substep per launch; K2-K4 and K8-K10 take their times from phase
-     4c; K3 also pass by pass (CUDA events between the passes, and each
+     the main path runs them, one control step at 4096 envs (K5 sampling
+     the terrain), and beside it one substep per launch and the control
+     step of the build without the epilogue (the epilogue's cost; K6 + K7's
+     entry gives K5's); K2-K4 and K8-K10 take their times from phase
+     4c; K4 also under torch.profiler (its device time, one device kernel
+     per call required) beside its yardstick (torch.linalg.vector_norm,
+     torch._fused_adam_ with the clip as grad_scale and the cast to bf16, by
+     CUDA events; no PyTorch call computes K4, so its library_ms is null); K3 also pass by pass (CUDA events between the passes, and each
      device kernel's time and count under torch.profiler: one each of the
      weight copy, pass 1, pass 2 and the reduce per call), its scratch and
      peak device memory, and beside pass 2 the eight torch.matmul products
@@ -173,13 +191,28 @@ def control_bytes(kernel):
     written once, dyn, the targets, latched targets, gains and joint
     friction read, the latched targets and the torque sum written, the
     delay (int64) and the push read, the last substep's forces and feet
-    written; K5 also reads h and n and writes the points' xy.  The torque
-    limits are shared and negligible."""
+    written; K5 also reads h and n and writes the points' xy; the epilogue
+    writes the foot edge points and, on K5 with its terrain, the queries'
+    heights and normals.  The torque limits, the edge offsets and the field
+    are shared (the caller adds the field once)."""
     reads = kernel.nstate + kernel.ndyn + 5 * kernel.nd + 2 + 6
     writes = kernel.nstate + 2 * kernel.nd + 3 * kernel.nb + 12 * kernel.nf
+    writes += 3 * kernel.nf * kernel.ne
     if not kernel.plane:
         reads, writes = reads + 4 * kernel.npt, writes + 2 * kernel.npt
+        if kernel.sampler is not None:
+            writes += 4 * kernel.nq
     return 4 * (reads + writes)
+
+
+def epilogue_op_count(kernel):
+    """f32 operations of the control step's epilogue for one env: 6 per
+    edge coordinate; K5 with its terrain also ~50 per sampled query (the
+    standalone sampler's count)."""
+    ops = 18 * kernel.nf * kernel.ne
+    if kernel.sampler is not None:
+        ops += 50 * kernel.nq
+    return ops
 
 
 def point_terrain(terrain, model, B, seed):
@@ -335,16 +368,18 @@ def compare_control(name, kernel, model, B, terrain=None):
     # the torque sum compared as the mean over the substeps, as the env
     # returns it (a sum of 10 torques at kp ~ 200 carries the state's
     # rounding times 2000)
-    names = ("state", "last_targets", "torque_mean", "forces", "feet", "point_xy")
+    names = ("state", "last_targets", "torque_mean", "forces", "feet", "point_xy", "edges")
     fields = []
     for what, a, b, c in zip(names, out, ref, ref_nudged):
         if a is None:
             continue
         if what == "torque_mean":
             a, b, c = a / 10, b / 10, c / 10
+        if what == "edges":   # [B, 3, nf ne] -> [B, 3 nf ne]
+            a, b, c = (x.reshape(x.shape[0], -1) for x in (a, b, c))
         rtol, atol = {"forces": (TOL_FORCE_RTOL, TOL_FORCE_ATOL),
                       "point_xy": (0.0, TOL_PTXY)}.get(what, (TOL_ENV, TOL_ENV))
-        env_dim = 0 if what in ("last_targets", "torque_mean") else 1
+        env_dim = 0 if what in ("last_targets", "torque_mean", "edges") else 1
         over = lambda x, y: ((x - y).abs() > atol + rtol * y.abs()).transpose(0, env_dim).any(1)
         fields.append((what, a, b, over(a, b), over(c, b), rtol, atol, env_dim))
     # Ten substeps of contact (activation at zero margin, the bounce gate,
@@ -398,12 +433,91 @@ def compare_control_general_with_plane(name, k1, k5, model, B):
              lambda: k5.packed_call(args[0], args[1], tau, ext, args5[10], args5[11])]
     runs = [(f(), f()) for f in steps]
     torch.cuda.synchronize()
-    diff = max(float((a - b).abs().max()) for a, b in zip(out1[:5], out5[:5]))
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(out1[:5] + (out1.edges,), out5[:5] + (out5.edges,)))
     rerun = max(float((a - b).abs().max()) for r1, r2 in runs for a, b in zip(r1[:3], r2[:3]))
     log(f"  K5 on plane inputs minus K1 through control_step, {name} B={B}: max abs diff "
-        f"{diff}; K1 and K5 single substep run-to-run {rerun}")
+        f"{diff} (foot edge points included); K1 and K5 single substep run-to-run {rerun}")
     require(diff == 0.0, f"K5's control step on plane inputs differs from K1's ({name}, B={B})")
     require(rerun == 0.0, f"a single substep does not repeat bitwise ({name}, B={B})")
+
+
+def compare_fused_sampling(name, k5, model, terrain, B):
+    """K5's control step with the field (its epilogue samples the terrain):
+    the foot edge points against the torch ops on the kernel's own feet
+    poses, bitwise; the heights and normals against the standalone sampler
+    kernel on the kernel's own queries (contact points' xy, root, edge
+    points), bitwise, and against the sampler's plain version to
+    TOL_SAMPLER.  Returns max abs error against the plain version."""
+    import torch
+
+    from booster_gym_torch.physics.substep_kernel import feet_edge_world
+    from booster_gym_torch.testing import control_inputs
+
+    args = control_inputs(k5, model, B, "cuda", seed=B + 19, terrain=terrain)
+    n0 = (k5.launches, k5.fused_sampler_launches, k5.sampler.launches)
+    out = k5.control_step(*args, terrain.height_field)
+    nf, ne, npt = k5.nf, k5.ne, k5.npt
+    fe = out.feet.T.reshape(B, nf, 12)
+    edge_xyz = feet_edge_world(fe[..., 0:3], fe[..., 3:12].reshape(B, nf, 3, 3), k5.edge_list)
+    root_xy = out.state[0:2].T.contiguous()
+    queries = torch.cat([out.ptxy.T.reshape(B, npt, 2), root_xy[:, None, :],
+                         torch.stack([edge_xyz[0].reshape(B, -1), edge_xyz[1].reshape(B, -1)],
+                                     -1)], dim=1).contiguous()
+    h, n = k5.sampler(terrain.height_field, root_xy, queries)
+    h_p, n_p = k5.sampler.plain(terrain.height_field, root_xy, queries)
+    torch.cuda.synchronize()
+    counts = tuple(c - c0 for c, c0 in zip(
+        (k5.launches, k5.fused_sampler_launches, k5.sampler.launches), n0))
+    edges = out.edges.view(B, 3, nf, ne).unbind(1)
+    d_edge = max(float((a - b).abs().max()) for a, b in zip(edges, edge_xyz))
+    fh, fn = out.heights, out.normals
+    d_h, d_n = float((fh - h).abs().max()), float((fn - n).abs().max())
+    e_h, e_n = float((fh - h_p).abs().max()), float((fn - n_p).abs().max())
+    log(f"  K5 fused sampling {name} B={B} ({k5.nq} queries): edge points minus the torch ops "
+        f"{d_edge}; heights and normals minus the standalone sampler kernel's {d_h}, {d_n}; "
+        f"against its plain version max abs h {e_h:.2e} n {e_n:.2e} (tol {TOL_SAMPLER}); "
+        f"launches control/fused/standalone {counts}")
+    require(d_edge == 0.0, f"the epilogue's edge points differ from the torch ops ({name}, B={B})")
+    require(d_h == 0.0 and d_n == 0.0,
+            f"the fused sampling differs from the sampler kernel ({name}, B={B})")
+    require(max(e_h, e_n) <= TOL_SAMPLER, f"the fused sampling disagrees with the plain "
+            f"sampler ({name}, B={B})")
+    require(counts == (1, 1, 1) and float(fh.abs().max()) > 0, "the fused sampling's launches")
+    return max(e_h, e_n)
+
+
+def compare_gae_past_planes(dtype, B=1000):
+    """K2 at horizons past the planes its shared memory holds (T + 1 =
+    k2_max_planes + 1 and 2 k2_max_planes): against its plain version at
+    TOL_UPDATE's val and stat, launched twice with the spill poisoned with
+    NaN between, bitwise equal.  Returns max abs error of adv and returns."""
+    import torch
+
+    from booster_gym_torch.testing import update_case
+
+    tol = TOL_UPDATE[dtype]
+    most = update_case(dtype, 1, 8, "cuda")[0].info(torch.device("cuda"))["k2_max_planes"]
+    worst = 0.0
+    for planes in (most + 1, 2 * most):
+        T = planes - 1
+        fused, p, staged, prep, d = update_case(dtype, T, B, "cuda", seed=planes)
+        rew, nonterm, tf = gae_inputs(d)
+        out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+        fused.k2_scratch(staged.device, 0)["spill"].fill_(float("nan"))
+        out2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+        ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(out, ref)]
+        rerun = float(torch.stack([(a - b).abs().max() for a, b in zip(out, out2)]).max())
+        log(f"  K2 {dtype} T + 1 = {planes} planes ({planes - most} spilled), B={B}: rel err adv "
+            f"{errs[0]:.2e} returns {errs[1]:.2e} (tol {tol['val']:.1e}) sum {errs[2]:.2e} sum^2 "
+            f"{errs[3]:.2e} (tol {tol['stat']:.1e}); run-to-run max abs diff {rerun:.1e}")
+        require(max(errs[:2]) <= tol["val"] and max(errs[2:]) <= tol["stat"],
+                f"K2 past its planes disagrees with its plain version ({dtype}, {planes})")
+        require(rerun == 0.0, f"K2 past its planes does not repeat bitwise ({dtype}, {planes})")
+        worst = max(worst, *(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2])))
+    return worst
 
 
 def compare_sampler(sampler, terrain, B, clamped):
@@ -690,7 +804,7 @@ def time_k3_passes(card, fused, args, n, reps=20):
     scratch."""
     import torch
 
-    from booster_gym_torch.testing import device_ms, seeded_network, time_cuda
+    from booster_gym_torch.testing import device_ms, per_call, seeded_network, time_cuda
 
     fused.grads_stats(*args)
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
@@ -706,7 +820,7 @@ def time_k3_passes(card, fused, args, n, reps=20):
     names = ("k_pad", "k3_pass1", "k3_pass2", "k3_reduce")
     dev, count = device_ms(lambda: fused.grads_stats(*args), names)
     kernels = sum(count.values())
-    require(all(c == 1.0 for c in count.values()),
+    require(all(per_call(c) == 1 for c in count.values()),
             f"K3 ran {count} device kernels per call, one each of {names} expected")
     views = fused.scratch_views(torch.device("cuda"), n)
     pairs = [(dz.T, x) for x, dz in views.values()]
@@ -745,11 +859,12 @@ def time_k2_parts(card, T=24, B=4096):
     from booster_gym_torch import prof_update
     from booster_gym_torch.algo.ppo import flat_params
     from booster_gym_torch.algo.update_kernel import K2_KERNELS, FusedUpdate
+    from booster_gym_torch.testing import per_call
 
     net, d = prof_update.make_data(T, B, "bf16", "cuda")
     d["p"] = flat_params(net)
     split = prof_update.k2_split(FusedUpdate(net, 0.2, 10.0), d)
-    require(all(split["count"][k] == 1.0 for k in K2_KERNELS),
+    require(all(per_call(split["count"][k]) == 1 for k in K2_KERNELS),
             f"K2 ran {split['count']} device kernels per call, one each of {K2_KERNELS} "
             f"expected")
     log(f"K2 parts at N={T * B} bf16 [{card}]: CUDA events within whole calls: "
@@ -792,6 +907,7 @@ def time_update_kernels(card, launches, max_err, prof):
             "K8": ("K8 values (critic forward)", f"{src}:128"),
             "K9": ("K9 grads (row-major gradient anchor)", f"{src}:136"),
             "K10": ("K10 policy_old_logp (actor forward + log-prob)", f"{src}:358")}
+    k4 = time_k4(card, fused, gr, p, m, v, lr, prof["K4"])
     entries = []
     for k, plain in plains.items():
         name, replaces = meta[k]
@@ -811,8 +927,49 @@ def time_update_kernels(card, launches, max_err, prof):
             entry["passes"] = passes
         if k == "K2":
             entry["parts"] = k2_parts
+        if k == "K4":
+            entry.update(k4)
         entries.append(entry)
     return entries
+
+
+def time_k4(card, fused, g, p, m, v, lr, rec, reps=50):
+    """K4 at the main path's shapes (bf16, the T1 networks' parameters):
+    its device time and device kernels per call under torch.profiler (one
+    required), and its yardstick (never on the path), by CUDA events on
+    the same flat vectors: torch.linalg.vector_norm, torch._fused_adam_ with
+    the clip as grad_scale (the gradients are divided by it) and the cast
+    of the parameters to bf16.  The yardstick leaves out the entropy
+    coefficient and updates its own copies in place."""
+    import torch
+
+    from booster_gym_torch.testing import device_kernels, per_call, time_cuda
+
+    kw = dict(ADAM)
+    call = lambda: fused.opt_stage(g, p, m, v, 7, lr, **kw)
+    kernels = device_kernels(call)
+    require(len(kernels) == 1 and "k4_opt" in next(iter(kernels))
+            and per_call(next(iter(kernels.values()))[0]) == 1,
+            f"K4 ran {kernels} device kernels per call, one k4_opt expected")
+    dev_ms = next(iter(kernels.values()))[1]   # one launch per call
+    pp, mm, vv = p.clone(), m.clone(), v.clone()
+    step = [torch.tensor(7.0, device=p.device)]
+    lr_f, max_norm = float(lr), kw["max_norm"]
+
+    def yardstick():
+        scale = torch.clamp(torch.linalg.vector_norm(g) / max_norm, min=1.0)
+        torch._fused_adam_([pp], [g], [mm], [vv], [], step, lr=lr_f, beta1=kw["b1"],
+                           beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"], amsgrad=False,
+                           maximize=False, grad_scale=scale, found_inf=None)
+        return pp.to(torch.bfloat16)
+
+    yard_ms, _ = time_cuda(yardstick, reps)
+    log(f"K4 at n={fused.n_params} bf16 [{card}]: {rec['ms']:.4f} ms/call by CUDA events "
+        f"(prof_update, host-bound); device {dev_ms * 1e3:.2f} us per call, one device "
+        f"kernel per call (torch.profiler); bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us; yardstick (vector_norm + _fused_adam_ + cast, CUDA "
+        f"events) {yard_ms:.4f} ms/call")
+    return {"device_ms": dev_ms, "device_kernels": 1, "yardstick_ms": yard_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -843,6 +1000,7 @@ def main():
         bound,
         card_line,
         control_inputs,
+        device_ms,
         main_path_cfg,
         rand_inputs,
         rough_path_cfg,
@@ -864,21 +1022,34 @@ def main():
     urdf = write_t1_shaped_urdf(workdir)
     models = {"toy": toy_model(), "t1": load_urdf(urdf, cylinder_rim_points=4)}
     cfg = SimConfig()
-    kernels, general, plains = {}, {}, {}
+    # T1.yaml's terrain and foot edge points; the sampler at the rough
+    # path's 56 + 1 + 8 queries
+    t1_cfg = load_task_cfg("T1")
+    terrain = Terrain(t1_cfg["terrain"], seed=0, device="cuda")
+    edges = t1_cfg["asset"]["feet_edge_pos"]
+    sampler = sample_kernel.make_terrain_sampler(terrain, 65, "cuda")
+    kernels, general, plains, no_epilogue = {}, {}, {}, {}
     for name, model in models.items():
         feet = [i for i, n in enumerate(model.body_names) if "foot" in n]
-        kernels[name] = sk.SubstepKernel(model, cfg, feet, "cuda")
-        general[name] = sk.SubstepKernel(model, cfg, feet, "cuda", plane=False)
+        kernels[name] = sk.SubstepKernel(model, cfg, feet, "cuda", feet_edge_pos=edges)
+        general[name] = sk.SubstepKernel(model, cfg, feet, "cuda", plane=False,
+                                         feet_edge_pos=edges, terrain=terrain)
         plains[name] = make_substep(model, cfg, feet, "cuda")
-    # T1.yaml's terrain and the sampler at the rough path's 56 + 1 + 8 queries
-    terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0, device="cuda")
-    sampler = sample_kernel.make_terrain_sampler(terrain, 65, "cuda")
+    # the T1-shaped robot's control steps without the epilogue (its cost)
+    for label, plane in (("K1", True), ("K5", False)):
+        feet = [i for i, n in enumerate(models["t1"].body_names) if "foot" in n]
+        k = sk.SubstepKernel(models["t1"], cfg, feet, "cuda", plane=plane, feet_edge_pos=edges,
+                             terrain=None if plane else terrain)
+        k.sizes = {**k.sizes, "EPILOGUE": 0}
+        no_epilogue[label] = k
     update_sizes = update_kernel.FusedUpdate(ActorCritic(12, 47, 14), 0.2, 10.0).sizes
     t0 = time.perf_counter()
     builds = {f"K1 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
               for n, k in kernels.items()}
     builds.update({f"K5 for {n}": kernel_build.start_build(sk.SOURCE, k.sizes)
                    for n, k in general.items()})
+    builds.update({f"{n} for t1 without the epilogue": kernel_build.start_build(sk.SOURCE, k.sizes)
+                   for n, k in no_epilogue.items()})
     builds["K6+K7"] = kernel_build.start_build(sample_kernel.SOURCE, {})
     builds["K2-K4, K8-K10"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
     for name, (path, proc, tmp) in builds.items():
@@ -891,7 +1062,7 @@ def main():
                 fn = lines[i - 2].split(" for ")[-1].strip()[:48] if i >= 2 else ""
                 log(f"  ptxas {fn}: {lines[i - 1].strip()}; "
                     f"{line.strip().replace('ptxas info    : ', '')}")
-    for k in (*kernels.values(), *general.values(), sampler):
+    for k in (*kernels.values(), *general.values(), *no_epilogue.values(), sampler):
         k.build()   # loads the library just built
     log(f"kernel builds: {time.perf_counter() - t0:.1f} s (set-up)")
     planes = main_path_cfg(urdf)["runner"]["horizon_length"] + 1   # K2's T + 1 on the path
@@ -940,6 +1111,12 @@ def main():
         for clamped in (False, True):
             sampler_err = max(sampler_err, compare_sampler(sampler, terrain, B, clamped))
     log(f"the sampler matches its plain version: max abs err {sampler_err:.3e}")
+    for name in ("toy", "t1"):
+        for B in (4096, 1000):
+            sampler_err = max(sampler_err, compare_fused_sampling(
+                name, general[name], models[name], terrain, B))
+    log("K5's fused sampling equals the sampler kernel on its own queries; its edge points "
+        f"equal the torch ops; sampler max abs err {sampler_err:.3e}")
 
     # -- 3b. K1 and K5 through control_step: the decimation loop in one launch
     control_err = {"K1": 0.0, "K5": 0.0}
@@ -963,8 +1140,10 @@ def main():
         for B in (4096, 1000, 4097):
             for k, e in compare_update_kernels(dtype, B).items():
                 update_err[k] = max(update_err[k], e)
-    log("K2, K3 and K4 match their plain versions: max abs err "
-        + ", ".join(f"{k} {e:.3e}" for k, e in update_err.items()))
+    for dtype in ("bf16", "f32"):
+        update_err["K2"] = max(update_err["K2"], compare_gae_past_planes(dtype))
+    log("K2, K3 and K4 match their plain versions (K2 also past its shared memory's planes): "
+        "max abs err " + ", ".join(f"{k} {e:.3e}" for k, e in update_err.items()))
     compare_fused_with_xla(urdf)
     anchor_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
     for dtype in ("bf16", "f32"):
@@ -1008,6 +1187,8 @@ def main():
     per_iter = [[int(rec[k]) for k in ("substep_kernel_launches", "gae_launches",
                                        "grads_stats_launches", "opt_stage_launches")]
                 for rec in records]
+    if any(rec["fused_sampler_launches"] or rec["terrain_sampler_launches"] for rec in records):
+        raise AssertionError("the flat path sampled terrain")
     log(f"main path launches: {launches} (expected {expect}), per iteration K1/K2/K3/K4 "
         f"{per_iter}")
     if launches != expect or per_iter != [[k1_per_iter] + [mini_epochs] * 3] * 3:
@@ -1048,26 +1229,32 @@ def main():
         raise AssertionError(f"height field {tuple(renv.terrain.height_field.shape)}")
     if renv.substep.plane or renv.num_envs != 4096:
         raise AssertionError("the rough path does not run the general-terrain kernel at 4096")
-    renv.substep.launches = renv.terrain_sampler.launches = 0
+    renv.substep.launches = renv.substep.fused_sampler_launches = 0
+    renv.terrain_sampler.launches = 0
     rfused.gae_launches = rfused.grads_stats_launches = rfused.opt_stage_launches = 0
     k1_wrappers = (*kernels.values(), runner.env.substep, xrunner.env.substep)
     k1_before = sum(k.launches for k in k1_wrappers)
     rrecords = rrunner.train()
     torch.cuda.synchronize()
-    rough_launches = {"K5": renv.substep.launches, "K6+K7": renv.terrain_sampler.launches,
+    # K6 + K7 run in K5's launches (the epilogue's sampling); the
+    # standalone sampler kernel is not launched on the path
+    rough_launches = {"K5": renv.substep.launches,
+                      "K6+K7": renv.substep.fused_sampler_launches,
+                      "standalone sampler": renv.terrain_sampler.launches,
                       "K2": rfused.gae_launches, "K3": rfused.grads_stats_launches,
                       "K4": rfused.opt_stage_launches,
                       "K1": sum(k.launches for k in k1_wrappers) - k1_before}
     log_records("rough path (fused update)", rrecords)
     rough_per_iter = [[int(rec[k]) for k in (
-        "substep_kernel_launches", "terrain_sampler_launches", "gae_launches",
-        "grads_stats_launches", "opt_stage_launches")] for rec in rrecords]
-    rough_expect = {"K5": 3 * k1_per_iter, "K6+K7": 3 * horizon, "K2": 3 * mini_epochs,
-                    "K3": 3 * mini_epochs, "K4": 3 * mini_epochs, "K1": 0}
+        "substep_kernel_launches", "fused_sampler_launches", "terrain_sampler_launches",
+        "gae_launches", "grads_stats_launches", "opt_stage_launches")] for rec in rrecords]
+    rough_expect = {"K5": 3 * k1_per_iter, "K6+K7": 3 * horizon, "standalone sampler": 0,
+                    "K2": 3 * mini_epochs, "K3": 3 * mini_epochs, "K4": 3 * mini_epochs,
+                    "K1": 0}
     log(f"rough path launches: {rough_launches} (expected {rough_expect}), per iteration "
-        f"K5/sampler/K2/K3/K4 {rough_per_iter}")
+        f"K5/K6+K7 in K5/standalone sampler/K2/K3/K4 {rough_per_iter}")
     if rough_launches != rough_expect or rough_per_iter != [
-            [k1_per_iter, horizon] + [mini_epochs] * 3] * 3:
+            [k1_per_iter, horizon, 0] + [mini_epochs] * 3] * 3:
         raise AssertionError(f"kernel launches on the rough path: {rough_launches} "
                              f"({rough_per_iter} per iteration), expected {rough_expect}")
     rts = rrunner.train_state
@@ -1082,6 +1269,24 @@ def main():
     log(f"last iteration, flat vs rough path [{card}]: rollout {f['rollout_ms']:.2f} vs "
         f"{r['rollout_ms']:.2f} ms, update {f['update_ms']:.2f} vs {r['update_ms']:.2f} ms, "
         f"iteration {f['iter_ms']:.2f} vs {r['iter_ms']:.2f} ms")
+    # the launches per iteration of both paths, from the profile
+    from booster_gym_torch import profile_iteration
+
+    profiles = {}
+    for path in ("plane", "trimesh"):
+        prof = profile_iteration.main(["--terrain", path])
+        profiles[path] = {ph: prof[ph]["launches_per_iter"]
+                          for ph in ("iteration", "rollout", "update")}
+        k4 = sum(v["launches"] for k, v in prof["update"]["kernels"].items() if "k4_" in k)
+        sampler_kernels = sum(v["launches"] for k, v in prof["iteration"]["kernels"].items()
+                              if "terrain_sample" in k)
+        # (a trace can lose events: the wrappers' counts above are the check;
+        # a lost event cannot add a sampler kernel)
+        log(f"{path} path launches per iteration (profile_iteration, torch.profiler) [{card}]: "
+            f"{profiles[path]}; K4 device kernels {k4:g}; standalone sampler kernels "
+            f"{sampler_kernels:g}")
+        require(k4 <= mini_epochs and sampler_kernels == 0,
+                f"the {path} path's K4 or sampler kernels per iteration")
 
     # -- 4c. the path of K8-K10: prof_update at its defaults ----------------
     # prof_update builds its own FusedUpdate, so every count starts at 0 here
@@ -1120,7 +1325,8 @@ def main():
                  ("privileged", out_g[4]["privileged_obs"], out_c[4]["privileged_obs"])]
         require(env_gpu.substep.launches == 1, f"the {label} env step's substep-kernel launches")
         if label == "trimesh":
-            require(env_gpu.substep.launches == 1 and env_gpu.terrain_sampler.launches == 1,
+            require(env_gpu.substep.fused_sampler_launches == 1
+                    and env_gpu.terrain_sampler.launches == 0,
                     "the trimesh env step's kernel launches")
             # (the carried normals are left out: they jump at the field's grid
             # lines, which a point a rounding apart may straddle)
@@ -1142,7 +1348,7 @@ def main():
     pext = torch.cat([ef, et], dim=-1).T.contiguous()
     h, n = point_terrain(terrain, model, B, seed=4)
     ph, pn = h.T.contiguous(), n.reshape(B, -1).T.contiguous()
-    entries = []
+    entries, epilogue_ms = [], {}
     for k, hn, phn, n_launches, err in (
             (kernels["t1"], (), (), launches["K1"], max_err),
             (general["t1"], (h, n), (ph, pn), rough_launches["K5"], k5_err)):
@@ -1159,27 +1365,45 @@ def main():
         log(f"{label} one substep per launch at {B} envs [{card}]: {ms * 1e3:.2f} us/substep; "
             f"plain version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us by {bound_by} "
             f"({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32)")
-        # one control step per launch, as the main path runs it
+        # one control step per launch, as the main path runs it (K5 sampling
+        # the terrain in its epilogue); beside it the build without the
+        # epilogue, in turns (with, without, without, with)
         cargs = control_inputs(k, model, B, "cuda", seed=5, terrain=terrain)
-        cms, _ = time_cuda(lambda: k.control_step(*cargs), 50)
+        if not k.plane:
+            cargs.append(terrain.height_field)
+        bare = no_epilogue[label]
+        runs = {"with": [], "without": []}
+        for which in ("with", "without", "without", "with"):
+            kk = k if which == "with" else bare
+            runs[which].append(time_cuda(lambda: kk.control_step(*cargs), 25)[0])
+        cms = sum(runs["with"]) / 2
+        bare_ms = sum(runs["without"]) / 2
+        epilogue_ms[label] = cms - bare_ms
         cplain_ms, _ = time_cuda(lambda: k.control_step_plain(*cargs), 3, warmup=1)
         dec = 10
-        cbytes, cops = control_bytes(k) * B, dec * nops
+        cbytes = control_bytes(k) * B + (0 if k.plane else terrain.height_field.numel() * 4)
+        cops = dec * nops + epilogue_op_count(k) * B
         cbound_ms, cbound_by = bound(cbytes, cops)
         log(f"{label} one control step per launch at {B} envs [{card}]: {cms * 1e3:.2f} us per "
-            f"launch, {cms * 1e3 / dec:.2f} us per substep; plain loop {cplain_ms:.2f} ms; bound "
-            f"{cbound_ms * 1e3:.2f} us by {cbound_by} ({cbytes / 1e6:.2f} MB, {cops / 1e6:.1f} "
-            f"Mop at 67 TFLOP/s f32); timing launches {k.launches - n0}")
+            f"launch, {cms * 1e3 / dec:.2f} us per substep; without the epilogue "
+            f"{bare_ms * 1e3:.2f} us (the epilogue: {epilogue_ms[label] * 1e3:.2f} us; runs with "
+            f"{[round(x * 1e3, 2) for x in runs['with']]}, without "
+            f"{[round(x * 1e3, 2) for x in runs['without']]}); plain loop {cplain_ms:.2f} ms; "
+            f"bound {cbound_ms * 1e3:.2f} us by {cbound_by} ({cbytes / 1e6:.2f} MB, "
+            f"{cops / 1e6:.1f} Mop at 67 TFLOP/s f32); timing launches {k.launches - n0}")
         entries.append({
             "name": ("K1 substep (plane)" if k.plane else "K5 substep (general terrain)")
             + ", one control step per launch",
             "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
             "replaces": "booster_gym_tpu/physics/pallas_engine.py:267",
             "launches": n_launches, "max_abs_err": err, "ms": cms, "plain_ms": cplain_ms,
-            "bound_ms": cbound_ms, "bound_by": cbound_by, "library_ms": None})
+            "bound_ms": cbound_ms, "bound_by": cbound_by, "library_ms": None,
+            "ms_without_epilogue": bare_ms})
 
     # the sampler at the rough path's shapes: 4096 roots over the tiles, 65
-    # queries within 0.55 m of each (the contact points' reach)
+    # queries within 0.55 m of each (the contact points' reach); on the path
+    # the same device code runs in K5's epilogue, whose cost is its entry's
+    # epilogue_ms
     N = sampler.num_points
     root, pts = (torch.as_tensor(x, device="cuda")
                  for x in sampler_inputs(terrain, B, N, 0.55, False, seed=5))
@@ -1190,17 +1414,22 @@ def main():
     nbytes = B * (8 + N * 8 + N * 16) + hf.numel() * 4
     nops = B * N * 50
     bound_ms, bound_by = bound(nbytes, nops)
-    log(f"K6+K7 sampler at {B} envs x {N} queries [{card}]: {ms * 1e3:.2f} us/call; plain "
-        f"version {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us by {bound_by} "
-        f"({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32); library: none "
-        f"(grid_sample gives no slopes and clamps to the whole field); timing launches "
-        f"{sampler.launches - n0}")
+    dev_ms, dev_count = device_ms(lambda: sampler(hf, root, pts), ["terrain_sample"])
+    log(f"K6+K7 sampler at {B} envs x {N} queries [{card}]: standalone kernel {ms * 1e3:.2f} "
+        f"us/call (device {dev_ms['terrain_sample'] * 1e3:.2f} us, "
+        f"{dev_count['terrain_sample']:g} kernel per call); in K5's epilogue "
+        f"{epilogue_ms['K5'] * 1e3:.2f} us per control step (K1's edge points alone "
+        f"{epilogue_ms['K1'] * 1e3:.2f} us); plain version {plain_ms * 1e3:.1f} us; bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop at "
+        f"67 TFLOP/s f32); library: none (grid_sample gives no slopes and clamps to the whole "
+        f"field); timing launches {sampler.launches - n0}")
     entries.append({
-        "name": "K6+K7 terrain sampler", "route": "cuda",
-        "source": "booster_gym_torch/csrc/terrain_sample.cu",
+        "name": "K6+K7 terrain sampler, in K5's control-step epilogue", "route": "cuda",
+        "source": "booster_gym_torch/csrc/terrain_sample.cuh",
         "replaces": "booster_gym_tpu/terrain/sample_kernel.py:83 and :181",
         "launches": rough_launches["K6+K7"], "max_abs_err": sampler_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "device_ms": dev_ms["terrain_sample"], "epilogue_ms": epilogue_ms["K5"]})
     line = {"kernels": entries + time_update_kernels(card, launches, update_err, by_kernel)}
     log(card)
     print(json.dumps(line), flush=True)

@@ -28,13 +28,18 @@ from booster_gym_tpu.physics import DynParams as JDyn, SimConfig as JCfg, SimSta
 from booster_gym_tpu.physics.engine import make_substep as jax_make_substep
 from booster_gym_tpu.physics.pallas_engine import make_substep_pallas
 from booster_gym_tpu.terrain import Terrain as JTerrain
+from booster_gym_tpu.terrain.sample_kernel import build_shift_table
+from booster_gym_tpu.terrain.sample_kernel import make_terrain_sampler as jax_make_sampler
 from booster_gym_tpu.utils.compile import jit_nofusion
 
 from booster_gym_torch import kernel_build
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics import substep_kernel as sk
+from booster_gym_torch.terrain import Terrain
+from booster_gym_torch.terrain.sample_kernel import TerrainSampler
 from booster_gym_torch.testing import point_terrain_inputs, toy_model, write_t1_shaped_urdf
+from booster_gym_torch.utils.config import load_task_cfg
 
 TOL = 2e-3
 DECIMATION = 10
@@ -212,7 +217,8 @@ def test_plain_control_step_matches_jax_loop(name, plane, tmp_path):
     h, n = terrain(model, B, plane, seed=6)
     sub = sk.SubstepKernel(model, SimConfig(), feet_of(model), "cpu", plane=plane)
     state, dyn, tc = to_torch(np_state, np_dyn, c)
-    (psim, last, tsum, pforces, pfeet, pptxy), _, _ = run_control_step(sub, state, dyn, tc, h, n)
+    (psim, last, tsum, pforces, pfeet, pptxy, *_), _, _ = run_control_step(sub, state, dyn, tc,
+                                                                           h, n)
     nb, nf = model.num_bodies, len(feet_of(model))
     sim = sub.unpack_sim(psim)
     feet = pfeet.T.reshape(B, nf, 12)
@@ -243,13 +249,16 @@ def test_library_name_carries_the_envs_per_block_and_source_hash(robot):
     sizes = sk.kernel_sizes(model, feet)
     assert sizes["EPB"] == sk.ENVS_PER_BLOCK
     path = kernel_build.library_path(sk.SOURCE, sizes)
-    digest = hashlib.sha256(open(sk.CSRC, "rb").read()).hexdigest()[:10]
+    # the source's bytes, then those of the sampler's header it includes
+    header = kernel_build.source_path("terrain_sample.cuh")
+    digest = hashlib.sha256(open(sk.CSRC, "rb").read()
+                            + open(header, "rb").read()).hexdigest()[:10]
     assert path.endswith(f"_epb{sk.ENVS_PER_BLOCK}_{digest}.so")
     # the entry points the wrapper binds, with their argument counts
     src = open(sk.CSRC).read()
     import re
 
-    for name, n in (("bg_control", 19), ("bg_control_terrain", 22), ("bg_substep_info", 1)):
+    for name, n in (("bg_control", 21), ("bg_control_terrain", 35), ("bg_substep_info", 1)):
         (decl,) = re.findall(rf"int {name}\(([^)]*)\)", src)
         assert len(decl.split(",")) == n, name
 
@@ -293,3 +302,144 @@ def test_prof_substep_needs_a_card():
         pytest.skip("this machine has a card; the refusal is what is tested")
     with pytest.raises(RuntimeError, match="CUDA"):
         prof_substep.main([])
+
+
+# ---------------------------------------------------------------------------
+# the control step's epilogue: foot edge points and the terrain under the
+# step's queries
+EDGES = np.asarray(load_task_cfg("T1")["asset"]["feet_edge_pos"], np.float32)
+SMALL_FIELD = dict(num_terrains=2, terrain_width=4.0, terrain_length=4.0, border_size=2.0)
+
+
+def small_terrain():
+    return Terrain({**load_task_cfg("T1")["terrain"], **SMALL_FIELD}, seed=0)
+
+
+def epilogue_case(model, B, plane, seed):
+    """A control step's inputs with every root over the small field's tiles
+    and the terrain the env would carry under the points; returns (sub,
+    out, terrain)."""
+    terr = None if plane else small_terrain()
+    sub = sk.SubstepKernel(model, SimConfig(), feet_of(model), "cpu", plane=plane,
+                           feet_edge_pos=EDGES, terrain=terr)
+    np_state, np_dyn, c = control_inputs(model, B, seed=seed)
+    rng = np.random.default_rng(seed)
+    np_state["root_pos"][:, :2] += rng.uniform(0.5, 7.5, (B, 2)).astype(np.float32)
+    state, dyn, tc = to_torch(np_state, np_dyn, c)
+    h = n = hf = None
+    if not plane:
+        hf = terr.height_field
+        h, n = terr.heights_and_normals(state.root_pos[:, None, :2].expand(B, model.num_points, 2)
+                                        .contiguous())
+    ph = None if h is None else h.T.contiguous()
+    pn = None if n is None else n.reshape(B, -1).T.contiguous()
+    out = sub.control_step(
+        sub.pack_sim(state), sub.pack_dyn(dyn), tc["targets"], tc["last"], tc["delay"], tc["kp"],
+        tc["kd"], tc["fric"], tc["lim"], torch.cat([tc["push_f"], tc["push_t"]], dim=-1), ph, pn,
+        hf, decimation=DECIMATION)
+    return sub, out, terr
+
+
+def former_feet_edge_world(feet_pos, feet_R, edge_pos):
+    """The env's foot edge points as they were computed after the physics
+    (envs/t1.py::_feet_edge_world before the epilogue)."""
+    px, py, pz = feet_pos.unbind(-1)
+    xs, ys, zs = [], [], []
+    for lx, ly, lz in edge_pos.tolist():
+        xs.append(px + feet_R[..., 0, 0] * lx + feet_R[..., 0, 1] * ly + feet_R[..., 0, 2] * lz)
+        ys.append(py + feet_R[..., 1, 0] * lx + feet_R[..., 1, 1] * ly + feet_R[..., 1, 2] * lz)
+        zs.append(pz + feet_R[..., 2, 0] * lx + feet_R[..., 2, 1] * ly + feet_R[..., 2, 2] * lz)
+    return torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(zs, -1)
+
+
+def epilogue_views(sub, out, B):
+    """The epilogue's outputs: edge points (x, y, z), each [B, nf, ne],
+    heights [B, NQ], normals [B, NQ, 3] (None on the plane)."""
+    nf, ne = sub.nf, sub.ne
+    edges = out.edges.view(B, 3, nf, ne).unbind(1)
+    return edges, out.heights, out.normals
+
+
+@pytest.mark.parametrize("plane", [True, False], ids=["plane", "trimesh"])
+def test_plain_epilogue_is_the_former_post_physics_ops_bitwise(robot, plane):
+    """The plain control step's edge points, heights and normals equal,
+    bitwise, what the env computed after the physics before the epilogue:
+    the edge points from the last substep's feet poses, then one sampler
+    call on the contact points' xy, the root and the edge points."""
+    _, model, _ = robot
+    B = 24
+    sub, out, terr = epilogue_case(model, B, plane, seed=7)
+    edges, h, n = epilogue_views(sub, out, B)
+    nf = sub.nf
+    feet = out.feet.T.reshape(B, nf, 12)
+    feet_pos, feet_R = feet[..., 0:3], feet[..., 3:12].reshape(B, nf, 3, 3)
+    ref = former_feet_edge_world(feet_pos, feet_R, EDGES)
+    for a, b in zip(edges, ref):
+        assert torch.equal(a, b)
+    assert out.ptxy is None if plane else out.ptxy.shape == (2 * model.num_points, B)
+    if plane:
+        assert h is None and out.normals is None
+        return
+    sim = sub.unpack_sim(out.state)
+    edge_xy = torch.stack([ref[0].reshape(B, -1), ref[1].reshape(B, -1)], -1)
+    root_xy = sim.root_pos[:, :2].contiguous()
+    queries = torch.cat([out.ptxy.T.reshape(B, model.num_points, 2), root_xy[:, None, :],
+                         edge_xy], dim=1)
+    former = TerrainSampler(terr, model.num_points + 1 + nf * len(EDGES), "cpu")
+    h_ref, n_ref = former(terr.height_field, root_xy, queries)
+    assert torch.equal(h, h_ref) and torch.equal(n, n_ref)
+    assert float(h.abs().max()) > 0 and sub.fused_sampler_launches == 0
+
+
+@pytest.mark.parametrize("plane", [True, False], ids=["plane", "trimesh"])
+def test_plain_epilogue_matches_jax(robot, plane):
+    """The same outputs against the JAX env's _feet_edge_world on the same
+    feet poses and the JAX sampler in interpret mode on the same queries:
+    atol 2e-5, the JAX package's tolerance for its sampler."""
+    _, model, _ = robot
+    B = 16
+    sub, out, terr = epilogue_case(model, B, plane, seed=8)
+    edges, h, n = epilogue_views(sub, out, B)
+    nf = sub.nf
+    feet = out.feet.T.reshape(B, nf, 12).numpy()
+    jenv = types.SimpleNamespace(feet_edge_pos=EDGES)
+    jedges = JaxT1._feet_edge_world(jenv, jnp.asarray(feet[..., 0:3]),
+                                    jnp.asarray(feet[..., 3:12].reshape(B, nf, 3, 3)))
+    for a, b in zip(edges, jedges):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=2e-5)
+    if plane:
+        return
+    jt = JTerrain({**load_task_cfg("T1")["terrain"], **SMALL_FIELD}, seed=0)
+    np.testing.assert_array_equal(jt.height_field, terr.height_field.numpy())
+    root_xy = out.state[0:2].T.numpy()
+    jx, jy = np.asarray(jedges[0]).reshape(B, -1), np.asarray(jedges[1]).reshape(B, -1)
+    queries = np.concatenate([out.ptxy.T.reshape(B, model.num_points, 2).numpy(),
+                              root_xy[:, None, :], np.stack([jx, jy], -1)], axis=1)
+    jsample = jit_nofusion(jax_make_sampler(jt, sub.nq, interpret=True))
+    jh, jn = jsample(build_shift_table(jt.height_field), jnp.asarray(root_xy),
+                     jnp.asarray(queries))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(n.numpy(), np.asarray(jn), rtol=0, atol=2e-5)
+
+
+def test_control_step_checks_its_field(robot):
+    """A field goes to the general-terrain kernel built with its terrain
+    only; the edge table sets the build's NE."""
+    _, model, _ = robot
+    feet = feet_of(model)
+    plane = sk.SubstepKernel(model, SimConfig(), feet, "cpu", feet_edge_pos=EDGES)
+    assert plane.sizes["NE"] == len(EDGES)
+    assert plane.nq == model.num_points + 1 + len(EDGES) * len(feet)
+    with pytest.raises(ValueError, match="plane"):
+        sk.SubstepKernel(model, SimConfig(), feet, "cpu", terrain=small_terrain())
+    general = sk.SubstepKernel(model, SimConfig(), feet, "cpu", plane=False)
+    assert general.sampler is None and general.sizes["NE"] == 0
+    B = 4
+    state, dyn, c = to_torch(*control_inputs(model, B, seed=1))
+    h, n = terrain(model, B, False, seed=2)
+    with pytest.raises(ValueError, match="height field"):
+        general.control_step(
+            general.pack_sim(state), general.pack_dyn(dyn), c["targets"], c["last"], c["delay"],
+            c["kp"], c["kd"], c["fric"], c["lim"], torch.cat([c["push_f"], c["push_t"]], dim=-1),
+            torch.as_tensor(h).T.contiguous(), torch.as_tensor(n).reshape(B, -1).T.contiguous(),
+            small_terrain().height_field, decimation=DECIMATION)

@@ -18,6 +18,7 @@ sampler, here their plain versions) is then held to its own invariants.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import jax
@@ -30,6 +31,7 @@ from booster_gym_tpu.utils.config import load_task_cfg as jax_load_task_cfg
 from booster_gym_torch.convert import env_params_from_jax, env_state_from_jax
 from booster_gym_torch.envs.randomize import apply_randomization
 from booster_gym_torch.envs.t1 import T1
+from booster_gym_torch.math.quat import quat_rotate
 from booster_gym_torch.testing import write_t1_shaped_urdf
 from booster_gym_torch.utils.config import load_task_cfg
 
@@ -346,13 +348,18 @@ def test_kernel_path_carries_the_sampled_point_terrain(kernel_env):
     n = env.num_envs
     gen = torch.Generator().manual_seed(3)
     actions = 0.2 * torch.randn(n, 12, generator=gen)
-    state2, obs, rew, done, _ = env.step(params, state, actions, gen)
+    # the step's control step, kept to read its contact-point xy
+    steps, control_step = [], env.substep.control_step
+    env.substep.control_step = lambda *a, **k: steps.append(control_step(*a, **k)) or steps[-1]
+    try:
+        state2, obs, rew, done, _ = env.step(params, state, actions, gen)
+    finally:
+        env.substep.control_step = control_step
     assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(rew).all())
     assert env.substep.launches == 0 and env.terrain_sampler.launches == 0   # the CPU
-    _, targets = env._apply_actions(actions)
-    zeros = torch.zeros(n, 3)
-    sim, *_, pt_xy = env._physics_inner_loop(params, state, targets, zeros, zeros)
-    root_xy = sim.root_pos[:, :2].contiguous()
+    (out,) = steps
+    pt_xy = out.ptxy.T.reshape(n, 56, 2)
+    root_xy = out.state[0:2].T.contiguous()
     queries = torch.cat([pt_xy, root_xy[:, None], torch.zeros(n, 8, 2)], dim=1)
     h, nrm = env.terrain_sampler.plain(params.height_field, root_xy, queries)
     keep = ~done
@@ -383,3 +390,146 @@ def test_kernel_path_reset_falls_back_to_the_root_terrain(kernel_env):
                                rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(state2.terrain_height_root, h_root, rtol=1e-5, atol=1e-6)
     assert bool(torch.isfinite(obs).all())
+
+
+# ---------------------------------------------------------------------------
+# the step as it stood before the control step's epilogue took over its
+# post-physics ops (the foot edge points, the terrain sampler's call)
+class FormerT1(T1):
+    """T1 with the former step: the edge points and the sampler's queries
+    as tensor ops after the physics, copied from the env before the
+    control-step kernel's epilogue computed them."""
+
+    def _physics_inner_loop(self, params, state, dof_targets, push_f_w, push_t_w):
+        sub = self.substep
+        B, npt = self.num_envs, self.model.num_points
+        if sub.plane:
+            ph = pn = None
+        else:
+            ph = state.point_heights.T.contiguous()
+            pn = state.point_normals.reshape(B, -1).T.contiguous()
+        psim, last, tsum, pforces, pfeet, pptxy = sub.control_step(
+            sub.pack_sim(state.sim), sub.pack_dyn(params.dyn), dof_targets.contiguous(),
+            state.last_dof_targets.contiguous(), state.delay_steps.contiguous(),
+            params.dof_stiffness.contiguous(), params.dof_damping.contiguous(),
+            params.dof_friction.contiguous(), self.torque_limits,
+            torch.cat([push_f_w, push_t_w], dim=-1), ph, pn, decimation=self.decimation)[:6]
+        nb, nf = self.model.num_bodies, len(self.feet_indices)
+        feet = pfeet.T.reshape(B, nf, 12)
+        pt_xy = self._zeros(B, npt, 2) if sub.plane else pptxy.T.reshape(B, npt, 2)
+        return (sub.unpack_sim(psim), last, tsum / self.decimation,
+                pforces.T.reshape(B, nb, 3), feet[..., 0:3],
+                feet[..., 3:12].reshape(B, nf, 3, 3), pt_xy)
+
+    def _feet_edge_world(self, feet_pos, feet_R):
+        px, py, pz = feet_pos.unbind(-1)
+        xs, ys, zs = [], [], []
+        for lx, ly, lz in self.feet_edge_pos.tolist():
+            xs.append(px + feet_R[..., 0, 0] * lx + feet_R[..., 0, 1] * ly + feet_R[..., 0, 2] * lz)
+            ys.append(py + feet_R[..., 1, 0] * lx + feet_R[..., 1, 1] * ly + feet_R[..., 1, 2] * lz)
+            zs.append(pz + feet_R[..., 2, 0] * lx + feet_R[..., 2, 1] * ly + feet_R[..., 2, 2] * lz)
+        return torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(zs, -1)
+
+    def step(self, params, state, actions, gen):
+        actions, dof_targets = self._apply_actions(actions)
+        state = state.replace(actions=actions)
+
+        push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
+        push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
+        sim, last_targets, torques, forces, feet_pos, feet_R, pt_xy = self._physics_inner_loop(
+            params, state, dof_targets, push_f_w, push_t_w)
+        state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
+                              contact_forces=forces)
+
+        edge_xyz = self._feet_edge_world(feet_pos, feet_R)
+        edge_h = None
+        if self.terrain_sampler is not None:
+            B, npt = self.num_envs, self.model.num_points
+            edge_xy = torch.stack([edge_xyz[0].reshape(B, -1), edge_xyz[1].reshape(B, -1)], -1)
+            root_xy = sim.root_pos[:, :2].contiguous()
+            queries = torch.cat([pt_xy, root_xy[:, None, :], edge_xy], dim=1)
+            h_all, n_all = self.terrain_sampler(params.height_field, root_xy, queries)
+            pt_h, pt_n = h_all[:, :npt], n_all[:, :npt]
+            root_h = h_all[:, npt]
+            edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
+        else:
+            root_h = self.terrain.heights(sim.root_pos[:, :2], params.height_field)
+        state = state.replace(terrain_height_root=root_h)
+        state = self._refresh_post_physics(params, state, feet_pos=feet_pos, feet_R=feet_R,
+                                           edge_xyz=edge_xyz, edge_heights=edge_h)
+        state = state.replace(
+            episode_length=state.episode_length + 1,
+            common_step_counter=state.common_step_counter + 1,
+            gait_process=torch.remainder(
+                state.gait_process + self.dt * state.gait_frequency, 1.0))
+
+        state = self._kick_robots(state, gen)
+        state = self._push_robots(state, gen)
+        state = self._check_termination(state)
+        rew, rew_terms = self._compute_reward(params, state)
+
+        reset_mask = state.reset_buf
+        state = self._reset_envs(params, state, reset_mask, gen)
+        state, moved_mask = self._teleport_robots(state)
+        if self.terrain.type != "plane":
+            fix = reset_mask | moved_mask
+            h_root, n_root = self.terrain.heights_and_normals(
+                state.sim.root_pos[:, :2], params.height_field)
+            state = state.replace(terrain_height_root=torch.where(
+                fix, h_root, state.terrain_height_root))
+            if self.terrain_sampler is not None:
+                state = state.replace(
+                    point_heights=torch.where(fix[:, None], h_root[:, None], pt_h),
+                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :], pt_n))
+        state = self._resample_commands(state, gen)
+        state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
+        obs, privileged = self._compute_observations(params, state, gen)
+
+        state = state.replace(
+            last_actions=state.actions, last_dof_vel=state.sim.qd,
+            last_root_vel=torch.cat([state.sim.root_lin_vel, state.sim.root_ang_vel], dim=-1),
+            last_feet_pos=state.feet_pos)
+        info = {"privileged_obs": privileged, "time_outs": state.time_out_buf,
+                "rew_terms": rew_terms}
+        return state, obs, rew, reset_mask, info
+
+
+@pytest.mark.parametrize("terrain", ["plane", "trimesh"])
+def test_cpu_step_is_the_former_step_bitwise(terrain, tmp_path):
+    """Three control steps on the CPU, with a quarter of the envs forced to
+    time out before the second: every state field, the observations, the
+    rewards and their terms, the resets and the privileged observations
+    equal the former step's bitwise."""
+    urdf = write_t1_shaped_urdf(tmp_path)
+    cfg = quiet_cfg(urdf, 16) if terrain == "plane" else rough_cfg(urdf, 16)
+    env, former = T1(copy.deepcopy(cfg), "cpu"), FormerT1(copy.deepcopy(cfg), "cpu")
+    gen = torch.Generator().manual_seed(5)
+    params = env.init_params(gen)
+    state, _, _ = env.reset_all(params, gen)
+    states = [state, state]
+    for i in range(3):
+        if i == 1:
+            states = [s.replace(episode_length=torch.where(
+                torch.arange(16) % 4 == 0, env.max_episode_length + 1, s.episode_length))
+                for s in states]
+        actions = 0.3 * torch.randn(16, 12, generator=torch.Generator().manual_seed(i))
+        outs = [e.step(params, s, actions, torch.Generator().manual_seed(10 + i))
+                for e, s in zip((env, former), states)]
+        (s_new, obs, rew, done, info), (s_old, obs_o, rew_o, done_o, info_o) = outs
+        for f in dataclasses.fields(s_new):
+            a, b = getattr(s_new, f.name), getattr(s_old, f.name)
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), (i, f.name)
+            else:
+                for g in dataclasses.fields(a):
+                    assert torch.equal(getattr(a, g.name), getattr(b, g.name)), (i, g.name)
+        for a, b in ((obs, obs_o), (rew, rew_o), (done, done_o),
+                     (info["privileged_obs"], info_o["privileged_obs"]),
+                     (info["time_outs"], info_o["time_outs"])):
+            assert torch.equal(a, b), i
+        for k in info["rew_terms"]:
+            assert torch.equal(info["rew_terms"][k], info_o["rew_terms"][k]), (i, k)
+        states = [s_new, s_old]
+        if i == 1:
+            assert bool(done[::4].all()), "the forced time-outs reset"
+    assert env.substep.launches == 0

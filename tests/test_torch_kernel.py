@@ -29,6 +29,8 @@ from booster_gym_torch.terrain import Terrain
 from booster_gym_torch.terrain import sample_kernel
 from booster_gym_torch.testing import (
     anchor_case,
+    device_kernels,
+    per_call,
     point_terrain_inputs,
     sampler_inputs,
     seeded_network,
@@ -37,6 +39,9 @@ from booster_gym_torch.testing import (
     write_t1_shaped_urdf,
 )
 from booster_gym_torch.utils.config import load_task_cfg
+
+
+EDGES = np.asarray(load_task_cfg("T1")["asset"]["feet_edge_pos"], np.float32)
 
 
 @pytest.fixture(scope="module", params=["toy", "t1"])
@@ -118,6 +123,49 @@ def test_cpu_path_is_the_plain_version(robot, B):
     for a, b in zip(out_k[1:], out_p[1:]):
         assert torch.equal(a, b)
     assert k.launches == 0
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """A source's library name changes when a header it includes (through
+    another header too) changes, and not when an unrelated file does."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#define X 1\n")
+    (tmp_path / "other.cuh").write_text("#define Y 1\n")
+    monkeypatch.setattr(kernel_build, "CSRC_DIR", str(tmp_path))
+    assert kernel_build.local_headers("k.cu") == ["a.cuh", "b.cuh"]
+    path = kernel_build.library_path("k.cu", {"N": 1})
+    (tmp_path / "other.cuh").write_text("#define Y 2\n")
+    assert kernel_build.library_path("k.cu", {"N": 1}) == path
+    (tmp_path / "b.cuh").write_text("#define X 2\n")
+    changed = kernel_build.library_path("k.cu", {"N": 1})
+    assert changed != path and changed.startswith(path.rsplit("_", 1)[0])
+    # the port's sources: the substep kernel and the sampler share the header
+    monkeypatch.undo()
+    for src in ("substep.cu", "terrain_sample.cu"):
+        assert kernel_build.local_headers(src) == ["terrain_sample.cuh"]
+    assert kernel_build.local_headers("update.cu") == []
+
+
+@pytest.mark.parametrize("count,expect", [
+    (1.0, 1), (0.9, 1), (0.8, 1), (2.0, 2), (1.9, 2),   # whole, or records short
+    (1.1, 2), (0.0, 0),                                # a second launch, or none
+])
+def test_per_call_reads_one_dropped_record(count, expect):
+    """Dropped records lower a count, never raise it: a count in (n - 1, n]
+    is n launches per call."""
+    assert per_call(count) == expect
+
+
+def test_compare_trees_gae_diff(tmp_path, capsys):
+    """compare_trees' gae-diff: bitwise equality of two saved K2 outputs."""
+    from booster_gym_torch import compare_trees
+
+    out = [torch.arange(4.0), torch.ones(2), torch.tensor(1.0), torch.tensor(2.0)]
+    torch.save({"bf16_8": out}, tmp_path / "a.pt")
+    torch.save({"bf16_8": [out[0], out[1] + 1e-7, out[2], out[3]]}, tmp_path / "b.pt")
+    compare_trees.main(["gae-diff", str(tmp_path / "a.pt"), str(tmp_path / "b.pt")])
+    assert "[True, False, True, True]" in capsys.readouterr().out
 
 
 def test_library_name_carries_sizes_and_source_hash(robot):
@@ -250,10 +298,11 @@ def test_control_step_matches_plain_on_card(gpu, robot, B, plane):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [4096, 1000])
 def test_control_step_general_on_plane_inputs_equals_plane_kernel(gpu, robot, B):
-    """K5 on h = 0, n = +z against K1 through control_step: difference 0."""
+    """K5 on h = 0, n = +z against K1 through control_step: difference 0,
+    the epilogue's foot edge points included."""
     model, feet = robot
-    k1 = sk.SubstepKernel(model, SimConfig(), feet, gpu)
-    k5 = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=False)
+    k1 = sk.SubstepKernel(model, SimConfig(), feet, gpu, feet_edge_pos=EDGES)
+    k5 = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=False, feet_edge_pos=EDGES)
     args = control_args(k1, model, B, gpu, seed=B + 5)
     ph = torch.zeros((model.num_points, B), device=gpu)
     pn = torch.zeros((3 * model.num_points, B), device=gpu)
@@ -261,8 +310,51 @@ def test_control_step_general_on_plane_inputs_equals_plane_kernel(gpu, robot, B)
     out1, out5 = k1.control_step(*args), k5.control_step(*args[:10], ph, pn)
     torch.cuda.synchronize()
     assert (k1.launches, k5.launches) == (1, 1)
-    for a, b in zip(out1[:5], out5[:5]):
+    assert out1.edges.shape == (B, 3, len(feet) * len(EDGES))
+    for a, b in zip(out1[:5] + (out1.edges,), out5[:5] + (out5.edges,)):
         assert float((a - b).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1000])
+def test_fused_sampling_equals_sampler_kernel_on_card(gpu, robot, B):
+    """K5's control step with T1.yaml's field: the epilogue's edge points
+    equal the torch ops on its own feet poses bitwise, and its heights and
+    normals equal the standalone sampler kernel's on its own queries (the
+    contact points' xy, the root, the edge points) bitwise and the plain
+    sampler's to 2e-5."""
+    model, feet = robot
+    terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0, device=gpu)
+    k = sk.SubstepKernel(model, SimConfig(), feet, gpu, plane=False, feet_edge_pos=EDGES,
+                         terrain=terrain)
+    args = control_args(k, model, B, gpu, seed=B + 3)
+    out = k.control_step(*args, terrain.height_field)
+    out2 = k.control_step(*args, terrain.height_field)
+    torch.cuda.synchronize()
+    assert (k.launches, k.fused_sampler_launches, k.sampler.launches) == (2, 2, 0)
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    nf, ne, npt = len(feet), len(EDGES), model.num_points
+    fe = out.feet.T.reshape(B, nf, 12)
+    edge_xyz = sk.feet_edge_world(fe[..., 0:3], fe[..., 3:12].reshape(B, nf, 3, 3),
+                                  EDGES.tolist())
+    edges = out.edges.view(B, 3, nf, ne).unbind(1)
+    for a, b in zip(edges, edge_xyz):
+        assert torch.equal(a, b)
+    root_xy = out.state[0:2].T.contiguous()
+    queries = torch.cat([out.ptxy.T.reshape(B, npt, 2), root_xy[:, None, :],
+                         torch.stack([edge_xyz[0].reshape(B, -1), edge_xyz[1].reshape(B, -1)],
+                                     -1)], dim=1).contiguous()
+    h, n = k.sampler(terrain.height_field, root_xy, queries)
+    h_p, n_p = k.sampler.plain(terrain.height_field, root_xy, queries)
+    torch.cuda.synchronize()
+    assert k.sampler.launches == 1
+    fh, fn = out.heights, out.normals
+    assert torch.equal(fh, h) and torch.equal(fn, n)
+    torch.testing.assert_close(fh, h_p, rtol=0, atol=2e-5)
+    torch.testing.assert_close(fn, n_p, rtol=0, atol=2e-5)
+    assert float(fh.abs().max()) > 0
+    with pytest.raises(ValueError):
+        k.control_step(*args, terrain.height_field.double())
 
 
 @pytest.mark.cuda
@@ -303,7 +395,9 @@ def test_sampler_entry_point_and_cpu_path():
     src = open(kernel_build.source_path(sample_kernel.SOURCE)).read()
     (decl,) = re.findall(r"int bg_terrain_sample\(([^)]*)\)", src)
     assert len(decl.split(",")) == 12
-    assert f"#define PX {sample_kernel.PX}" in src
+    assert '#include "terrain_sample.cuh"' in src
+    header = open(kernel_build.source_path("terrain_sample.cuh")).read()
+    assert f"#define PX {sample_kernel.PX}" in header
     terrain = Terrain(load_task_cfg("T1")["terrain"], seed=0)
     sampler = sample_kernel.make_terrain_sampler(terrain, 65, "cpu")
     root, pts = (torch.as_tensor(x) for x in sampler_inputs(terrain, 7, 65, 0.5, False, 0))
@@ -426,6 +520,21 @@ def test_critic_grid(rows, tile, cluster, clusters, expect):
     assert blocks % cluster == 0 and units * tile >= rows > (units - 1) * tile
 
 
+@pytest.mark.parametrize("planes,most,expect", [
+    (25, 235, (25, 0)),       # the main path's horizon: all in shared memory
+    (235, 235, (235, 0)),     # the most shared memory holds
+    (236, 235, (235, 1)),     # one plane past it spills
+    (470, 235, (235, 235)),
+    (2, 1210, (2, 0)),
+])
+def test_k2_planes_cover_every_plane_once(planes, most, expect):
+    """K2's planes of values: those in shared memory first, the rest in the
+    spill, each plane in exactly one of the two."""
+    kept, spilled = update_kernel.k2_planes(planes, most)
+    assert (kept, spilled) == expect
+    assert kept + spilled == planes and kept <= most and spilled >= 0
+
+
 def rel_err(a, b):
     return float((a - b).norm() / b.norm())
 
@@ -481,25 +590,35 @@ def test_gae_kernel_repeats_bitwise_on_card(gpu, dtype, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-def test_gae_kernel_takes_its_most_planes_on_card(gpu, dtype):
-    """K2 keeps every plane's values in shared memory: it runs at the most
-    planes the library reports, T + 1 = k2_max_planes, and raises past it."""
+@pytest.mark.parametrize("planes", ["most", "most+1", "2most"])
+def test_gae_kernel_takes_its_most_planes_on_card(gpu, dtype, planes):
+    """K2 keeps the values of k2_max_planes planes in shared memory and
+    spills the planes past them to a global scratch: at T + 1 = the most
+    planes, one past them and twice them it matches the plain version
+    (TOL's val on adv and returns, stat on the sums) and a second launch
+    repeats the first bitwise; T < 1 raises."""
     B = 100
     fused = update_case(dtype, 1, B, gpu)[0]
     most = fused.info(gpu)["k2_max_planes"]
-    fused, p, staged, prep, d = update_case(dtype, most - 1, B, gpu)
+    T = {"most": most, "most+1": most + 1, "2most": 2 * most}[planes] - 1
+    fused, p, staged, prep, d = update_case(dtype, T, B, gpu)
     *_, rew, done, timeout = d["buf"]
     nonterm, tf = 1.0 - (done | timeout).float(), timeout.float()
-    adv, ret, sa, sa2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
-    adv_p, ret_p, sa_p, sa2_p = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    out = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    fused.k2_scratch(staged.device, 0)["spill"].fill_(float("nan"))
+    out2 = fused.gae(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
+    ref = fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, 0.995, 0.95)
     torch.cuda.synchronize()
-    tol = TOL[dtype]["val"]
-    assert rel_err(adv, adv_p) <= tol and rel_err(ret, ret_p) <= tol
+    assert fused.gae_launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    tol = TOL[dtype]
+    assert rel_err(out[0], ref[0]) <= tol["val"] and rel_err(out[1], ref[1]) <= tol["val"]
+    assert max(rel_err(out[k], ref[k]) for k in (2, 3)) <= tol["stat"]
     assert fused.critic_info(gpu, most)["smem"] > fused.critic_info(gpu, 0)["smem"]
-    longer = torch.zeros((most, B), device=gpu)
-    obsc = torch.zeros((most + 1, B, fused.num_crit), dtype=fused.dtype, device=gpu)
+    spill = fused.k2_scratch(staged.device, 0)["spill"]
+    assert (spill.numel() > 0) == (T + 1 > most)
     with pytest.raises(ValueError):
-        fused.gae(staged, obsc, longer, longer, longer, 0.995, 0.95)
+        fused.gae(staged, prep["obsc"][:1], rew[:0], nonterm[:0], tf[:0], 0.995, 0.95)
 
 
 @pytest.mark.cuda
@@ -552,8 +671,39 @@ def test_opt_stage_kernel_matches_plain_on_card(gpu, dtype):
         assert torch.equal(a, a2)
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
     assert torch.equal(out[3], out[0].to(fused.dtype))   # staged: the cast, bitwise
+    # one device kernel per call, and nothing else on the stream
+    kernels = device_kernels(lambda: fused.opt_stage(g, p, m, v, 7, lr, **kw))
+    assert len(kernels) == 1 and "k4_opt" in next(iter(kernels))
+    assert per_call(next(iter(kernels.values()))[0]) == 1
     with pytest.raises(ValueError):
         fused.opt_stage(g[:-1], p, m, v, 7, lr, **kw)
+    with pytest.raises(ValueError):   # K4 loads 16 bytes at a time
+        fused.opt_stage(torch.empty(fused.n_params + 1, device=gpu)[1:], p, m, v, 7, lr, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_opt_stage_kernel_runs_in_a_cuda_graph(gpu, dtype):
+    """K4 launches on the caller's stream with no host sync: captured in a
+    CUDA graph and replayed, it gives the eager call's outputs bitwise."""
+    fused, p, staged, prep, d = update_case(dtype, 2, 8, gpu)
+    gen = torch.Generator(device=gpu).manual_seed(6)
+    rand = lambda scale: scale * torch.randn(p.shape, generator=gen, device=gpu)
+    g, m, v = rand(0.3), rand(1e-2), rand(1e-3).abs()
+    lr = torch.tensor(1e-3, device=gpu)
+    kw = dict(entropy_coef=-0.01, b1=0.9, b2=0.999, eps=1e-8, max_norm=1.0)
+    eager = fused.opt_stage(g, p, m, v, 3, lr, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused.opt_stage(g, p, m, v, 3, lr, **kw)   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused.opt_stage(g, p, m, v, 3, lr, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,7 @@ def test_runner_on_cpu_on_a_small_field(tmp_path, monkeypatch, backend):
     for rec in records:
         assert all(np.isfinite(v) for v in rec.values()), rec
         assert rec["substep_kernel_launches"] == rec["terrain_sampler_launches"] == 0
+        assert rec["fused_sampler_launches"] == 0
     state = runner.train_state.env_state
     assert float(state.point_heights.abs().max()) > 0
     assert bool(torch.isfinite(state.point_normals).all())
