@@ -1,8 +1,9 @@
 """Carry weights, optimizer state and env state across from the JAX package.
 
 Inputs are the JAX package's objects with their leaves already turned
-into numpy arrays (for example `jax.tree.map(np.asarray, x)`); this module
-reads them by attribute or key and never imports JAX.
+into numpy arrays (for example `jax.tree.map(np.asarray, x)`, or a pickle
+checkpoint as utils.recorder.load_checkpoint reads it); this module reads
+them by attribute or key and never imports JAX.
 """
 
 import numpy as np
@@ -41,6 +42,31 @@ def flat_from_flax(network, tree):
     vector in the order of network.parameters()."""
     sd = params_from_flax(tree)
     return torch.cat([sd[name].reshape(-1) for name, _ in network.named_parameters()])
+
+
+def opt_state_from_optax(network, opt_state):
+    """The JAX package's optimizer state, optax.chain(clip_by_global_norm,
+    inject_hyperparams(adam)): (EmptyState(), InjectStatefulHyperparamsState(
+    count, hyperparams, hyperparams_states, inner_state=(ScaleByAdamState(
+    count, mu, nu), EmptyState()))) -> the port's OptState.  The states
+    may also be dicts by field name, as an orbax restore returns them."""
+    from booster_gym_torch.algo.ppo import OptState
+
+    field = lambda x, name: x[name] if isinstance(x, dict) else getattr(x, name)
+    adam = field(opt_state[1], "inner_state")[0]
+    return OptState(m=flat_from_flax(network, field(adam, "mu")),
+                    v=flat_from_flax(network, field(adam, "nu")), count=int(field(adam, "count")))
+
+
+def train_state_from_jax_checkpoint(network, saved):
+    """A JAX package checkpoint (params, opt_state, lr, iteration,
+    curriculum; no generator state) -> a dict of the port's pieces:
+    "params" (ActorCritic state_dict), "opt" (OptState), "lr" (float),
+    "iteration" (int) and "curriculum" (f32 tensor)."""
+    return {"params": params_from_flax(saved["params"]),
+            "opt": opt_state_from_optax(network, saved["opt_state"]),
+            "lr": float(saved["lr"]), "iteration": int(saved["iteration"]),
+            "curriculum": torch.as_tensor(np.asarray(saved["curriculum"], np.float32).copy())}
 
 
 def _leaf_names(network):

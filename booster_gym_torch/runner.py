@@ -1,20 +1,23 @@
-"""Training runner (port of the train() loop of booster_gym_tpu/runner.py).
+"""Training and evaluation runner (port of booster_gym_tpu/runner.py).
 
 Builds the task and the PPO trainer on one device, loops over train
-iterations, logs and checkpoints.  On a CUDA device every iteration is
-timed with CUDA events (rollout, update, whole iteration); on the CPU with
-the host clock.
+iterations, logs and checkpoints; resumes from the port's checkpoints and
+the JAX package's pickle checkpoints (basic.checkpoint), and plays a
+policy.  On a CUDA device every iteration is timed with CUDA events
+(rollout, update, whole iteration); on the CPU with the host clock.
 """
 
+import os
 import random
 import time
 
 import numpy as np
 import torch
 
-from booster_gym_torch.algo.ppo import PPO
+from booster_gym_torch.algo.ppo import PPO, OptState
+from booster_gym_torch.convert import train_state_from_jax_checkpoint
 from booster_gym_torch.envs import make_task
-from booster_gym_torch.utils.recorder import Recorder
+from booster_gym_torch.utils.recorder import Recorder, load_checkpoint, resolve_checkpoint
 
 
 def resolve_device(device):
@@ -53,8 +56,8 @@ class Runner:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg["basic"].get("checkpoint"):
-            raise NotImplementedError("resuming from a checkpoint is not ported yet")
+        ckpt = cfg["basic"].get("checkpoint")
+        self.checkpoint = resolve_checkpoint(ckpt) if ckpt else None
         seed = cfg["basic"]["seed"]
         if seed == -1:
             seed = np.random.randint(0, 10000)
@@ -68,6 +71,53 @@ class Runner:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
 
+    def _init_state(self):
+        """(env_params, TrainState): ppo.init from the generator seeded
+        anew, then, under basic.checkpoint, each saved piece restored on its
+        own as the JAX runner does (a piece that fails prints and keeps its
+        init): params, Adam m/v/count, lr and iteration, the curriculum,
+        and last the generator state, after init has drawn from it (a JAX
+        checkpoint has none: the generator stays as the seed left it)."""
+        self.gen.manual_seed(self.seed)
+        env_params, ts = self.ppo.init(self.gen)
+        if self.checkpoint is None:
+            return env_params, ts
+        print(f"Loading model from {self.checkpoint}")
+        saved = load_checkpoint(self.checkpoint)
+        jax_ckpt = "opt_state" in saved
+        if jax_ckpt:
+            saved = train_state_from_jax_checkpoint(self.ppo.network, saved)
+        self.ppo.network.load_state_dict(saved["params"])
+
+        def like(x, ref):
+            if tuple(x.shape) != tuple(ref.shape):
+                raise ValueError(f"shape {tuple(x.shape)}, expected {tuple(ref.shape)}")
+            return x.to(device=ref.device, dtype=ref.dtype)
+
+        try:
+            opt = saved["opt"] if jax_ckpt else OptState(
+                m=saved["adam_m"], v=saved["adam_v"], count=saved["adam_count"])
+            ts.opt = OptState(m=like(opt.m, ts.opt.m), v=like(opt.v, ts.opt.v),
+                              count=int(opt.count))
+        except Exception as e:
+            print(f"Failed to load optimizer: {e}")
+        try:
+            lr = torch.tensor(float(saved["lr"]), dtype=ts.lr.dtype, device=self.device)
+            ts.lr, ts.iteration = lr, int(saved["iteration"])
+        except Exception as e:
+            print(f"Failed to load lr/iteration: {e}")
+        try:
+            ts.env_state = ts.env_state.replace(curriculum_prob=like(
+                torch.as_tensor(saved["curriculum"]), ts.env_state.curriculum_prob))
+        except Exception as e:
+            print(f"Failed to load curriculum: {e}")
+        try:
+            if "gen_state" in saved:
+                self.gen.set_state(saved["gen_state"])
+        except Exception as e:
+            print(f"Failed to load generator state: {e}")
+        return env_params, ts
+
     def _checkpoint_dict(self, ts):
         cpu = lambda t: t.detach().cpu()
         return {
@@ -75,6 +125,7 @@ class Runner:
             "adam_m": cpu(ts.opt.m), "adam_v": cpu(ts.opt.v), "adam_count": ts.opt.count,
             "lr": float(ts.lr), "iteration": ts.iteration,
             "curriculum": cpu(ts.env_state.curriculum_prob),
+            "gen_state": self.gen.get_state(),
         }
 
     def _kernel_launches(self):
@@ -98,37 +149,102 @@ class Runner:
         sampler (0 on the env's path), fused_sampler_launches for the
         control steps whose epilogue sampled the terrain (K6 + K7 in K5's
         launch), and gae_launches, grads_stats_launches and opt_stage_launches for the
-        fused update's K2, K3 and K4)."""
+        fused update's K2, K3 and K4).  A resumed run starts at the saved
+        iteration.  Under basic.profile (True or a directory) iterations
+        start + 10 to start + 13 are traced by torch.profiler into a Chrome
+        trace under <run>/profile or that directory."""
         recorder = Recorder(self.cfg)
-        env_params, ts = self.ppo.init(self.gen)
+        env_params, ts = self._init_state()
         max_iterations = self.cfg["basic"]["max_iterations"]
         save_interval = self.cfg["runner"]["save_interval"]
         steps_per_iter = self.cfg["runner"]["horizon_length"] * self.env.num_envs
-        records = []
-        for it in range(max_iterations):
-            timer = _Timer(self.device)
-            launches0 = self._kernel_launches()
-            ts, metrics = self.ppo.train_iteration(env_params, ts, self.gen, timer)
-            names = list(metrics)
-            values = torch.stack([metrics[k].float() for k in names]).tolist()
-            rec = dict(zip(names, values))
-            rec["rollout_ms"] = timer.ms("rollout", "update")
-            rec["update_ms"] = timer.ms("update", "end")
-            rec["iter_ms"] = timer.ms("rollout", "end")
-            rec["env_steps_per_sec"] = steps_per_iter / (rec["iter_ms"] / 1e3)
-            for name, count in self._kernel_launches().items():
-                rec[name] = count - launches0[name]
-            records.append(rec)
-            if not all(np.isfinite(v) for v in values):
-                bad = [k for k, v in zip(names, values) if not np.isfinite(v)]
-                raise FloatingPointError(f"non-finite metrics at iteration {it + 1}: {bad}")
-            if (it + 1) % 10 == 0 or it == 0 or it + 1 == max_iterations:
-                recorder.record_statistics(rec, it)
-                print(f"epoch: {it + 1}/{max_iterations} reward={rec['reward']:.3f} "
-                      f"iter={rec['iter_ms']:.1f}ms (rollout {rec['rollout_ms']:.1f}, "
-                      f"update {rec['update_ms']:.1f}) steps/s={rec['env_steps_per_sec']:,.0f}")
-            if (it + 1) % save_interval == 0:
-                recorder.save(self._checkpoint_dict(ts), it + 1)
+        profile_dir = self.cfg["basic"].get("profile")
+        if profile_dir is True:
+            profile_dir = os.path.join(recorder.dir, "profile")
+        start, prof, records = ts.iteration, None, []
+        try:
+            for it in range(start, max_iterations):
+                if profile_dir and it == start + 10:
+                    prof = self._start_profile()
+                ts, rec = self._iteration(env_params, ts, steps_per_iter)
+                records.append(rec)
+                if prof is not None and it >= start + 13:
+                    self._stop_profile(prof, profile_dir)
+                    prof = None
+                if (it + 1) % 10 == 0 or it == start or it + 1 == max_iterations:
+                    recorder.record_statistics(rec, it)
+                    print(f"epoch: {it + 1}/{max_iterations} reward={rec['reward']:.3f} "
+                          f"iter={rec['iter_ms']:.1f}ms (rollout {rec['rollout_ms']:.1f}, "
+                          f"update {rec['update_ms']:.1f}) "
+                          f"steps/s={rec['env_steps_per_sec']:,.0f}")
+                if (it + 1) % save_interval == 0:
+                    recorder.save(self._checkpoint_dict(ts), it + 1)
+        finally:
+            if prof is not None:
+                self._stop_profile(prof, profile_dir)
         recorder.save(self._checkpoint_dict(ts), max_iterations)
         self.train_state = ts
         return records
+
+    def _iteration(self, env_params, ts, steps_per_iter):
+        """One train iteration: (TrainState, its record)."""
+        timer = _Timer(self.device)
+        launches0 = self._kernel_launches()
+        ts, metrics = self.ppo.train_iteration(env_params, ts, self.gen, timer)
+        names = list(metrics)
+        values = torch.stack([metrics[k].float() for k in names]).tolist()
+        rec = dict(zip(names, values))
+        rec["rollout_ms"] = timer.ms("rollout", "update")
+        rec["update_ms"] = timer.ms("update", "end")
+        rec["iter_ms"] = timer.ms("rollout", "end")
+        rec["env_steps_per_sec"] = steps_per_iter / (rec["iter_ms"] / 1e3)
+        for name, count in self._kernel_launches().items():
+            rec[name] = count - launches0[name]
+        if not all(np.isfinite(v) for v in values):
+            bad = [k for k, v in zip(names, values) if not np.isfinite(v)]
+            raise FloatingPointError(f"non-finite metrics at iteration {ts.iteration}: {bad}")
+        return ts, rec
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
+
+    @torch.no_grad()
+    def play(self, num_steps=None, deterministic=True, timer=None):
+        """Policy rollout from basic.checkpoint (JAX runner.py play): the
+        action is the actor's mean, or mean + std * noise from the runner's
+        generator when not deterministic; 10 s of control steps by default.
+        Returns one dict per step of numpy arrays: root_pos, root_quat, q,
+        rew, done.  `timer`, when given, is called as timer("steps") before
+        the first step and timer("end") after the last."""
+        env_params, ts = self._init_state()
+        state, obs = ts.env_state, ts.obs
+        keys = ("root_pos", "root_quat", "q", "rew", "done")
+        steps = {k: [] for k in keys}
+        if timer:
+            timer("steps")
+        for _ in range(num_steps or 10 * int(1.0 / self.env.dt)):
+            mu, std = self.ppo.network.act(obs)
+            act = mu if deterministic else mu + std * torch.randn(
+                mu.shape, generator=self.gen, device=self.device)
+            state, obs, rew, done, _ = self.env.step(env_params, state, act, self.gen)
+            for k, x in zip(keys, (state.sim.root_pos, state.sim.root_quat, state.sim.q,
+                                   rew, done)):
+                steps[k].append(x.clone())
+        if timer:
+            timer("end")
+        arrays = {k: torch.stack(v).cpu().numpy() for k, v in steps.items()}
+        return [{k: arrays[k][i] for k in keys} for i in range(len(steps["rew"]))]

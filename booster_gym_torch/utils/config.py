@@ -1,5 +1,6 @@
 """Config loading and CLI overrides (port of
-booster_gym_tpu/utils/config.py plus --device and --asset_file).
+booster_gym_tpu/utils/config.py plus --device and --asset_file; without
+--no_data_parallel: the port trains on one device).
 
 The port reads its own copy of envs/configs/<task>.yaml, and follows its
 algorithm.update_backend (T1.yaml: fused) as the JAX package does.
@@ -28,6 +29,8 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, help="Random seed.")
     parser.add_argument("--max_iterations", type=int, help="Training iterations.")
     parser.add_argument("--terrain", type=str, help="Override terrain type (plane or trimesh).")
+    parser.add_argument("--profile", nargs="?", const=True, default=None,
+                        help="Capture a torch.profiler trace (optional dir).")
     parser.add_argument("--asset_file", type=str, help="Robot URDF (absolute path, or "
                         "relative to the working directory or the repository).")
     parser.add_argument("--device", type=str, default="cuda",
@@ -37,6 +40,8 @@ def parse_args(argv=None):
 
 def build_cfg(args):
     cfg = load_task_cfg(args.task)
+    if getattr(args, "profile", None) is not None:
+        cfg["basic"]["profile"] = args.profile
     for key in ("checkpoint", "headless", "seed", "max_iterations"):
         val = getattr(args, key, None)
         if val is not None:

@@ -85,11 +85,28 @@ Phases, in order; any failure exits non-zero:
      peak device memory, and beside pass 2 the eight torch.matmul products
      of its shapes on the same rows (a yardstick; no PyTorch call computes
      K3's whole function, so its library_ms is null); K2 part by part the
-     same way (the weight copy and the critic kernel, one each per call).
+     same way (the weight copy and the critic kernel, one each per call);
+  7. resume, play and export, the flat path's configuration with the fused
+     update under a logs/ root of its own, after a full collection of the
+     garbage that phases 1-6 left: 7a trains 2 iterations at 4096
+     envs (a checkpoint each), resumes twice from model_1.pt (every piece
+     restored bitwise: params, Adam m/v/count, lr, iteration, curriculum,
+     generator state; the resumed iteration numbered 2, launching the
+     control step 24 times and K2, K3, K4 20 times each), and prints the
+     largest differences between the two resumes and against the
+     uninterrupted run's model_2.pt; 7b loads the JAX package's
+     logs/.../model_1100.ckpt without importing JAX and plays it 500 steps
+     at 4096 envs on the plane (K1) and on T1.yaml's terrain (K5, sampling
+     in its epilogue), one control-step launch per step and no standalone
+     sampler launch, with steps/s by CUDA events, the mean reward per step
+     and the share of envs done; 7c exports both checkpoints to
+     TorchScript and holds each, loaded onto the card, bitwise to the f32
+     Sequential built from the same state_dict on 4096 observations.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import sys
@@ -973,6 +990,161 @@ def time_k4(card, fused, g, p, m, v, lr, rec, reps=50):
 
 
 # ---------------------------------------------------------------------------
+JAX_CKPT = os.path.join(ROOT, "logs", "2026-08-17-04-03-56", "nn", "model_1100.ckpt")
+
+
+def check_restored(label, runner, ts, saved):
+    """Every piece of a port checkpoint restored bitwise by _init_state."""
+    import torch
+
+    sd = runner.ppo.network.state_dict()
+    same = lambda a, b: torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+    checks = {
+        "params": sorted(sd) == sorted(saved["params"])
+        and all(same(sd[k], v) for k, v in saved["params"].items()),
+        "m": same(ts.opt.m, saved["adam_m"]), "v": same(ts.opt.v, saved["adam_v"]),
+        "count": ts.opt.count == saved["adam_count"],
+        "lr": same(ts.lr, torch.tensor(saved["lr"], dtype=torch.float32)),
+        "iteration": ts.iteration == saved["iteration"],
+        "curriculum": same(ts.env_state.curriculum_prob, saved["curriculum"]),
+        "generator": same(runner.gen.get_state(), saved["gen_state"])}
+    log(f"  {label}: restored bitwise {checks}")
+    require(all(checks.values()), f"{label}: a piece was not restored bitwise")
+
+
+def zero_counts(runner):
+    env, fused = runner.env, runner.ppo.fused
+    env.substep.launches = env.substep.fused_sampler_launches = 0
+    if env.terrain_sampler is not None:
+        env.terrain_sampler.launches = 0
+    fused.gae_launches = fused.grads_stats_launches = fused.opt_stage_launches = 0
+
+
+def resume_play_export(card, urdf):
+    """Phase 7: resume on the card (7a), the JAX package's checkpoint
+    played on the plane and on T1.yaml's terrain (7b), and the TorchScript
+    export of both checkpoints (7c)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from booster_gym_torch import export as port_export
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.runner import Runner, _Timer
+    from booster_gym_torch.testing import main_path_cfg, rough_path_cfg
+    from booster_gym_torch.utils.recorder import load_checkpoint
+
+    # phases 1-6 leave garbage in reference cycles (the profiler's events
+    # among it); until a full collection frees it, each one walks all of it,
+    # and the host-bound loops below would pay for that
+    n_before, t0 = len(gc.get_objects()), time.perf_counter()
+    gc.collect()
+    log(f"7. before phase 7: {n_before:,} objects tracked by the collector, "
+        f"{len(gc.get_objects()):,} after a full collection ({time.perf_counter() - t0:.2f} s)")
+    os.chdir(tempfile.mkdtemp(prefix="chip_smoke_resume_"))   # a logs/ root of its own
+    horizon, mini_epochs = 24, 20
+
+    # -- 7a. train 2 iterations, then resume twice from the first checkpoint
+    def cfg(checkpoint=None):
+        c = main_path_cfg(urdf)
+        c["basic"].update(max_iterations=2, checkpoint=checkpoint)
+        c["runner"]["save_interval"] = 1
+        return c
+
+    runner = Runner(cfg(), device="cuda")
+    records = runner.train()
+    (ckpt1,) = glob.glob(os.path.join("logs", "*", "nn", "model_1.pt"))
+    (ckpt2,) = glob.glob(os.path.join("logs", "*", "nn", "model_2.pt"))
+    saved1 = load_checkpoint(ckpt1)
+    sd2 = load_checkpoint(ckpt2)["params"]
+    straight = torch.cat([sd2[k].reshape(-1) for k, _ in runner.ppo.network.named_parameters()])
+    log(f"7a. trained 2 iterations at 4096 envs [{card}]: iter "
+        f"{[round(r['iter_ms'], 2) for r in records]} ms; checkpoints {ckpt1}, {ckpt2}")
+    resumed = []
+    for i in range(2):
+        r = Runner(cfg(ckpt1), device="cuda")
+        _, ts = r._init_state()
+        check_restored(f"resume {i + 1} from {ckpt1}", r, ts, saved1)
+        zero_counts(r)
+        recs = r.train()
+        torch.cuda.synchronize()
+        fused = r.ppo.fused
+        got = {"K1": r.env.substep.launches, "K2": fused.gae_launches,
+               "K3": fused.grads_stats_launches, "K4": fused.opt_stage_launches}
+        want = {"K1": horizon, "K2": mini_epochs, "K3": mini_epochs, "K4": mini_epochs}
+        rec = recs[-1] if recs else {}
+        log(f"  resume {i + 1} [{card}]: {len(recs)} iteration, numbered "
+            f"{r.train_state.iteration}; iter {rec.get('iter_ms', float('nan')):.2f} ms (rollout "
+            f"{rec.get('rollout_ms', float('nan')):.2f}, update "
+            f"{rec.get('update_ms', float('nan')):.2f}); launches {got} (expected {want})")
+        require(len(recs) == 1 and r.train_state.iteration == 2, "the resumed iteration")
+        require(got == want and [int(rec[k]) for k in (
+            "substep_kernel_launches", "gae_launches", "grads_stats_launches",
+            "opt_stage_launches")] == list(want.values()), "the resumed iteration's launches")
+        require(all(np.isfinite(v) for v in rec.values()), "non-finite metrics after resume")
+        resumed.append((flat_params(r.ppo.network), r.train_state.opt.m.clone(),
+                        r.train_state.opt.v.clone(), rec))
+        del r
+    (p0, m0, v0, r0), (p1, m1, v1, r1) = resumed
+    diff = lambda a, b: float((a.float().cpu() - b.float().cpu()).abs().max())
+    timing = ("rollout_ms", "update_ms", "iter_ms", "env_steps_per_sec")
+    metrics_same = all(r0[k] == r1[k] for k in r0 if k not in timing)
+    log(f"  two resumes [{card}]: params max |diff| {diff(p0, p1):.3e}, m {diff(m0, m1):.3e}, "
+        f"v {diff(v0, v1):.3e}, metrics equal {metrics_same}; resume against the "
+        f"uninterrupted run's model_2.pt: params max |diff| {diff(p0, straight):.3e} (a resume "
+        f"starts from a fresh reset, so equality is not expected)")
+
+    # -- 7b. the JAX package's checkpoint, played at 4096 envs ---------------
+    saved = load_checkpoint(JAX_CKPT)
+    loaded = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "optax", "flax"))
+    log(f"7b. {JAX_CKPT}: iteration {int(saved['iteration'])}, lr {float(saved['lr']):.6g}; "
+        f"jax/optax/flax modules loaded: {loaded}")
+    require(not loaded, "loading the JAX checkpoint imported JAX")
+    for label, cfg_fn in (("plane", main_path_cfg), ("trimesh", rough_path_cfg)):
+        pcfg = cfg_fn(urdf)
+        pcfg["basic"]["checkpoint"] = JAX_CKPT
+        pr = Runner(pcfg, device="cuda")
+        zero_counts(pr)
+        timer = _Timer(pr.device)
+        traj = pr.play(num_steps=500, timer=timer)
+        ms = timer.ms("steps", "end")
+        sub, sampler = pr.env.substep, pr.env.terrain_sampler
+        got = {"control step": sub.launches, "fused sampler": sub.fused_sampler_launches,
+               "standalone sampler": 0 if sampler is None else sampler.launches}
+        want = {"control step": 500, "fused sampler": 0 if sub.plane else 500,
+                "standalone sampler": 0}
+        rew = np.stack([t["rew"] for t in traj])
+        done = np.stack([t["done"] for t in traj])
+        finite = all(np.isfinite(v).all() for t in traj for v in t.values())
+        kernel = "K1" if sub.plane else "K5"
+        log(f"  play on {label} ({kernel}), 500 steps at 4096 envs [{card}]: "
+            f"{500 / (ms / 1e3):,.1f} steps/s ({500 * 4096 / (ms / 1e3):,.0f} env-steps/s, "
+            f"{ms:.1f} ms by CUDA events); mean reward/step {rew.mean():.4f}; envs done at least "
+            f"once {done.any(axis=0).mean():.4f}, done per step {done.mean():.5f}; launches {got} "
+            f"(expected {want}); finite {finite}")
+        require(got == want and sub.plane == (label == "plane"), f"play's launches on {label}")
+        require(finite and rew.shape == (500, 4096), f"play's trajectory on {label}")
+        del pr, traj
+
+    # -- 7c. TorchScript export of both checkpoints, on the card --------------
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(4096, 47, generator=gen, device="cuda")
+    for i, src in enumerate((JAX_CKPT, ckpt1)):
+        out = port_export.export(src, output=os.path.abspath(f"policy_{i}.pt"))
+        module = torch.jit.load(out, map_location="cuda")
+        seq = port_export.actor_sequential(
+            port_export.actor_params(load_checkpoint(src))).to("cuda")
+        with torch.no_grad():
+            a, b = module(x), seq(x)
+        same = torch.equal(a, b)
+        log(f"7c. export of {src} -> {out}: TorchScript on the card against the f32 Sequential "
+            f"at 4096 observations: bitwise {same}, max |a| {float(a.abs().max()):.4f}")
+        require(same and a.shape == (4096, 12) and bool(torch.isfinite(a).all()),
+                f"the export of {src}")
+    os.chdir(ROOT)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "booster_gym_torch")):
         print("chip_smoke.py: the booster_gym_torch package is not beside this script",
@@ -1431,6 +1603,9 @@ def main():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "device_ms": dev_ms["terrain_sample"], "epilogue_ms": epilogue_ms["K5"]})
     line = {"kernels": entries + time_update_kernels(card, launches, update_err, by_kernel)}
+
+    # -- 7. resume, the JAX checkpoint played, export -------------------------
+    resume_play_export(card, urdf)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

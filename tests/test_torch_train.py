@@ -70,6 +70,33 @@ def test_train_cli_on_cpu_with_the_task_files_terrain(tmp_path):
     assert cfg["terrain"]["type"] == "trimesh" and cfg["terrain"]["num_terrains"] == 8
 
 
+def test_train_cli_resumes_on_cpu_without_jax(tmp_path):
+    """The CLI trains one iteration, then --checkpoint=-1 resumes it for a
+    second, numbered 2; neither run imports JAX (checked in the process
+    that ran the CLI)."""
+    urdf = write_t1_shaped_urdf(tmp_path)
+    code = ("import runpy, sys\n"
+            "sys.argv = ['train'] + sys.argv[1:]\n"
+            "runpy.run_module('booster_gym_torch.train', run_name='__main__')\n"
+            "print('jax modules:', sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'booster_gym_tpu')))\n")
+    args = ["--task=T1", "--terrain=plane", "--device", "cpu", "--num_envs", "8",
+            "--asset_file", urdf]
+    outs = []
+    for extra in (["--max_iterations", "1"], ["--checkpoint=-1", "--max_iterations", "2"]):
+        out = subprocess.run([sys.executable, "-c", code, *args, *extra], cwd=tmp_path,
+                             env=_env(), capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "jax modules: []" in out.stdout, out.stdout
+        outs.append(out.stdout)
+    assert "epoch: 1/1" in outs[0] and "Loading model from logs" in outs[1]
+    assert "epoch: 2/2" in outs[1] and "epoch: 1/2" not in outs[1]
+    (path,) = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path / "logs") for f in fs
+               if f == "model_2.pt"]
+    ckpt = torch.load(path, weights_only=True)
+    assert ckpt["iteration"] == 2 and ckpt["adam_count"] == 2 * 20 and "gen_state" in ckpt
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, loads neither
     jax nor booster_gym_tpu (checked in a fresh interpreter)."""
@@ -192,8 +219,9 @@ def test_unported_paths_raise(tmp_path):
     cfg["terrain"]["type"] = "heightmap"     # trimesh is ported; other names are invalid
     with pytest.raises(ValueError, match="terrain type"):
         Runner(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Runner(_cfg(tmp_path, "--checkpoint", "-1"), device="cpu")
+    # resuming is ported: a checkpoint that is not there raises
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
+        Runner(_cfg(tmp_path, "--checkpoint", str(tmp_path / "missing.pt")), device="cpu")
     cfg = _cfg(tmp_path)
     cfg["asset"]["file"] = "resources/T1/T1_locomotion.urdf"
     if not os.path.exists(os.path.join(REPO, cfg["asset"]["file"])):
