@@ -14,6 +14,11 @@ compute:
     vector (the JAX package's _flat_adam), then the optional min_logstd
     clamp;
   * analytic-KL adaptive learning rate x/÷1.5 within [1e-5, 1e-2].
+algorithm.init_logstd, min_logstd and bound_coef are read as the JAX
+package reads them (the standup configs set -1, -2 and 0.2).
+algorithm.update_tile, the JAX update kernel's VMEM row tile, may stand
+in a config and is ignored: the CUDA kernels pick their tiles from the
+widths.
 
 Subgradients at exact ties follow JAX: jnp.maximum and jnp.minimum give
 each side half the gradient, and jnp.clip is maximum-then-minimum, so a

@@ -45,6 +45,13 @@ bf16); at a longer horizon the planes past them spill to a global scratch
 K8, K9 and K10 take the f32 parameter vector and stage it to the compute
 type per call, as the reference casts its parameters per call.
 
+Every shape above is the T1 networks' (47 + 14 inputs, 12 actions).  The
+library picks its shapes from the widths it is built for, and
+bg_update_info reports them: at T1Standup's 434-wide critic input K3's
+tile is 32 rows in bf16 (16 in f32) and K2's clusters are 4 blocks of
+32-row tiles (8 of 16 in f32); at T1Serial's 23 actions the last layer's
+dz is 32 wide and a sample has 64 stat slots (16 and 32 at T1's 12).
+
 K3 and K9 run in three passes (csrc/update.cu): pass 1 per 64-row tile (32
 in f32) the forward, the loss step and the input gradients, writing every
 layer's input x_l and output gradient dz_l to a scratch [N, 2,400] in the
@@ -104,7 +111,7 @@ _FUNCTIONS = {
 INFO_KEYS = ("tile", "wpad", "scratch_width", "pass2_tiles", "pass2_rows", "smem_pass1",
              "smem_pass2", "blocks_per_sm_pass1", "blocks_per_sm_pass2", "k2_tile",
              "k2_cluster", "k2_max_planes", "k2_threads", "k2_groups", "k4_blocks",
-             "k4_threads")
+             "k4_threads", "dz3w", "nstat")
 CRITIC_INFO_KEYS = ("smem", "clusters", "blocks_per_sm")
 MIN_SLAB_ROWS = 512     # fewer rows than this per slab are not worth a partial
 STAT_NAMES = ("vl", "al", "bhi", "blo")   # then klsq[num_act]
@@ -320,7 +327,8 @@ class FusedUpdate:
             self._scratch[key] = dict(
                 rows=torch.empty(n * info["scratch_width"], dtype=self.dtype, device=device),
                 part=torch.empty((nslab, stride), dtype=torch.float32, device=device),
-                part_stats=torch.empty(nblk * 32, dtype=torch.float32, device=device),
+                part_stats=torch.empty(nblk * info["nstat"], dtype=torch.float32,
+                                       device=device),
                 nslab=nslab, slab_rows=slab_rows, stride=stride, nblk=nblk)
         return self._scratch[key]
 

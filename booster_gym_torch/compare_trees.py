@@ -4,6 +4,8 @@ unpacked with `git archive` into a git-ignored directory, and this one).
     python booster_gym_torch/compare_trees.py ptxas TREE [-D NAME=VALUE]...
     python booster_gym_torch/compare_trees.py gae TREE OUT
     python booster_gym_torch/compare_trees.py gae-diff OUT_A OUT_B
+    python booster_gym_torch/compare_trees.py sass TREE OUT
+    python booster_gym_torch/compare_trees.py sass-diff OUT_A OUT_B
 
 `ptxas` builds TREE's substep kernel (the T1-shaped robot's sizes, K1 and
 K5, each also with every -D given), its update kernels and its sampler,
@@ -12,8 +14,13 @@ spills of the control-step, substep, K2, K4 and sampler kernels.  `gae`
 runs TREE's K2 at T = 24 (bf16 and f32, B = 4096 and 1000, testing.
 update_case's data) and saves its four outputs to OUT, with ms per call
 (CUDA events) and the device kernels per call; `gae-diff` says whether two
-such files are bitwise equal.  Run as a script, so that TREE's package,
-not this one, is imported.  Needs a GPU (gae-diff does not).
+such files are bitwise equal.  `sass` builds TREE's K1 (the T1-shaped
+robot's sizes, its foot edge points) and its update library at the T1
+networks' widths and writes each library's machine code (cuobjdump -sass,
+every kernel, bf16 and f32) to OUT; `sass-diff` says whether two such
+files hold the same code, library by library.  Run as a script, so that
+TREE's package, not this one, is imported.  Needs the CUDA toolkit (ptxas,
+sass) or a GPU (gae); gae-diff and sass-diff need neither.
 """
 
 import argparse
@@ -97,6 +104,40 @@ def gae_diff(a, b):
         print("K2", k, "bitwise equal (adv, ret, sum, sum^2):", same)
 
 
+def sass(tree, out):
+    import json
+    import subprocess
+
+    use_tree(tree)
+    from booster_gym_torch import kernel_build as kb
+
+    # K1 at the tree's own launch shape (no EPB: the source's default, or
+    # its pick from the sizes)
+    jobs = {"K1": kb.start_build("substep.cu", dict(T1_SIZES, NE=4, PLANE=1)),
+            "update": kb.start_build("update.cu", UPDATE_SIZES)}
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    res = {}
+    for name, job in jobs.items():
+        kb.finish_build(*job)
+        text = subprocess.run([cuobjdump, "-sass", job[0]], capture_output=True, text=True,
+                              check=True).stdout
+        # the machine code only: the header names the library's file
+        res[name] = [line for line in text.splitlines() if line.strip().startswith(("/*", "."))
+                     or "Function" in line]
+        print(f"{tree} {name}: {os.path.basename(job[0])}, {len(res[name])} lines of SASS")
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def sass_diff(a, b):
+    import json
+
+    a, b = json.load(open(a)), json.load(open(b))
+    for name in a:
+        print(f"{name}: the same machine code: {a[name] == b.get(name)} ({len(a[name])} and "
+              f"{len(b.get(name, []))} lines)")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -109,11 +150,21 @@ def main(argv=None):
     p = sub.add_parser("gae-diff")
     p.add_argument("a")
     p.add_argument("b")
+    p = sub.add_parser("sass")
+    p.add_argument("tree")
+    p.add_argument("out")
+    p = sub.add_parser("sass-diff")
+    p.add_argument("a")
+    p.add_argument("b")
     args = parser.parse_args(argv)
     if args.cmd == "ptxas":
         ptxas(args.tree, args.defines)
     elif args.cmd == "gae":
         gae(args.tree, args.out)
+    elif args.cmd == "sass":
+        sass(args.tree, args.out)
+    elif args.cmd == "sass-diff":
+        sass_diff(args.a, args.b)
     else:
         gae_diff(args.a, args.b)
 

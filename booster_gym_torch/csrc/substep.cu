@@ -63,9 +63,10 @@
 // -DEPILOGUE=0 compiles the epilogue out (its outputs are then not
 // written): a diagnostic build that times the control step without it.
 //
-// Design.  A warp per env and EPB envs per block (a -D size in the
-// library's name; 8, so that 4 blocks of 56.7 KB and 64 registers a thread
-// put 32 warps on each SM and 4096 envs in one wave of 132 SMs).  The block
+// Design.  A warp per env and EPB envs per block (picked from the robot's
+// sizes, below EnvWS; at T1's widths 8, so that 4 blocks of 56.7 KB and 64
+// registers a thread put 32 warps on each SM and 4096 envs in one wave of
+// 132 SMs).  The block
 // copies the robot's table (parent, joint frames and axes, ancestor mask,
 // dof limits, contact points, feet, tree levels, points grouped by body,
 // solver constants; layout in model_tables() of physics/substep_kernel.py)
@@ -109,9 +110,6 @@
 #ifndef PLANE
 #define PLANE 1
 #endif
-#ifndef EPB
-#define EPB 8   // envs (warps) per block
-#endif
 #ifndef PHASE_CLOCKS
 #define PHASE_CLOCKS 0
 #endif
@@ -121,9 +119,6 @@
 #ifndef EPILOGUE
 #define EPILOGUE 1
 #endif
-#ifndef MINB
-#define MINB (32 / EPB)  // resident blocks per SM asked of ptxas: 32 warps
-#endif                   // per SM, 64 registers a thread
 
 #define NV (6 + ND)
 #define NSTATE (13 + 2 * ND)
@@ -175,8 +170,6 @@
 #define CFG_TREST 12
 #define CFG_REG 13
 
-// One env's working set in shared memory.  Spatial 6-vectors are
-// [angular; linear]: velocities [w; v], wrenches [torque; force].
 #define MAXI(a, b) ((a) > (b) ? (a) : (b))
 // offsets in EnvWS's phase scratch: acc after both the RNEA's accelerations
 // and the sweeps' point and body wrenches; vb after acc and Lambda
@@ -230,6 +223,43 @@ struct EnvWS {
     } v;
   } s;
 };
+
+// The launch shape follows the robot.  EPB, the envs (warps) per block, is
+// the one of 1..8 whose block fits the H100's 227 KB a block and that keeps
+// the most warps resident on an SM (at most 32, so that ptxas is never
+// asked for fewer than 64 registers a thread; ties go to the larger EPB).
+// MINB, the resident blocks per SM asked of ptxas, is what an SM's 228 KB
+// hold at that size, with the 1 KB the card reserves per block.  T1's
+// widths give 8 and 4 (56.7 KB a block); the 23-DoF serial robot's ~13 KB
+// working sets 7 or 8 and 2.  -DEPB and -DMINB override them (variant
+// builds); bg_substep_info reports both.
+constexpr int SMEM_BLOCK_MAX = 232448, SMEM_SM = 233472, SMEM_RESERVED = 1024;
+constexpr int smem_bytes(int epb) { return (MDL_LEN + NPAIR) * 4 + epb * (int)sizeof(EnvWS); }
+constexpr int sm_blocks(int epb) {
+  return smem_bytes(epb) > SMEM_BLOCK_MAX
+             ? 0
+             : (SMEM_SM / (smem_bytes(epb) + SMEM_RESERVED) < 32 / epb
+                    ? SMEM_SM / (smem_bytes(epb) + SMEM_RESERVED)
+                    : 32 / epb);
+}
+constexpr int pick_epb() {
+  int best = 0;
+  for (int epb = 1; epb <= 8; ++epb)
+    if (sm_blocks(epb) > 0 && (best == 0 || epb * sm_blocks(epb) >= best * sm_blocks(best)))
+      best = epb;
+  return best;
+}
+#ifndef EPB
+constexpr int EPB_PICKED = pick_epb();
+#define EPB EPB_PICKED
+#endif
+#ifndef MINB
+constexpr int MINB_PICKED = sm_blocks(EPB);
+#define MINB MINB_PICKED
+#endif
+constexpr int SMEM_BYTES = smem_bytes(EPB);
+static_assert(EPB >= 1 && SMEM_BYTES <= SMEM_BLOCK_MAX,
+              "one env's working set does not fit a block's shared memory");
 
 __device__ __forceinline__ int ti(const float* m, int off) { return __float_as_int(m[off]); }
 
@@ -945,8 +975,8 @@ __device__ __forceinline__ void substep(EnvWS& w, const float* m, const int* pai
 
 // ---------------------------------------------------------------------------
 // Kernels.  Shared memory: the model table (index blocks as ints), the
-// (i <= j) pairs of an NV x NV lower triangle, then EPB env working sets.
-#define SMEM_BYTES ((MDL_LEN + NPAIR) * 4 + EPB * sizeof(EnvWS))
+// (i <= j) pairs of an NV x NV lower triangle, then EPB env working sets
+// (SMEM_BYTES, above).
 
 __device__ __forceinline__ EnvWS* setup_block(const float* __restrict__ mdl, float*& m,
                                               int*& pairs) {
@@ -1240,12 +1270,14 @@ static int launch_control(const float* s_in, const float* dyn, const float* targ
 }
 
 // out[0] shared memory per block (bytes), out[1] envs per block, out[2] and
-// out[3] resident blocks per SM of the substep and the control-step kernel
+// out[3] resident blocks per SM of the substep and the control-step kernel,
+// out[4] the resident blocks per SM asked of ptxas (MINB)
 extern "C" int bg_substep_info(int* out) {
   int err = allow_smem((const void*)substep_kernel);
   if (err == 0) err = allow_smem((const void*)control_kernel);
   out[0] = (int)SMEM_BYTES;
   out[1] = EPB;
+  out[4] = MINB;
   if (err == 0)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], substep_kernel, 32 * EPB,
                                                              SMEM_BYTES);

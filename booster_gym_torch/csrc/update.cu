@@ -40,7 +40,9 @@
 // (2.3e5 and 1.0e6 flop per sample against 0.1 to 0.4 KB).  K2 and K8 run
 // their own forward-only critic kernel, k2_critic (its design is at the
 // kernel).  K3's tile block (16 warps, one per SM; also K10's) keeps one
-// tile of samples (64 in bf16, 32 in f32) with every layer's activations in
+// tile of samples (64 in bf16, 32 in f32 at the T1 networks' widths;
+// tile_rows halves it where the block would not fit, 32 and 16 at
+// T1Standup's 434-wide critic input) with every layer's activations in
 // shared memory; weights stream through L2 in chunks of 32 (bf16) or 16
 // (f32) reduction rows, double-buffered with cp.async, one block barrier per
 // chunk.  K3 (and K9) is three passes, all on the caller's stream:
@@ -48,7 +50,8 @@
 //                      gradients of both nets; every layer's input x_l and
 //                      output gradient dz_l leave as rows in type T, by bulk
 //                      copies that run on while the block computes, to a
-//                      scratch in device memory (2,400 values per row), and
+//                      scratch in device memory (2,400 values per row at
+//                      the T1 widths), and
 //                      the per-row stats to the block's stat partial;
 //   pass 2 (k3_pass2)  the weight gradients dW_l = dz_l^T x_l as a split-K
 //                      product over the rows: a block owns one 128 x 128
@@ -109,42 +112,66 @@
 #define CH3 128
 #endif
 
-constexpr int NCRIT = NOBS + NPRIV;
-constexpr int NT = 512;                       // threads of a tile block (one per SM)
-constexpr int NW = NT / 32;                   // its warps
-constexpr int K4_NT = 256;                    // threads of K4's blocks and the reduce
-constexpr int X0W = ((NCRIT + 31) / 32) * 32; // padded input width
-constexpr int DZ3W = 16;                      // padded width of the last layer's dz
-constexpr int NSTAT = 32;                     // per-sample stat slots (28 used)
 // (host and device: the kernels call them with run-time arguments too)
 #define HD __host__ __device__
 constexpr HD int cmax(int a, int b) { return a > b ? a : b; }
 constexpr HD int rup(int x, int m) { return (x + m - 1) / m * m; }
+constexpr int NCRIT = NOBS + NPRIV;
+constexpr int NT = 512;                       // threads of a tile block (one per SM)
+constexpr int NW = NT / 32;                   // its warps
+constexpr int K4_NT = 256;                    // threads of K4's blocks and the reduce
+constexpr int X0W = rup(NCRIT, 32);           // padded input width
+constexpr int DZ3W = rup(NACT, 16);           // padded width of the last layer's dz
+constexpr int NSTAT = rup(4 + 2 * NACT, 32);  // per-sample stat slots (4 + 2 NACT used)
 constexpr int HB1 = cmax(AH1, CH1), HB2 = cmax(AH2, CH2), HB3 = cmax(AH3, CH3);
 constexpr int HBA = cmax(HB1, HB3);           // the x buffer of layers 1 and 3
 constexpr float LOG2PI = 1.8378770664093453f;
+constexpr size_t SMEM_MAX = 232448;           // a block's shared memory on the H100
+// every layer's bias, in a tile block's shared memory: the actor's four,
+// then the critic's
+constexpr int NB_ACTOR = AH1 + AH2 + AH3 + NACT, NBIAS = NB_ACTOR + CH1 + CH2 + CH3 + 1;
 
-static_assert(NACT <= DZ3W, "the action width must fit the last-layer dz rows");
 static_assert(AH1 % 32 == 0 && AH2 % 32 == 0 && AH3 % 32 == 0, "hidden widths: multiples of 32");
 static_assert(CH1 % 32 == 0 && CH2 % 32 == 0 && CH3 % 32 == 0, "hidden widths: multiples of 32");
 static_assert(HB1 <= 256 && HB2 <= 256 && HB3 <= 256, "hidden widths: at most 256");
-static_assert(4 + 2 * NACT <= NSTAT, "stat slots");
 
 struct Offs { int aW[4], ab[4], cW[4], cb[4], logstd; };
 
+// The bytes of a tile block's shared memory (Smem<T>::bytes, which
+// static_asserts the two equal) at tn samples a tile, for a compute type of
+// tsize bytes with CT's kc, st and pad
+constexpr size_t tile_bytes(int tn, int kc, int st, int pad, int tsize) {
+    const int kp = tsize == 4 ? kc + 1 : kc;
+    const int n_ws = cmax(256 * kp, kc * (256 + pad));
+    const size_t n_t = (size_t)tn * (X0W + HB1 + HB2 + HB3 + HBA + HB2 + 6 * pad) + st * n_ws
+                       + rup(NBIAS, 8);
+    const size_t n_f = (size_t)tn * (NACT + 1 + NSTAT) + 2 * NACT;
+    return ((n_t * tsize + 127) / 128) * 128 + n_f * 4;
+}
+// A tile's samples: tn, halved while the block does not fit (down to 16).
+// The T1 networks keep 64 in bf16 and 32 in f32; a 434-wide critic input
+// takes 32 and 16.
+constexpr int tile_rows(int tn, int kc, int st, int pad, int tsize) {
+    return tn <= 16 || tile_bytes(tn, kc, st, pad, tsize) <= SMEM_MAX
+               ? tn : tile_rows(tn / 2, kc, st, pad, tsize);
+}
+
 template <typename T> struct CT;
-// TN: samples in a tile; KC: reduction rows of a staged weight chunk, ST of
-// them in flight (more stages and shorter chunks measured slower on the
-// H100); PAD: what a shared-memory row stride adds to its width (multiples
-// of 16 bytes, and for bf16 an odd number of 16-byte units, so the 8 rows an
-// ldmatrix reads fall in different banks); VEC: values in 16 bytes
+// TN: samples in a tile (tile_rows); KC: reduction rows of a staged weight
+// chunk, ST of them in flight (more stages and shorter chunks measured
+// slower on the H100); PAD: what a shared-memory row stride adds to its
+// width (multiples of 16 bytes, and for bf16 an odd number of 16-byte
+// units, so the 8 rows an ldmatrix reads fall in different banks); VEC:
+// values in 16 bytes
 template <> struct CT<float> {
-    static constexpr int TN = 32, KC = 16, ST = 2, PAD = 4, VEC = 4;
+    static constexpr int KC = 16, ST = 2, PAD = 4, VEC = 4;
+    static constexpr int TN = tile_rows(32, KC, ST, PAD, 4);
     static __device__ __forceinline__ float to_f(float x) { return x; }
     static __device__ __forceinline__ float from_f(float x) { return x; }
 };
 template <> struct CT<__nv_bfloat16> {
-    static constexpr int TN = 64, KC = 32, ST = 2, PAD = 8, VEC = 8;   // KC 32: swz
+    static constexpr int KC = 32, ST = 2, PAD = 8, VEC = 8;   // KC 32: swz
+    static constexpr int TN = tile_rows(64, KC, ST, PAD, 2);
     static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
     static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
 };
@@ -171,9 +198,6 @@ template <int D0_, int H1_, int H2_, int H3_, int DO_, int BASE> struct NetDims 
 using ActorNet = NetDims<NOBS, AH1, AH2, AH3, NACT, 0>;
 using CriticNet = NetDims<NCRIT, CH1, CH2, CH3, 1, ActorNet::end>;
 constexpr int NWPAD = CriticNet::end;
-// every layer's bias, in a tile block's shared memory: the actor's four,
-// then the critic's
-constexpr int NB_ACTOR = AH1 + AH2 + AH3 + NACT, NBIAS = NB_ACTOR + CH1 + CH2 + CH3 + 1;
 template <typename Net> constexpr HD int bias_off(int l) {
     return (std::is_same<Net, ActorNet>::value ? 0 : NB_ACTOR) + Net::hsum(l);
 }
@@ -241,8 +265,11 @@ template <typename T> struct Smem {
         var = f;
     }
 };
-static_assert(Smem<float>::bytes <= 232448, "f32 tile exceeds a block's shared memory");
-static_assert(Smem<__nv_bfloat16>::bytes <= 232448, "bf16 tile exceeds a block's shared memory");
+static_assert(Smem<float>::bytes <= SMEM_MAX, "f32 tile exceeds a block's shared memory");
+static_assert(Smem<__nv_bfloat16>::bytes <= SMEM_MAX, "bf16 tile exceeds a block's shared memory");
+static_assert(Smem<float>::bytes == tile_bytes(CT<float>::TN, 16, 2, 4, 4)
+              && Smem<__nv_bfloat16>::bytes == tile_bytes(CT<__nv_bfloat16>::TN, 32, 2, 8, 2),
+              "tile_bytes must be Smem's size");
 static_assert(Smem<float>::LD <= Smem<float>::LB && Smem<__nv_bfloat16>::LD <= Smem<__nv_bfloat16>::LB,
               "dzl must fit in xb");
 
@@ -624,9 +651,14 @@ __global__ void __launch_bounds__(K4_NT) k_pad(const T* __restrict__ staged, Off
 // The critic's weights stay in shared memory for the whole launch: a
 // cluster of CL blocks (bf16 2, f32 4) splits every hidden layer's output
 // columns, and each block holds its share of the padded weights (124 KB in
-// bf16, 113 KB in f32), loaded once: ~16 MB from L2 per call, where a tile
-// block restaged all 0.23 MB per 64 rows (~0.37 GB).  A tile is TN
-// consecutive rows (bf16 64, f32 32); each of a block's two warp groups
+// bf16, 113 KB in f32 at the T1 widths), loaded once: ~16 MB from L2 per
+// call, where a tile block restaged all 0.23 MB per 64 rows (~0.37 GB).  A
+// tile is TN consecutive rows (bf16 64, f32 32).  Where that shape does not
+// fit a block (T1Standup's 434-wide input: 222 KB of bf16 weights a
+// block), CritPick takes clusters of twice the blocks and tiles of half
+// the rows (bf16 4 and 32: 113 KB of weights; f32 8 and 16); a layer's
+// share narrower than a warp's tile then leaves warps or lanes idle, and
+// the last layer's warp keeps its block's rows of a 16-row tile. each of a block's two warp groups
 // takes half of every tile with buffers, mbarriers and block-level barriers
 // of its own, so one group's products run while the other waits for its
 // partners' outputs.  A group's two activation buffers ping-pong and hold
@@ -675,10 +707,12 @@ __device__ unsigned long long k2_clk[K2_NCLK];
 #define K2_CLK(k)
 #define K2_CLK_START
 #endif
-template <typename T> struct Crit {
+// The critic kernel's shape at CL_ blocks a cluster and TN_ rows a tile;
+// Crit<T> picks it (below)
+template <typename T, int CL_, int TN_> struct CritAt {
     static constexpr bool F32 = std::is_same<T, float>::value;
-    static constexpr int CL = F32 ? 4 : 2;          // blocks in a cluster
-    static constexpr int TN = F32 ? 32 : 64;        // rows in a tile (a cluster's unit)
+    static constexpr int CL = CL_;                  // blocks in a cluster
+    static constexpr int TN = TN_;                  // rows in a tile (a cluster's unit)
     static constexpr int EW = TN / CL;              // rows (envs) a block keeps values of
     static constexpr int NTH = 256;                 // threads of a block (16 warps: slower)
     static constexpr int NWP = NTH / 32;
@@ -710,13 +744,33 @@ template <typename T> struct Crit {
     static constexpr HD int rx_bytes(int l) { return (CL - 1) * TG * outs(l) * (int)sizeof(T); }
     static constexpr size_t fixed = (size_t)NTV * sizeof(T);   // bytes; then the values
     static HD size_t bytes(int planes) { return fixed + (size_t)planes * EW * sizeof(float); }
-    static constexpr size_t SMEM_MAX = 232448;
-    static constexpr int max_planes = (int)((SMEM_MAX - fixed) / (EW * sizeof(float)));
+    static constexpr int max_planes =
+        fixed <= SMEM_MAX ? (int)((SMEM_MAX - fixed) / (EW * sizeof(float))) : 0;
 };
-static_assert(CH1 % (Crit<float>::CL * 32) == 0 && CH2 % (Crit<float>::CL * 32) == 0
-              && CH3 % (Crit<float>::CL * 32) == 0, "critic widths: multiples of 128");
+// The shape of a build: clusters of 2 blocks and 64-row tiles in bf16 (4
+// and 32 in f32), the T1 networks' shape, where a block holds its share of
+// the weights and the buffers with room for two planes of values; past that
+// (a wide critic input: 434 columns) clusters of 4 and 32-row tiles in bf16
+// (8 and 16 in f32), each block a quarter (an eighth) of the weights and
+// half the rows.
+template <typename T> struct CritPick {
+    static constexpr bool F32 = std::is_same<T, float>::value;
+    using Base = CritAt<T, F32 ? 4 : 2, F32 ? 32 : 64>;
+    using Split = CritAt<T, F32 ? 8 : 4, F32 ? 16 : 32>;
+    using type = typename std::conditional<(Base::max_planes >= 2), Base, Split>::type;
+};
+template <typename T> using Crit = typename CritPick<T>::type;
+static_assert(CH1 % (Crit<float>::CL * 16) == 0 && CH2 % (Crit<float>::CL * 16) == 0
+              && CH3 % (Crit<float>::CL * 16) == 0
+              && CH1 % (Crit<__nv_bfloat16>::CL * 16) == 0
+              && CH2 % (Crit<__nv_bfloat16>::CL * 16) == 0
+              && CH3 % (Crit<__nv_bfloat16>::CL * 16) == 0,
+              "critic widths: a block's share of each layer a multiple of 16 columns");
 static_assert(Crit<float>::max_planes >= 2 && Crit<__nv_bfloat16>::max_planes >= 2,
               "the critic's shared memory leaves room for the values of T = 1");
+static_assert(Crit<float>::TG * X0W % Crit<float>::GT == 0
+              && Crit<__nv_bfloat16>::TG * X0W % Crit<__nv_bfloat16>::GT == 0,
+              "a group's x0 tile in whole registers a thread");
 
 __device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
     uint32_t o;
@@ -797,7 +851,11 @@ __device__ __forceinline__ void crit_layer(const T* X, int ldx, const T* Ws, con
     };
     bias += CriticNet::hsum(L) + cb;
     if constexpr (C::F32) {
-        constexpr int NS = C::TG / NWP, J = OUTS / 32;
+        // a lane every 32nd column; a share narrower than 32 columns (16 at
+        // clusters of 8) leaves the lanes past it idle
+        constexpr int NS = C::TG / NWP, J = (OUTS + 31) / 32;
+        constexpr bool FULL_J = OUTS % 32 == 0;
+        static_assert(NS * NWP == C::TG, "a warp's rows");
         float acc[NS][J];
 #pragma unroll
         for (int i = 0; i < NS; ++i)
@@ -809,7 +867,8 @@ __device__ __forceinline__ void crit_layer(const T* X, int ldx, const T* Ws, con
 #pragma unroll
             for (int i = 0; i < NS; ++i) a[i] = X[(warp * NS + i) * ldx + k];
 #pragma unroll
-            for (int j = 0; j < J; ++j) b[j] = Ws[(lane + 32 * j) * C::lw(L) + k];
+            for (int j = 0; j < J; ++j)
+                b[j] = (FULL_J || lane + 32 * j < OUTS) ? Ws[(lane + 32 * j) * C::lw(L) + k] : 0.0f;
 #pragma unroll
             for (int i = 0; i < NS; ++i)
 #pragma unroll
@@ -819,7 +878,8 @@ __device__ __forceinline__ void crit_layer(const T* X, int ldx, const T* Ws, con
         // move past the bias loads: both are shared memory)
         float bj[J];
 #pragma unroll
-        for (int j = 0; j < J; ++j) bj[j] = CT<T>::to_f(bias[lane + 32 * j]);
+        for (int j = 0; j < J; ++j)
+            bj[j] = (FULL_J || lane + 32 * j < OUTS) ? CT<T>::to_f(bias[lane + 32 * j]) : 0.0f;
 #pragma unroll
         for (int i = 0; i < NS; ++i)
 #pragma unroll
@@ -828,14 +888,20 @@ __device__ __forceinline__ void crit_layer(const T* X, int ldx, const T* Ws, con
         for (int i = 0; i < NS; ++i)
 #pragma unroll
             for (int j = 0; j < J; ++j)
-                out[(warp * NS + i) * C::LA + cb + lane + 32 * j] = acc[i][j];
+                if (FULL_J || lane + 32 * j < OUTS)
+                    out[(warp * NS + i) * C::LA + cb + lane + 32 * j] = acc[i][j];
     } else {
         // NCG column groups of NW8 8-wide tiles, NRG row groups of MT 16-row
-        // tiles: 32 columns a warp where the rows leave enough warps (every
-        // warp writes its share: the mbarriers count the bytes)
+        // tiles: 32 columns a warp where the rows leave enough warps; warps
+        // past NCG * NRG have no tile (a 32-column share of 16 rows: 2 of 4)
         constexpr int NW8 = (OUTS / 32) * (C::TG / 16) >= NWP ? 4 : 2;
-        constexpr int NCG = OUTS / (8 * NW8), NRG = NWP / NCG, MT = (C::TG / 16) / NRG;
-        static_assert(NCG * NRG == NWP && MT * NRG * 16 == C::TG, "warp tiling");
+        constexpr int NCG = OUTS / (8 * NW8);
+        constexpr int NRG = cmax(1, NWP / NCG) < C::TG / 16 ? cmax(1, NWP / NCG) : C::TG / 16;
+        constexpr int MT = (C::TG / 16) / NRG;
+        static_assert(NCG * NRG <= NWP && MT * NRG * 16 == C::TG, "warp tiling");
+        if constexpr (NCG * NRG < NWP) {
+            if (warp >= NCG * NRG) return;
+        }
         const int m0 = (warp / NCG) * MT * 16, n0 = (warp % NCG) * 8 * NW8;
         float acc[MT][NW8][4];
 #pragma unroll
@@ -910,10 +976,14 @@ __device__ __forceinline__ void crit_value(const T* X, const T* W4, const T* bia
             out(tid, rnd<T>(rnd<T>(acc) + b4));
         }
     } else {
-        constexpr int MW = C::EG / 16;   // warps, a 16-row tile each
-        static_assert(C::EG % 16 == 0 && MW <= C::NWG, "last-layer warps");
+        // warps, a 16-row tile each; a block's rows fewer than 16 (4 at
+        // clusters of 4) take the 16-row tile that holds them and keep
+        // their own rows of it
+        constexpr int MW = (C::EG + 15) / 16;
+        static_assert(C::TG % 16 == 0 && MW <= C::NWG, "last-layer warps");
         if (warp < MW) {
-            const int m = rank * C::EG + 16 * warp;
+            const int lo = rank * C::EG + 16 * warp;   // the warp's first own row
+            const int m = (C::EG % 16 == 0 || lo + 16 <= C::TG) ? lo : C::TG - 16;
             const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
             const int fr = (lane & 7) + (lane >> 4) * 8, fc = ((lane >> 3) & 1) * 8;
             float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -926,8 +996,17 @@ __device__ __forceinline__ void crit_value(const T* X, const T* W4, const T* bia
             }
             if ((lane & 3) == 0) {   // column 0: rows g and g + 8
                 const int g = lane >> 2;
-                out(16 * warp + g, rnd<T>(rnd<T>(acc[0]) + b4));
-                out(16 * warp + g + 8, rnd<T>(rnd<T>(acc[2]) + b4));
+                if constexpr (C::EG % 16 == 0) {
+                    out(16 * warp + g, rnd<T>(rnd<T>(acc[0]) + b4));
+                    out(16 * warp + g + 8, rnd<T>(rnd<T>(acc[2]) + b4));
+                } else {
+                    const int hi = rank * C::EG + C::EG;
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int r = m + g + 8 * h;
+                        if (r >= lo && r < hi) out(r - rank * C::EG, rnd<T>(rnd<T>(acc[2 * h]) + b4));
+                    }
+                }
             }
         }
     }
@@ -1884,7 +1963,7 @@ template <typename Net> static void scratch_layout(int* out) {
     }
 }
 
-constexpr int N_INFO = 16;   // values of info() before the scratch layout
+constexpr int N_INFO = 18;   // values of info() before the scratch layout
 
 template <typename T>
 static int info(int* out) {
@@ -1909,6 +1988,8 @@ static int info(int* out) {
     out[13] = C::NG;
     out[14] = K4_BLOCKS;
     out[15] = K4_THREADS;
+    out[16] = DZ3W;
+    out[17] = NSTAT;
     scratch_layout<ActorNet>(out + N_INFO);
     scratch_layout<CriticNet>(out + N_INFO + 16);
     return 0;
@@ -1947,8 +2028,9 @@ int bg_k2_clocks(unsigned long long* out) {
 // shared memory of a tile block and of a pass-2 block, K3's pass-1 and
 // pass-2 resident blocks per SM; K2's and K8's rows per tile, blocks per
 // cluster, most planes (T + 1) of values in shared memory, threads per block
-// and warp groups per block; K4's blocks and threads per block; then the
-// scratch layout of the actor's four layers and the
+// and warp groups per block; K4's blocks and threads per block; the last
+// layer's padded dz width and the stat slots per sample (both from NACT);
+// then the scratch layout of the actor's four layers and the
 // critic's (x offset, x width, dz offset, dz width each)
 int bg_update_info(int bf16, int* out) {
     return bf16 ? info<__nv_bfloat16>(out) : info<float>(out);
@@ -1990,7 +2072,7 @@ int bg_gae(int bf16, const void* staged, const int* offs, void* wpad, const void
 }
 
 // wpad as for bg_gae; scratch: [n * SCR_WIDTH] of type T; part: [nslab *
-// stride] f32, part_stats: [nblk * 32] f32 scratch; slab s holds rows
+// stride] f32, part_stats: [nblk * NSTAT] f32 scratch; slab s holds rows
 // [s * slab_rows, min((s + 1) * slab_rows, n)); ev: null, or four CUDA
 // events that time the passes (grads_stats_launch)
 int bg_grads_stats(int bf16, const void* staged, const float* p, const int* offs, void* wpad,

@@ -39,6 +39,7 @@ from booster_gym_torch.math.quat import (
     quat_rotate_inverse,
 )
 from booster_gym_torch.model import load_urdf
+from booster_gym_torch.model.mjcf_points import with_mjcf_collision
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
 from booster_gym_torch.physics.kinematics import point_world_positions
@@ -78,11 +79,14 @@ class T1:
         self.sim_dt = cfg["sim"]["dt"]
         self.dt = self.decimation * self.sim_dt
 
-        if cfg["asset"].get("collision_source") == "mjcf":
-            raise NotImplementedError("MJCF collision points are not ported yet")
         self.model = load_urdf(
             _resolve_asset(cfg["asset"]["file"]),
             cylinder_rim_points=int(cfg["asset"].get("cylinder_rim_points", 6)))
+        if cfg["asset"].get("collision_source") == "mjcf":
+            # the contact points of the MJCF's collision geoms, the surfaces
+            # the MuJoCo oracle collides (model/mjcf_points.py)
+            self.model = with_mjcf_collision(self.model,
+                                             _resolve_asset(cfg["asset"]["mujoco_file"]))
         nd = self.model.num_dofs
         if nd != self.num_actions:
             raise ValueError(f"asset has {nd} dofs, config asks for {self.num_actions} actions")
@@ -313,7 +317,7 @@ class T1:
         state = state.replace(filtered_lin_vel=torch.zeros_like(state.filtered_lin_vel),
                               filtered_ang_vel=torch.zeros_like(state.filtered_ang_vel))
         state = self._resample_commands(state, gen)
-        obs, privileged = self._compute_observations(params, state, gen)
+        state, obs, privileged = self._observe(params, state, gen)
         info = {"privileged_obs": privileged, "time_outs": state.time_out_buf,
                 "rew_terms": {k: self._zeros(self.num_envs) for k in self.reward_scales}}
         return state, obs, info
@@ -479,9 +483,12 @@ class T1:
         commands = torch.where(still[:, None], 0.0, commands)
         gait_freq = torch.where(still, 0.0, gait_freq)
 
-        next_time = state.cmd_resample_time + torch.randint(
-            int(cc["resampling_time_s"][0] / self.dt), int(cc["resampling_time_s"][1] / self.dt),
-            (B,), generator=gen, device=self.device)
+        lo, hi = (int(t / self.dt) for t in cc["resampling_time_s"])
+        # jax.random.randint's bounds: an empty range gives its lower bound
+        # (T1Standup.yaml's 1000 s to 1000 s)
+        step = (torch.randint(lo, hi, (B,), generator=gen, device=self.device) if hi > lo
+                else torch.full((B,), lo, dtype=torch.int64, device=self.device))
+        next_time = state.cmd_resample_time + step
         return state.replace(
             commands=torch.where(mask[:, None], commands, state.commands),
             gait_frequency=torch.where(mask, gait_freq, state.gait_frequency),
@@ -576,7 +583,7 @@ class T1:
         state = self._resample_commands(state, gen)
         # refresh derived quantities for the envs that were reset
         state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
-        obs, privileged = self._compute_observations(params, state, gen)
+        state, obs, privileged = self._observe(params, state, gen)
 
         state = state.replace(
             last_actions=state.actions, last_dof_vel=state.sim.qd,
@@ -691,6 +698,12 @@ class T1:
         return state.replace(reset_buf=reset, time_out_buf=time_out)
 
     # ------------------------------------------------------------------
+    def _observe(self, params, state, gen):
+        """(state, obs, privileged): the hook of tasks whose observation
+        carries state across steps (the standup frame stack)."""
+        obs, privileged = self._compute_observations(params, state, gen)
+        return state, obs, privileged
+
     def _compute_observations(self, params, state, gen):
         """47-dim actor obs and 14-dim privileged obs."""
         ncfg = self.cfg["normalization"]

@@ -6,9 +6,12 @@
 PATH is the port's model_<it>.pt or the JAX package's model_<it>.ckpt; -1
 picks the newest under logs/.  The actor becomes torch.nn.Sequential(
 Linear, ELU, ..., Linear) in f32, keys 0.weight, 0.bias, 2.weight, ...,
-the layout booster_gym_tpu/deploy/policy.py loads.  torchscript (default)
-scripts and saves it as <PATH without extension>_policy.pt unless --output
-is given; onnx needs the onnx package.
+the layout booster_gym_tpu/deploy/policy.py loads.  A task whose config
+has a `standup` block (T1Standup, T1StandupFT) wraps it in StandupActor,
+the deploy stack's standup interface (export_model.py's standup_module).
+torchscript (default) scripts and saves it as <PATH without
+extension>_policy.pt unless --output is given; onnx needs the onnx
+package and takes the bare actor.
 """
 
 import argparse
@@ -44,6 +47,31 @@ def actor_sequential(params):
     return torch.nn.Sequential(*layers)
 
 
+class StandupActor(torch.nn.Module):
+    """The standup actor behind the deploy interface: forward(obs [B, 42],
+    stacked_obs [B, deploy_stack, 42]) -> actions [B, 12], the call the
+    deploy stack's standup policy makes.  The policy was trained on the
+    newest train_stack frames, so the module takes those from the deploy
+    stack (newest first in both) and flattens them."""
+
+    def __init__(self, actor, train_stack):
+        super().__init__()
+        self.actor = actor
+        self.train_stack = train_stack
+
+    def forward(self, obs, stacked_obs):
+        x = stacked_obs[:, :self.train_stack, :]
+        return self.actor(x.reshape(x.shape[0], -1))
+
+
+def deploy_module(actor, cfg):
+    """The module the deploy stack loads for a task config: the actor, or
+    StandupActor around it where the config has a `standup` block."""
+    if "standup" in cfg:
+        return StandupActor(actor, int(cfg["standup"]["train_stack"]))
+    return actor
+
+
 def export_onnx(actor, output):
     try:
         import onnx  # noqa: F401
@@ -60,7 +88,7 @@ def export_onnx(actor, output):
 def export(checkpoint, output=None, fmt="torchscript", task="T1", root="logs"):
     """Export the actor of `checkpoint` (a path, or -1 for the newest under
     `root`) for `task`; returns the written file's path."""
-    load_task_cfg(task)   # the task must be one the port has
+    cfg = load_task_cfg(task)   # the task must be one the port has
     path = resolve_checkpoint(checkpoint, root)
     print(f"Loading model from {path}")
     actor = actor_sequential(actor_params(load_checkpoint(path)))
@@ -70,7 +98,7 @@ def export(checkpoint, output=None, fmt="torchscript", task="T1", root="logs"):
         return export_onnx(actor, base + ".onnx")
     if fmt != "torchscript":
         raise ValueError(f"unknown format {fmt!r}")
-    torch.jit.script(actor).save(base + ".pt")
+    torch.jit.script(deploy_module(actor, cfg)).save(base + ".pt")
     print(f"Saved TorchScript actor to {base}.pt")
     return base + ".pt"
 

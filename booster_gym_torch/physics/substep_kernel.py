@@ -32,6 +32,12 @@ queries (the contact points, the root, the edge points): heights [B, NQ]
 and normals [B, NQ, 3], the standalone sampler's layout, K6 + K7 folded
 into the launch.
 
+Each build's launch shape follows its robot: csrc/substep.cu picks the
+envs per block and the blocks per SM that shared memory holds from the
+size of its env working set (8 envs a block and 4 blocks an SM at the T1
+widths; 7 or 8 and 2 for the 23-DoF serial robot's ~13 KB working sets),
+and info() reports them.
+
 The wrappers run their plain versions (physics/engine.py; the decimation
 loop of control_step_plain) only for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise.
@@ -99,15 +105,13 @@ def model_tables(model, cfg, feet_indices):
     return np.concatenate(parts)
 
 
-ENVS_PER_BLOCK = 8
-
-
 def kernel_sizes(model, feet_indices, plane=True, num_edges=0):
-    """The -D sizes of a build: the robot's, the foot edge points per foot,
-    the terrain form, and the envs (warps) per block."""
+    """The -D sizes of a build: the robot's, the foot edge points per foot
+    and the terrain form.  The source picks the launch shape from them
+    (csrc/substep.cu: EPB and MINB; info() reports both)."""
     return dict(NB=model.num_bodies, ND=model.num_dofs, NPT=model.num_points,
                 NS=len(model.shape_body), NF=len(feet_indices), NE=int(num_edges),
-                PLANE=int(plane), EPB=ENVS_PER_BLOCK)
+                PLANE=int(plane))
 
 
 def feet_edge_world(feet_pos, feet_R, edge_pos):
@@ -242,17 +246,17 @@ class SubstepKernel:
 
     def info(self):
         """The launch shape on the current card: shared memory per block
-        (bytes), envs per block, and the resident blocks per SM of the
-        substep and the control-step kernel
+        (bytes), envs per block, the resident blocks per SM asked of ptxas,
+        and those of the substep and the control-step kernel
         (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
         if self._launch is None:
             self.build()
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 5)()
         err = self._info(ctypes.cast(out, ctypes.c_void_p))
         if err != 0:
             raise RuntimeError(f"substep kernel occupancy query failed: cudaError {err}")
-        return dict(smem_bytes=out[0], envs_per_block=out[1], blocks_per_sm_substep=out[2],
-                    blocks_per_sm_control=out[3])
+        return dict(smem_bytes=out[0], envs_per_block=out[1], min_blocks_per_sm=out[4],
+                    blocks_per_sm_substep=out[2], blocks_per_sm_control=out[3])
 
     def _check(self, name, t, shape, dtype=torch.float32, strided=False):
         if t.device != self.tables.device:

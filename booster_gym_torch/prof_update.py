@@ -2,12 +2,13 @@
 tools/prof_update.py).
 
     python -m booster_gym_torch.prof_update [--T 24] [--B 4096] [--dtype bf16]
-        [--iters 50] [--trace DIR] [--device cuda] [--variant NAME:KEY=VALUE,...]...
-        [--variant-of K3] [--split]
+        [--task T1] [--iters 50] [--trace DIR] [--device cuda]
+        [--variant NAME:KEY=VALUE,...]... [--variant-of K3] [--split]
 
-Makes the reference tool's data from a seed (T1's 47 observation, 14
-privileged and 12 action dims, the ActorCritic's widths, weights drawn from
-the seed) and times values (K8), grads (K9) and policy_old_logp (K10), then
+Makes the reference tool's data from a seed (the observation, privileged
+and action dims of --task's config: T1's 47, 14 and 12; T1Standup's 420,
+14 and 12; T1Serial's 80, 14 and 23; the ActorCritic's widths, weights
+drawn from the seed) and times values (K8), grads (K9) and policy_old_logp (K10), then
 gae (K2), grads_stats (K3) and opt_stage (K4) at the same shape: 3 warm-up
 calls, then --iters calls between two CUDA events.  Prints one JSON line per
 kernel: ms per call, the launches its wrapper counted, the bound (the larger
@@ -42,7 +43,6 @@ import torch
 
 from booster_gym_torch import testing
 
-NO, NP, NA = 47, 14, 12
 GAMMA, LAM = 0.995, 0.95
 WARMUP = 3
 # method, the kernel's name in the port's table
@@ -85,13 +85,15 @@ def bound(fused, method, nbytes, nops):
                          else testing.H100_F32_OPS_PER_S)
 
 
-def make_data(T, B, compute_dtype, device, seed=0):
+def make_data(T, B, compute_dtype, device, seed=0, dims=testing.T1_DIMS):
     """The reference tool's make_data, drawn with a torch.Generator on the
     CPU and moved to `device`: (network, d) with d's obs, priv, act, adv,
     ret, old_logp and the policy's mu0, plus the post-rollout observation,
-    rewards, nonterm and timeout_f that gae takes."""
+    rewards, nonterm and timeout_f that gae takes.  dims: (actions,
+    observations, privileged observations)."""
     from booster_gym_torch.algo.networks import ActorCritic, normal_log_prob
 
+    NA, NO, NP = dims
     gen = torch.Generator().manual_seed(seed)
     randn = lambda *s: torch.randn(s, generator=gen).to(device)
     net = ActorCritic(NA, NO, NP, compute_dtype=compute_dtype)
@@ -230,6 +232,8 @@ def main(argv=None):
     parser.add_argument("--T", type=int, default=24)
     parser.add_argument("--B", type=int, default=4096)
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    parser.add_argument("--task", default="T1",
+                        help="the task config whose network widths to time")
     parser.add_argument("--iters", type=int, default=50)
     parser.add_argument("--trace", default=None)
     parser.add_argument("--device", default="cuda")
@@ -249,7 +253,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     card = testing.card_line() if cuda else "cpu"
-    net, d = make_data(args.T, args.B, args.dtype, device)
+    net, d = make_data(args.T, args.B, args.dtype, device, dims=testing.task_dims(args.task))
     fused = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
     d["p"] = flat_params(net)
     calls = _calls(fused, d)
@@ -269,7 +273,8 @@ def main(argv=None):
             raise FloatingPointError(f"{method} gave non-finite values")
         bound_ms, bound_by = bound(fused, method, *work[method])
         rec = {"kernel": kernel, "method": method, "T": args.T, "B": args.B,
-               "dtype": args.dtype, "device": str(device), "card": card,
+               "dtype": args.dtype, "task": args.task, "n_params": fused.n_params,
+               "device": str(device), "card": card,
                "ms" if cuda else "host_ms": ms, "calls": WARMUP + args.iters,
                "launches": getattr(fused, LAUNCHES[method]), "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": work[method][0], "operations": work[method][1]}

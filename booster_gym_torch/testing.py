@@ -2,10 +2,12 @@
 configuration, and the H100's peaks and a CUDA-event timer, for the tests,
 chip_smoke.py, profile_iteration.py and prof_update.py only.
 
-The training path never imports this module.  The vendor T1 URDF
-(resources/T1/T1_locomotion.urdf) is not in the repository, so the port's
-tests and its smoke run use a T1-shaped stand-in with the T1's names and
-exactly the T1's widths: after fixed-joint collapsing it has 13 bodies,
+The training path never imports this module.  The vendor T1 assets
+(resources/T1/T1_locomotion.urdf, T1_serial.urdf and T1_serial.xml) are
+not in the repository, so the port's tests and its smoke run use stand-ins
+written here: the 23-DoF serial robot's (t1_serial_urdf_text and
+t1_serial_mjcf_text), and a T1-shaped one with the T1's names and exactly
+the T1's widths: after fixed-joint collapsing it has 13 bodies,
 12 DoF and, at cylinder_rim_points 4, 56 contact points (8 trunk-box
 corners, 4 cylinders x 8 rim points, 2 foot boxes x 8 corners).  Masses and
 lengths are those of a ~30 kg humanoid whose feet touch the ground when the
@@ -135,6 +137,217 @@ def write_t1_shaped_urdf(directory):
     return path
 
 
+# The 23-DoF serial stand-in: the bodies and joints of the SDK's serial
+# order (head x 2, left arm x 4, right arm x 4, waist, left leg x 6, right
+# leg x 6), each (joint, joint type, parent, child, joint origin, axis,
+# (lower, upper, effort, velocity)), then each link's (mass, com, diagonal
+# inertia).  The legs hang from the waist where the T1-shaped robot hangs
+# them from the trunk, at the same points at q = 0; the arms point sideways
+# at q = 0 (+y left, -y right), so that T1Serial.yaml's shoulder rolls of
+# -+1.35 rad lower them.  Each palm is a link on a fixed joint: the URDF
+# loader merges it into its hand.
+def _serial_joints():
+    joints = [
+        ("AAHead_yaw", "revolute", "Trunk", "H1", (0.0, 0.0, 0.3), (0, 0, 1),
+         (-1.57, 1.57, 7.0, 12.0)),
+        ("Head_pitch", "revolute", "H1", "H2", (0.0, 0.0, 0.06), (0, 1, 0),
+         (-0.35, 1.22, 7.0, 12.0)),
+    ]
+    for side, sign, arm in (("Left", 1.0, "AL"), ("Right", -1.0, "AR")):
+        hand = f"{side.lower()}_hand_link"
+        roll = (-1.74, 1.57) if sign > 0 else (-1.57, 1.74)
+        yaw = (-2.5, 0.3) if sign > 0 else (-0.3, 2.5)
+        joints += [
+            (f"{side}_Shoulder_Pitch", "revolute", "Trunk", f"{arm}1", (0.0, sign * 0.12, 0.25),
+             (0, 1, 0), (-3.3, 1.2, 18.0, 7.3)),
+            (f"{side}_Shoulder_Roll", "revolute", f"{arm}1", f"{arm}2", (0.0, sign * 0.05, 0.0),
+             (1, 0, 0), (*roll, 18.0, 7.3)),
+            (f"{side}_Elbow_Pitch", "revolute", f"{arm}2", f"{arm}3", (0.0, sign * 0.2, 0.0),
+             (0, 1, 0), (-2.27, 2.27, 18.0, 7.3)),
+            (f"{side}_Elbow_Yaw", "revolute", f"{arm}3", hand, (0.0, sign * 0.05, 0.0),
+             (0, 0, 1), (*yaw, 18.0, 7.3)),
+        ]
+    joints.append(("Waist", "revolute", "Trunk", "Waist", (0.0, 0.0, -0.05), (0, 0, 1),
+                   (-1.57, 1.57, 30.0, 10.9)))
+    for side, sign in (("Left", 1.0), ("Right", -1.0)):
+        s = side
+        roll = (-0.2, 1.57) if sign > 0 else (-1.57, 0.2)
+        joints += [
+            (f"{s}_Hip_Pitch", "revolute", "Waist", f"Hip_Pitch_{s}", (0.0, sign * 0.106, -0.07),
+             (0, 1, 0), (-1.8, 1.57, 45.0, 12.5)),
+            (f"{s}_Hip_Roll", "revolute", f"Hip_Pitch_{s}", f"Hip_Roll_{s}", (0.0, 0.0, -0.02),
+             (1, 0, 0), (*roll, 30.0, 10.9)),
+            (f"{s}_Hip_Yaw", "revolute", f"Hip_Roll_{s}", f"Hip_Yaw_{s}", (0.0, 0.0, -0.08),
+             (0, 0, 1), (-1.0, 1.0, 30.0, 10.9)),
+            (f"{s}_Knee_Pitch", "revolute", f"Hip_Yaw_{s}", f"Shank_{s}", (0.0, 0.0, -0.2),
+             (0, 1, 0), (0.0, 2.34, 60.0, 11.7)),
+            (f"{s}_Ankle_Pitch", "revolute", f"Shank_{s}", f"Ankle_Cross_{s}", (0.0, 0.0, -0.28),
+             (0, 1, 0), (-0.87, 0.35, 24.0, 18.8)),
+            (f"{s}_Ankle_Roll", "revolute", f"Ankle_Cross_{s}", f"{s.lower()}_foot_link",
+             (0.0, 0.0, 0.0), (1, 0, 0), (-0.44, 0.44, 15.0, 12.4)),
+        ]
+    for side, sign in (("left", 1.0), ("right", -1.0)):
+        joints.append((f"{side}_palm_fixed", "fixed", f"{side}_hand_link", f"{side}_palm",
+                       (0.0, sign * 0.22, 0.0), None, None))
+    return joints
+
+
+def _serial_links():
+    links = {
+        "Trunk": (8.0, (0.0, 0.0, 0.1), _box_inertia(8.0, 0.15, 0.2, 0.3)),
+        "H1": (0.5, (0.0, 0.0, 0.03), _cyl_inertia(0.5, 0.03, 0.06)),
+        "H2": (1.5, (0.0, 0.0, 0.08), _box_inertia(1.5, 0.15, 0.15, 0.16)),
+        "Waist": (2.5, (0.0, 0.0, -0.03), _box_inertia(2.5, 0.15, 0.22, 0.08)),
+    }
+    for arm, sign, side in (("AL", 1.0, "left"), ("AR", -1.0, "right")):
+        links[f"{arm}1"] = (0.3, (0.0, sign * 0.02, 0.0), _box_inertia(0.3, 0.05, 0.05, 0.05))
+        links[f"{arm}2"] = (0.7, (0.0, sign * 0.1, 0.0), _cyl_inertia(0.7, 0.035, 0.2))
+        links[f"{arm}3"] = (0.3, (0.0, sign * 0.02, 0.0), _box_inertia(0.3, 0.05, 0.05, 0.05))
+        links[f"{side}_hand_link"] = (0.5, (0.0, sign * 0.1, 0.0), _cyl_inertia(0.5, 0.03, 0.2))
+        links[f"{side}_palm"] = (0.1, (0.0, 0.0, 0.0), _box_inertia(0.1, 0.06, 0.06, 0.06))
+    for s in ("Left", "Right"):
+        links.update({
+            f"Hip_Pitch_{s}": (1.0, (0.0, 0.0, -0.01), _box_inertia(1.0, 0.06, 0.06, 0.04)),
+            f"Hip_Roll_{s}": (1.0, (0.0, 0.0, -0.04), _box_inertia(1.0, 0.06, 0.06, 0.08)),
+            f"Hip_Yaw_{s}": (2.5, (0.0, 0.0, -0.1), _cyl_inertia(2.5, 0.05, 0.2)),
+            f"Shank_{s}": (1.8, (0.0, 0.0, -0.14), _cyl_inertia(1.8, 0.04, 0.24)),
+            f"Ankle_Cross_{s}": (0.1, (0.0, 0.0, 0.0), _box_inertia(0.1, 0.03, 0.03, 0.03)),
+            f"{s.lower()}_foot_link": (0.6, (0.01, 0.0, -0.015), (0.003, 0.005, 0.006)),
+        })
+    return links
+
+
+def _rotated_cylinder(xyz, rpy, r, length):
+    return (f'<collision><origin xyz="{xyz[0]} {xyz[1]} {xyz[2]}" '
+            f'rpy="{rpy[0]} {rpy[1]} {rpy[2]}"/><geometry><cylinder radius="{r}" '
+            f'length="{length}"/></geometry></collision>')
+
+
+def t1_serial_urdf_text():
+    """URDF text of the 23-DoF serial stand-in: 24 bodies after the palms
+    merge into the hands, and 121 contact points at the default 6 rim
+    points (8 trunk-box corners, a head sphere, 8 cylinders x 12 rim
+    points on the upper arms, forearms, thighs and shanks, 2 foot boxes x 8
+    corners)."""
+    collisions = {
+        "Trunk": _box((0.0, 0.0, 0.15), (0.15, 0.2, 0.3)),
+        "H2": ('<collision><origin xyz="0 0 0.08" rpy="0 0 0"/><geometry>'
+               '<sphere radius="0.08"/></geometry></collision>'),
+    }
+    for arm, sign, side in (("AL", 1.0, "left"), ("AR", -1.0, "right")):
+        rpy = (-sign * 1.5707963267948966, 0.0, 0.0)   # the cylinder's z along +-y
+        collisions[f"{arm}2"] = _rotated_cylinder((0.0, sign * 0.1, 0.0), rpy, 0.035, 0.2)
+        collisions[f"{side}_hand_link"] = _rotated_cylinder((0.0, sign * 0.1, 0.0), rpy,
+                                                            0.03, 0.2)
+    for s in ("Left", "Right"):
+        collisions[f"Hip_Yaw_{s}"] = _cylinder((0.0, 0.0, -0.1), 0.05, 0.2)
+        collisions[f"Shank_{s}"] = _cylinder((0.0, 0.0, -0.14), 0.04, 0.24)
+        collisions[f"{s.lower()}_foot_link"] = _box((0.01, 0.0, -0.01), (0.223, 0.1, 0.04))
+    links = [_link(name, m, com, diag, collisions.get(name, ""))
+             for name, (m, com, diag) in _serial_links().items()]
+    joints = [_joint(name, kind, parent, child, xyz, axis, limit)
+              for name, kind, parent, child, xyz, axis, limit in _serial_joints()]
+    return ('<?xml version="1.0"?>\n<robot name="T1_serial_standin">\n'
+            + "\n".join(links + joints) + "\n</robot>\n")
+
+
+def write_t1_serial_urdf(directory):
+    """Write the serial stand-in URDF into `directory`; returns its absolute
+    path."""
+    path = os.path.abspath(os.path.join(directory, "T1_serial_standin.urdf"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(t1_serial_urdf_text())
+    return path
+
+
+# The serial stand-in's MJCF collision geoms, by body: (class, attributes).
+# Two trunk capsules (one placed by fromto, one by quat), a head sphere,
+# thigh capsules on the hip-roll bodies that reach the knee, shank capsules
+# whose type and size come from their class, forearm capsules turned onto
+# the arm, foot boxes, and a sphere on each palm, a body that the URDF
+# merges into its hand (so its geom keeps the palm's frame; see
+# model/mjcf_points.py).  A visual box on the trunk and the ground plane
+# are no contact sources.
+_SERIAL_GEOMS = {
+    "Trunk": [("collision", 'type="capsule" size="0.07" fromto="0 -0.06 0.05 0 -0.06 0.27"'),
+              ("collision", 'type="capsule" size="0.07 0.11" pos="0 0.06 0.16" '
+                            'quat="0.9962 0.0872 0 0"'),
+              ("visual", 'size="0.075 0.1 0.15" pos="0 0 0.15"')],
+    "H2": [("collision", 'type="sphere" size="0.08" pos="0 0 0.08"')],
+}
+for _s, _sign in (("left", 1.0), ("right", -1.0)):
+    _SERIAL_GEOMS[f"{_s}_hand_link"] = [
+        ("collision", f'type="capsule" size="0.03 0.1" pos="0 {_sign * 0.1} 0" '
+                      f'quat="0.70710678 {-_sign * 0.70710678} 0 0"')]
+    _SERIAL_GEOMS[f"{_s}_palm"] = [("collision", 'type="sphere" size="0.04"')]
+for _s in ("Left", "Right"):
+    _SERIAL_GEOMS[f"Hip_Roll_{_s}"] = [("collision", 'type="capsule" size="0.05 0.08" '
+                                                     'pos="0 0 -0.16"')]
+    _SERIAL_GEOMS[f"Shank_{_s}"] = [("shank", 'pos="0 0 -0.14"')]
+    _SERIAL_GEOMS[f"{_s.lower()}_foot_link"] = [
+        (None, 'type="box" size="0.1115 0.05 0.02" pos="0.01 0 -0.01"')]
+
+
+def t1_serial_mjcf_text(base_height=0.72):
+    """MJCF text of the serial stand-in: the URDF's bodies, joints (hinges
+    with the URDF's limits) and inertials, the trunk on a free joint at
+    `base_height`, and _SERIAL_GEOMS.  The legs' bodies take the
+    collision class as their childclass, so the foot boxes name none."""
+    joints = _serial_joints()
+    links = _serial_links()
+    children = {}
+    for name, kind, parent, child, xyz, axis, limit in joints:
+        children.setdefault(parent, []).append((name, kind, child, xyz, axis, limit))
+
+    def inertial(name):
+        m, com, diag = links[name]
+        return (f'<inertial pos="{com[0]} {com[1]} {com[2]}" mass="{m}" '
+                f'diaginertia="{diag[0]:.6g} {diag[1]:.6g} {diag[2]:.6g}"/>')
+
+    def geoms(name):
+        out = []
+        for cls, attrs in _SERIAL_GEOMS.get(name, []):
+            out.append(f'<geom {"" if cls is None else f"class={chr(34)}{cls}{chr(34)} "}'
+                       f'{attrs}/>')
+        return "".join(out)
+
+    def body(name, xyz, joint, childclass):
+        head = f'<body name="{name}" pos="{xyz[0]} {xyz[1]} {xyz[2]}"'
+        if childclass:
+            head += f' childclass="{childclass}"'
+        parts = [head + ">", inertial(name)]
+        if joint is not None:
+            jname, axis, (lo, hi, _, _) = joint
+            parts.append(f'<joint name="{jname}" type="hinge" axis="{axis[0]} {axis[1]} '
+                         f'{axis[2]}" range="{lo} {hi}"/>')
+        parts.append(geoms(name))
+        for jname, kind, child, cxyz, axis, limit in children.get(name, []):
+            leg = "Hip" in child or "Shank" in child or "Ankle" in child or "foot" in child
+            parts.append(body(child, cxyz, None if kind == "fixed" else (jname, axis, limit),
+                              "collision" if leg and not childclass else None))
+        return "".join(parts) + "</body>"
+
+    trunk = body("Trunk", (0.0, 0.0, base_height), None, None).replace(
+        ">", "><freejoint/>", 1)
+    return ('<mujoco model="T1_serial_standin">\n<compiler angle="radian"/>\n'
+            '<default><geom contype="1" conaffinity="1"/>'
+            '<default class="visual"><geom type="box" contype="0" conaffinity="0" group="1"/>'
+            '</default><default class="collision"><geom group="3"/>'
+            '<default class="shank"><geom type="capsule" size="0.04 0.12"/></default>'
+            '</default></default>\n<worldbody>\n'
+            '<geom name="ground" type="plane" size="0 0 1"/>\n'
+            + trunk + "\n</worldbody>\n</mujoco>\n")
+
+
+def write_t1_serial_mjcf(directory):
+    """Write the serial stand-in MJCF into `directory`; returns its absolute
+    path."""
+    path = os.path.abspath(os.path.join(directory, "T1_serial_standin.xml"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(t1_serial_mjcf_text())
+    return path
+
+
 def toy_model():
     """Floating base + 2-link chain ending in a 'foot' body, 8 contact
     points across 3 shapes (the toy robot of the JAX package's small
@@ -187,6 +400,31 @@ def rough_path_cfg(urdf):
     return cfg
 
 
+def serial_path_cfg(urdf):
+    """T1Serial.yaml on the serial stand-in at `urdf`: 4096 envs, seed 0, 1
+    iteration (its own plane terrain, horizon 24, 20 mini-epochs, the
+    fused update)."""
+    cfg = load_task_cfg("T1Serial")
+    cfg["env"]["num_envs"] = 4096
+    cfg["asset"]["file"] = urdf
+    cfg["basic"]["max_iterations"] = 1
+    cfg["basic"]["seed"] = 0
+    return cfg
+
+
+def standup_path_cfg(urdf, mjcf, task="T1Standup"):
+    """T1Standup.yaml (or T1StandupFT.yaml) on the serial stand-in (`urdf`,
+    and `mjcf` for its contact points): 4096 envs, seed 0, 2 iterations;
+    the bank settles for the config's 60 control steps."""
+    cfg = load_task_cfg(task)
+    cfg["env"]["num_envs"] = 4096
+    cfg["asset"]["file"] = urdf
+    cfg["asset"]["mujoco_file"] = mjcf
+    cfg["basic"]["max_iterations"] = 2
+    cfg["basic"]["seed"] = 0
+    return cfg
+
+
 def point_terrain_inputs(npt, B, seed):
     """Inputs of the general-terrain substep, as numpy: point heights
     [B, npt] in +-0.05 m and unit normals [B, npt, 3] tilted up to ~0.3 rad
@@ -228,9 +466,32 @@ def sampler_inputs(terrain, B, N, reach, edge_roots, seed):
     return root.astype(np.float32), off_grid_lines(pts, terrain)
 
 
-def rand_inputs(model, B, device, seed, standing=False):
+def default_angles(model, task="T1"):
+    """The default joint angles of `task`'s config for the model's dofs, by
+    the env's rule: every key that is a substring of the dof's name sets
+    it, in the config's order, and "default" where none is."""
+    table = load_task_cfg(task)["init_state"]["default_joint_angles"]
+    out = []
+    for name in model.dof_names:
+        hits = [v for k, v in table.items() if k != "default" and k in name]
+        out.append(hits[-1] if hits else table["default"])
+    return np.array(out)
+
+
+def task_gains(model, task="T1"):
+    """(kp, kd) [nd] of `task`'s config by the env's substring rule (the
+    last matching key wins)."""
+    ctl = load_task_cfg(task)["control"]
+    pick = lambda table: np.array([[v for k, v in table.items() if k in name][-1]
+                                   for name in model.dof_names])
+    return pick(ctl["stiffness"]), pick(ctl["damping"])
+
+
+def rand_inputs(model, B, device, seed, standing=False, task="T1"):
     """Random states (the JAX package's _rand_inputs, plus random contact
-    materials); `standing` puts the T1-shaped robot on its feet."""
+    materials); `standing` puts the T1-shaped robot (or, with task
+    T1Serial, the serial stand-in) on its feet at its task's default
+    angles."""
     import numpy as np
     import torch
 
@@ -248,7 +509,7 @@ def rand_inputs(model, B, device, seed, standing=False):
     if standing:
         pos[:, 2] = 0.72
         quat[:] = [1, 0, 0, 0]
-        q = np.array([-0.2, 0, 0, 0.4, -0.25, 0] * 2) + rng.normal(0, 0.05, (B, nd))
+        q = default_angles(model, task) + rng.normal(0, 0.05, (B, nd))
         qd = rng.normal(0, 0.2, (B, nd))
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     state = SimState(root_pos=t(pos), root_quat=t(quat),
@@ -265,7 +526,7 @@ def rand_inputs(model, B, device, seed, standing=False):
     return state, dyn, tau, ef, et
 
 
-def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None):
+def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None, task="T1"):
     """control_step's inputs on `device`: rand_inputs' dyn and push with
     states an env step starts from (`upright`: the T1-shaped robot standing,
     the toy's base upright at 0.5 m with slow velocities; else rand_inputs'
@@ -276,7 +537,9 @@ def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None):
     0.4 kg foot has ~2e-3 kg m^2 about the knee, gains for which explicit
     damping stays stable (kd dt / I < 0.2): kp U(5, 20), kd U(0.05, 0.2),
     friction U(0, 0.2).  K5 also the terrain under the points, as the env
-    carries it (see below)."""
+    carries it (see below).  `task` names the config whose default angles
+    and gains a robot other than the toy takes (T1Serial for the serial
+    stand-in)."""
     import dataclasses
 
     import numpy as np
@@ -286,7 +549,8 @@ def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None):
     from booster_gym_torch.physics.kinematics import point_world_positions
 
     t1 = model.num_bodies > 3
-    state, dyn, _, ef, et = rand_inputs(model, B, device, seed, standing=upright and t1)
+    state, dyn, _, ef, et = rand_inputs(model, B, device, seed, standing=upright and t1,
+                                        task=task)
     rng = np.random.default_rng(seed + 1)
     nd = model.num_dofs
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -314,11 +578,9 @@ def control_inputs(kernel, model, B, device, seed, upright=True, terrain=None):
         ph, pn = h.T.contiguous(), n.reshape(B, -1).T.contiguous()
     q = state.q.cpu().numpy()
     if t1:
-        ctl = load_task_cfg("T1")["control"]
-        gain = lambda table: np.array([next(v for k, v in table.items() if k in name)
-                                       for name in model.dof_names])
+        kp0, kd0 = task_gains(model, task)
         scale = lambda: rng.uniform(0.95, 1.05, (B, nd))
-        kp, kd = gain(ctl["stiffness"]) * scale(), gain(ctl["damping"]) * scale()
+        kp, kd = kp0 * scale(), kd0 * scale()
         fric = rng.uniform(0, 2, (B, nd))
     else:
         kp, kd = rng.uniform(5, 20, (B, nd)), rng.uniform(0.05, 0.2, (B, nd))
@@ -354,15 +616,25 @@ def update_inputs(network, T, B, device, seed):
             "adv": 0.3 + 2.0 * f32(T, B), "ret": f32(T, B)}
 
 
-def seeded_network(compute_dtype, device, seed):
-    """T1's ActorCritic (47 / 14 / 12) drawn from a seed, logstd moved off
-    its constant start, on `device`."""
+T1_DIMS = (12, 47, 14)   # (actions, observations, privileged observations)
+
+
+def task_dims(task):
+    """(actions, observations, privileged observations) of a task's config:
+    T1 (12, 47, 14), T1Serial (23, 80, 14), T1Standup (12, 420, 14)."""
+    env = load_task_cfg(task)["env"]
+    return env["num_actions"], env["num_observations"], env["num_privileged_obs"]
+
+
+def seeded_network(compute_dtype, device, seed, dims=T1_DIMS):
+    """An ActorCritic of `dims` (T1's by default) drawn from a seed, logstd
+    moved off its constant start, on `device`."""
     import torch
 
     from booster_gym_torch.algo.networks import ActorCritic
 
     gen = torch.Generator().manual_seed(seed)
-    net = ActorCritic(12, 47, 14, compute_dtype=compute_dtype)
+    net = ActorCritic(*dims, compute_dtype=compute_dtype)
     net.reset_parameters(gen)
     with torch.no_grad():
         net.logstd.add_(0.1 * torch.randn(net.logstd.shape, generator=gen))
@@ -377,11 +649,11 @@ def _ratio_bands(rng, n):
             + np.array([0.15, 0.3, 0.15])[band] * rng.random(n)).astype(np.float32)
 
 
-def update_case(compute_dtype, T, B, device, seed=0):
+def update_case(compute_dtype, T, B, device, seed=0, dims=T1_DIMS):
     """One gradient-pass case for K2-K4 against their plain versions:
     (FusedUpdate, flat params p, staged, prep, inputs of update_inputs).
 
-    The network is drawn from the seed.  The old policy sits a little off
+    The network (of `dims`, T1's by default) is drawn from the seed.  The old policy sits a little off
     the current one, with the importance ratios spread over [0.6, 0.75],
     [0.85, 1.15] and [1.25, 1.4]: below, inside and above the clip range,
     and at least 0.05 from its bounds, where the clip's gradient jumps and
@@ -391,7 +663,7 @@ def update_case(compute_dtype, T, B, device, seed=0):
     from booster_gym_torch.algo.ppo import flat_params
     from booster_gym_torch.algo.update_kernel import FusedUpdate
 
-    net = seeded_network(compute_dtype, device, seed)
+    net = seeded_network(compute_dtype, device, seed, dims)
     fused = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
     p = flat_params(net)
     staged = fused.stage(p)

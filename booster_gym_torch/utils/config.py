@@ -1,5 +1,6 @@
 """Config loading and CLI overrides (port of
-booster_gym_tpu/utils/config.py plus --device and --asset_file; without
+booster_gym_tpu/utils/config.py plus --device, --asset_file and
+--mujoco_file; without
 --no_data_parallel: the port trains on one device).
 
 The port reads its own copy of envs/configs/<task>.yaml, and follows its
@@ -33,6 +34,9 @@ def parse_args(argv=None):
                         help="Capture a torch.profiler trace (optional dir).")
     parser.add_argument("--asset_file", type=str, help="Robot URDF (absolute path, or "
                         "relative to the working directory or the repository).")
+    parser.add_argument("--mujoco_file", type=str, help="Robot MJCF, for tasks whose "
+                        "contact points come from its collision geoms (asset.collision_source: "
+                        "mjcf); the same lookup as --asset_file.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu.")
     return parser.parse_args(argv)
@@ -52,5 +56,7 @@ def build_cfg(args):
         cfg["terrain"]["type"] = args.terrain
     if getattr(args, "asset_file", None) is not None:
         cfg["asset"]["file"] = args.asset_file
+    if getattr(args, "mujoco_file", None) is not None:
+        cfg["asset"]["mujoco_file"] = args.mujoco_file
     cfg["basic"]["task"] = args.task
     return cfg

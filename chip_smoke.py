@@ -101,7 +101,29 @@ Phases, in order; any failure exits non-zero:
      sampler launch, with steps/s by CUDA events, the mean reward per step
      and the share of envs done; 7c exports both checkpoints to
      TorchScript and holds each, loaded onto the card, bitwise to the f32
-     Sequential built from the same state_dict on 4096 observations.
+     Sequential built from the same state_dict on 4096 observations;
+  8. the 23-DoF serial robot and the standup task, on the serial stand-in
+     (booster_gym_torch.testing; its builds start with phase 2's): K1's
+     launch shape per robot, as csrc/substep.cu picks it, against the
+     card's occupancy; 8a K1 on the standup robot (85 MJCF contact points)
+     and on T1Serial's (121 URDF points) against its plain version per
+     substep and per control step (B = 4096 and 1000, env-like inputs,
+     phase 3b's exclusion rule, the excluded share printed), and over
+     T1Standup's bank settle at B = 4096, fallen bodies coming to rest (60
+     rounds, each from the plain loop's state and finite where it is; every
+     substep of every fifth round from the plain substep's state, held to
+     the tolerance but where a contact decision falls the other way, and
+     there the plain substep must reach the kernel's outcome from a
+     rounding-perturbed state), K2-K4 and K8-K10 at T1Standup's widths (434-wide
+     critic input) in bf16 and f32 at B = 4096 and 1000, and at T1Serial's
+     (23 actions) at 4096; 8b T1Standup at 4096 envs: the bank's settle
+     timed on its own (60 control-step launches), then 2 iterations (24
+     control steps and 20 each of K2-K4 per iteration); 8d the standup
+     policy exported with the deploy wrapper, bitwise against the f32
+     actor on the card; 8b' T1StandupFT resumes that checkpoint for one
+     iteration; 8c T1Serial, 1 iteration at 4096 envs; then every kernel
+     at the new widths timed beside its bound and plain version (K8-K10
+     through prof_update).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -247,12 +269,13 @@ def point_terrain(terrain, model, B, seed):
     return h.contiguous(), torch.as_tensor(n, device="cuda")
 
 
-def compare_kernel(name, kernel, plain, model, B, substeps=5, terrain=None):
+def compare_kernel(name, kernel, plain, model, B, substeps=5, terrain=None, task="T1"):
     """K1 (or, with `terrain`, K5 on heights from its field and tilted
     normals) against the plain version for `substeps` substeps; each
     substep starts both from the plain version's state, so the comparison
-    measures one substep's error, not chaotic divergence.  Returns max abs
-    error."""
+    measures one substep's error, not chaotic divergence.  `task` names
+    the config of the robot's default angles (T1Serial for the serial
+    stand-in).  Returns max abs error."""
     import torch
 
     from booster_gym_torch.testing import rand_inputs
@@ -260,7 +283,7 @@ def compare_kernel(name, kernel, plain, model, B, substeps=5, terrain=None):
     from booster_gym_torch.physics import SimState
 
     state, dyn, tau, ef, et = rand_inputs(model, B, "cuda", seed=B,
-                                          standing=name == "t1" and B % 1024 == 0)
+                                          standing=name == "t1" and B % 1024 == 0, task=task)
     label = "K1" if kernel.plane else "K5"
     name = f"{label} {name}"
     worst = 0.0
@@ -355,22 +378,23 @@ def substep_loop(kernel, args, decimation=10):
     return psim, p_last.T, p_tsum.T, pf, pfeet, pxy
 
 
-def compare_control(name, kernel, model, B, terrain=None):
+def compare_control(name, kernel, model, B, terrain=None, task="T1"):
     """control_step (one launch) against the plain decimation loop from the
     same env-like inputs, to the env step's tolerance, on every env whose
-    plain trajectory is not chaotic (see below); launched twice, the two
-    must be equal bitwise.  Also reported, not held: the difference from ten
-    single-substep launches, and the state's difference from the plain loop
+    plain trajectory is not chaotic (see below), and finite exactly where
+    the plain loop is; launched twice, the two must be equal bitwise.  Also
+    reported, not held: the difference from ten single-substep launches, and the state's difference from the plain loop
     on rand_inputs' random states (tumbling bodies hitting the ground; the
     single-substep check of phase 3 holds those states to 2e-3 one substep
-    at a time).  Returns max abs error against the plain loop over the held
-    envs."""
+    at a time).  `task` names the config of the robot's default angles and
+    gains.  Returns (max abs error against the plain loop over the held
+    envs, the share of envs left out)."""
     import torch
 
     from booster_gym_torch.testing import control_inputs
 
     label = "K1" if kernel.plane else "K5"
-    args = control_inputs(kernel, model, B, "cuda", seed=B + 11, terrain=terrain)
+    args = control_inputs(kernel, model, B, "cuda", seed=B + 11, terrain=terrain, task=task)
     out, out2 = kernel.control_step(*args), kernel.control_step(*args)
     ref = kernel.control_step_plain(*args)
     nudged = list(args)
@@ -378,7 +402,7 @@ def compare_control(name, kernel, model, B, terrain=None):
     ref_nudged = kernel.control_step_plain(*nudged)
     loop = substep_loop(kernel, args)
     rargs = control_inputs(kernel, model, B, "cuda", seed=B + 17, upright=False,
-                           terrain=terrain)
+                           terrain=terrain, task=task)
     random_err = float((kernel.control_step(*rargs)[0]
                         - kernel.control_step_plain(*rargs)[0]).abs().max())
     torch.cuda.synchronize()
@@ -408,17 +432,21 @@ def compare_control(name, kernel, model, B, terrain=None):
     keep = ~chaotic
     worst, fails = 0.0, []
     for what, a, b, bad, _, rtol, atol, env_dim in fields:
-        err = (a - b).abs()
+        finite = torch.isfinite(b)
+        same_finite = torch.equal(torch.isfinite(a), finite)
+        err = torch.where(finite, (a - b).abs(), 0.0)
         held = float(err.transpose(0, env_dim)[keep].max())
         worst = max(worst, held)
-        ok = not bool(bad[keep].any())
+        ok = same_finite and not bool(bad[keep].any())
         log(f"  {label} control step {name} B={B} {what:12s} max_abs={held:.3e} (all envs "
             f"{float(err.max()):.3e}) tol=rtol {rtol}/atol {atol} {'ok' if ok else 'FAIL'}")
         if not ok:
             fails.append(what)
     n_chaotic = int(chaotic.sum())
-    log(f"  {label} control step {name} B={B}: {n_chaotic} envs chaotic (the plain loop's state "
-        f"moves past the tolerance under a one-ulp nudge of the state) and left out")
+    n_nonfinite = int((~torch.isfinite(ref[0]).all(0)).sum())
+    log(f"  {label} control step {name} B={B}: {n_chaotic} envs ({n_chaotic / B:.2%}) chaotic "
+        f"(the plain loop's state moves past the tolerance under a one-ulp nudge of the state) "
+        f"and left out; {n_nonfinite} envs non-finite in the plain loop, the same in the kernel")
     require(n_chaotic <= B // 100, f"{label}: {n_chaotic} of {B} envs chaotic ({name})")
     rerun = max(float((a - b).abs().max()) for a, b in zip(out, out2) if a is not None)
     vs_loop = max(float((a - b).abs().max()) for a, b in zip(out, loop) if a is not None)
@@ -428,7 +456,7 @@ def compare_control(name, kernel, model, B, terrain=None):
     require(not fails, f"{label}'s control step disagrees with the plain loop ({name}, B={B}): "
             f"{fails}")
     require(rerun == 0.0, f"{label}'s control step does not repeat bitwise ({name}, B={B})")
-    return worst
+    return worst, n_chaotic / B
 
 
 def compare_control_general_with_plane(name, k1, k5, model, B):
@@ -613,16 +641,19 @@ def check_pass2(fused, g, n, label):
     return worst
 
 
-def compare_update_kernels(dtype, B, T=24):
+def compare_update_kernels(dtype, B, T=24, dims=None):
     """K2, K3 (both old-policy modes) and K4 against their plain versions
-    on the card at [T, B].  Returns {kernel: max abs error}."""
+    on the card at [T, B], for a network of `dims` (actions, observations,
+    privileged observations; T1's by default).  Returns {kernel: max abs
+    error}."""
     import torch
 
-    from booster_gym_torch.testing import update_case
+    from booster_gym_torch.testing import T1_DIMS, update_case
 
+    dims = dims or T1_DIMS
     tol = TOL_UPDATE[dtype]
-    tag = f"{dtype} N={T * B}"
-    fused, p, staged, prep, d = update_case(dtype, T, B, "cuda", seed=B)
+    tag = f"{dtype} N={T * B}" + ("" if dims == T1_DIMS else f" dims {dims}")
+    fused, p, staged, prep, d = update_case(dtype, T, B, "cuda", seed=B, dims=dims)
     worst = {}
 
     rew, nonterm, tf = gae_inputs(d)
@@ -736,23 +767,26 @@ def compare_fused_with_xla(urdf, mini_epochs=3):
             "the fused update disagrees with the xla update on the card")
 
 
-def compare_anchor_kernels(dtype, B, T=24):
+def compare_anchor_kernels(dtype, B, T=24, dims=None):
     """K8, K9 (launched twice) and K10 against their plain versions on the
-    card at [T, B]; then the cross-checks on the same data: K9 on
-    normalised advantages against K3 (self_old 0), K8 against K2's value
-    pass and K9's values, K10 against K3's self_old forward.  Returns
-    {kernel: max abs error against the plain version}."""
+    card at [T, B], for a network of `dims` (T1's by default); then the
+    cross-checks on the same data: K9 on normalised advantages against K3
+    (self_old 0), K8 against K2's value pass and K9's values, K10 against
+    K3's self_old forward.  Returns {kernel: max abs error against the
+    plain version}."""
     import torch
 
-    from booster_gym_torch.testing import anchor_case, seeded_network
+    from booster_gym_torch.testing import T1_DIMS, anchor_case, seeded_network
 
+    dims = dims or T1_DIMS
     tol = TOL_UPDATE[dtype]
-    tag = f"{dtype} N={T * B}"
-    fused, p, d = anchor_case(seeded_network(dtype, "cuda", B), T, B, "cuda", seed=B)
+    tag = f"{dtype} N={T * B}" + ("" if dims == T1_DIMS else f" dims {dims}")
+    fused, p, d = anchor_case(seeded_network(dtype, "cuda", B, dims), T, B, "cuda", seed=B)
     obs, priv, act, old_logp = d["obs"], d["priv"], d["act"], d["old_logp"]
     gen = torch.Generator(device="cuda").manual_seed(B)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-    prep = fused.prepare(obs, priv, act, torch.zeros_like(act), old_logp, rnd(B, 47), rnd(B, 14))
+    prep = fused.prepare(obs, priv, act, torch.zeros_like(act), old_logp, rnd(B, dims[1]),
+                         rnd(B, dims[2]))
 
     v, v_p = fused.values(p, obs, priv), fused.values_plain(p, obs, priv)
     args = (p, obs, priv, act, d["adv"], d["ret"], old_logp)
@@ -892,23 +926,27 @@ def time_k2_parts(card, T=24, B=4096):
     return split
 
 
-def time_update_kernels(card, launches, max_err, prof):
-    """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
-    (bf16, T = 24, B = 4096): time per call, bound and work from
-    prof_update's records `prof` (phase 4c), beside the plain version's
-    time, measured here; for K3 also the passes (time_k3_passes), with
-    the torch.matmul yardstick of pass 2 beside them."""
-    from booster_gym_torch.testing import time_cuda, update_case
+UPDATE_SRC = "booster_gym_tpu/algo/update_kernel.py"
+UPDATE_META = {"K2": ("K2 gae (values + GAE)", f"{UPDATE_SRC}:217"),
+               "K3": ("K3 grads_stats (gradients + metric sums)", f"{UPDATE_SRC}:381"),
+               "K4": ("K4 opt_stage (clip + Adam + staging)", f"{UPDATE_SRC}:488"),
+               "K8": ("K8 values (critic forward)", f"{UPDATE_SRC}:128"),
+               "K9": ("K9 grads (row-major gradient anchor)", f"{UPDATE_SRC}:136"),
+               "K10": ("K10 policy_old_logp (actor forward + log-prob)", f"{UPDATE_SRC}:358")}
 
-    T, B = 24, 4096
-    fused, p, staged, prep, d = update_case("bf16", T, B, "cuda", seed=1)
+
+def update_plains(T, B, dims=None):
+    """(fused, K3's arguments, {kernel: a call of its plain version}) on
+    update_case's data (bf16, seed 1) for a network of `dims` (T1's by
+    default)."""
+    from booster_gym_torch.testing import T1_DIMS, update_case
+
+    fused, p, staged, prep, d = update_case("bf16", T, B, "cuda", seed=1, dims=dims or T1_DIMS)
     obs, priv, act = d["buf"][:3]
     rew, nonterm, tf = gae_inputs(d)
     mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
     gr, m, v, lr = adam_inputs(p, seed=2)
     k3_args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, False)
-    passes = time_k3_passes(card, fused, k3_args, T * B)
-    k2_parts = time_k2_parts(card)
     plains = {
         "K2": lambda: fused.gae_plain(staged, prep["obsc"], rew, nonterm, tf, GAMMA, LAM),
         "K3": lambda: fused.grads_stats_plain(*k3_args),
@@ -917,17 +955,25 @@ def time_update_kernels(card, launches, max_err, prof):
         "K9": lambda: fused.grads_plain(p, obs, priv, act, d["adv"], d["ret"], prep["old_logp"]),
         "K10": lambda: fused.policy_old_logp_plain(p, prep),
     }
-    src = "booster_gym_tpu/algo/update_kernel.py"
-    meta = {"K2": ("K2 gae (values + GAE)", f"{src}:217"),
-            "K3": ("K3 grads_stats (gradients + metric sums)", f"{src}:381"),
-            "K4": ("K4 opt_stage (clip + Adam + staging)", f"{src}:488"),
-            "K8": ("K8 values (critic forward)", f"{src}:128"),
-            "K9": ("K9 grads (row-major gradient anchor)", f"{src}:136"),
-            "K10": ("K10 policy_old_logp (actor forward + log-prob)", f"{src}:358")}
-    k4 = time_k4(card, fused, gr, p, m, v, lr, prof["K4"])
+    return fused, k3_args, (gr, p, m, v, lr), plains
+
+
+def time_update_kernels(card, launches, max_err, prof):
+    """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
+    (bf16, T = 24, B = 4096): time per call, bound and work from
+    prof_update's records `prof` (phase 4c), beside the plain version's
+    time, measured here; for K3 also the passes (time_k3_passes), with
+    the torch.matmul yardstick of pass 2 beside them."""
+    from booster_gym_torch.testing import time_cuda
+
+    T, B = 24, 4096
+    fused, k3_args, adam, plains = update_plains(T, B)
+    passes = time_k3_passes(card, fused, k3_args, T * B)
+    k2_parts = time_k2_parts(card)
+    k4 = time_k4(card, fused, *adam, prof["K4"])
     entries = []
     for k, plain in plains.items():
-        name, replaces = meta[k]
+        name, replaces = UPDATE_META[k]
         rec = prof[k]
         plain_ms, _ = time_cuda(plain, 5)
         log(f"{k} at N={T * B} bf16 [{card}]: {rec['ms']:.4f} ms/call (prof_update); plain "
@@ -1145,6 +1191,441 @@ def resume_play_export(card, urdf):
     os.chdir(ROOT)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the serial robot and the standup task
+PHASE8_TASKS = ("T1Standup", "T1Serial")
+
+
+def phase8_setup(workdir):
+    """The serial stand-in's URDF and MJCF in `workdir`, and on the card,
+    nothing built yet: each new path's env (T1Standup on the MJCF contact
+    points, T1Serial on the URDF's), whose control-step kernels phase 2
+    builds, and each path's FusedUpdate geometry (its sizes)."""
+    from booster_gym_torch.algo.networks import ActorCritic
+    from booster_gym_torch.algo.update_kernel import FusedUpdate
+    from booster_gym_torch.envs import make_task
+    from booster_gym_torch.testing import (
+        serial_path_cfg,
+        standup_path_cfg,
+        task_dims,
+        write_t1_serial_mjcf,
+        write_t1_serial_urdf,
+    )
+
+    urdf, mjcf = write_t1_serial_urdf(workdir), write_t1_serial_mjcf(workdir)
+    cfgs = {"T1Standup": standup_path_cfg(urdf, mjcf), "T1Serial": serial_path_cfg(urdf)}
+    envs = {task: make_task(cfg, "cuda") for task, cfg in cfgs.items()}
+    fused = {task: FusedUpdate(ActorCritic(*task_dims(task)), 0.2, 10.0)
+             for task in PHASE8_TASKS}
+    return {"urdf": urdf, "mjcf": mjcf, "cfgs": cfgs, "envs": envs, "fused": fused}
+
+
+def phase8_builds(ctx):
+    """The nvcc runs phase 8 needs, to start with phase 2's: each path's
+    control-step kernel and update library."""
+    from booster_gym_torch import kernel_build
+    from booster_gym_torch.algo import update_kernel
+    from booster_gym_torch.physics import substep_kernel as sk
+
+    builds = {}
+    for task, env in ctx["envs"].items():
+        builds[f"K1 for {task} ({env.model.num_points} points)"] = kernel_build.start_build(
+            sk.SOURCE, env.substep.sizes)
+        builds[f"K2-K4, K8-K10 for {task}"] = kernel_build.start_build(
+            update_kernel.SOURCE, ctx["fused"][task].sizes)
+    return builds
+
+
+def phase8_info(card, ctx):
+    """Each new build's launch shape: K1's envs per block, shared memory
+    per block and the resident blocks per SM that csrc/substep.cu picked
+    (MINB, asked of ptxas) against the card's occupancy; K3's tile and
+    K2's cluster and tile at the new widths."""
+    import torch
+
+    for task, env in ctx["envs"].items():
+        m, k = env.model, env.substep
+        info = k.info()
+        log(f"K1 for {task} [{card}]: nb {m.num_bodies}, nd {m.num_dofs}, {m.num_points} contact "
+            f"points ({len(m.shape_body)} shapes); sizes {k.sizes}; {info['envs_per_block']} envs "
+            f"per block, {info['smem_bytes']} bytes of shared memory per block, "
+            f"{info['min_blocks_per_sm']} resident blocks per SM asked of ptxas; the card's "
+            f"{info['blocks_per_sm_substep']} (substep) / {info['blocks_per_sm_control']} "
+            f"(control step)")
+        require(1 <= info["envs_per_block"] <= 8
+                and info["blocks_per_sm_control"] >= info["min_blocks_per_sm"] >= 1,
+                f"K1's launch shape for {task}: the card holds fewer blocks than the source asked")
+    from booster_gym_torch.algo.networks import ActorCritic
+    from booster_gym_torch.algo.update_kernel import FusedUpdate
+    from booster_gym_torch.testing import task_dims
+
+    for task in PHASE8_TASKS:
+        for dtype in ("bf16", "f32"):
+            fused = FusedUpdate(ActorCritic(*task_dims(task), compute_dtype=dtype), 0.2, 10.0)
+            info = fused.info(torch.device("cuda"))
+            ci = {n: fused.critic_info(torch.device("cuda"), n) for n in (25, 0)}
+            log(f"update for {task} {dtype} (inputs {fused.num_obs} + "
+                f"{fused.num_crit - fused.num_obs}, {fused.num_act} actions, {fused.n_params} "
+                f"parameters) [{card}]: K3 {info['tile']} rows a tile, {info['smem_pass1']} bytes "
+                f"per block, resident blocks per SM {info['blocks_per_sm_pass1']}; last-layer dz "
+                f"{info['dz3w']} wide, {info['nstat']} stat slots; K2/K8 clusters of "
+                f"{info['k2_cluster']} blocks, {info['k2_tile']} rows a tile, {ci[25]['smem']} "
+                f"bytes per block at 25 planes (at most {info['k2_max_planes']}), resident "
+                f"clusters {ci[25]['clusters']} (K2) / {ci[0]['clusters']} (K8)")
+
+
+def phase8_kernels(card, ctx):
+    """8a: K1 on each new robot against its plain version (per substep, and
+    per control step with the env's gains; at 4096 and 1000 envs), and K2-K4 and K8-K10 at the new
+    widths in bf16 and f32.  Returns {(kernel, task): max abs error}."""
+    import torch
+
+    from booster_gym_torch.physics.engine import make_substep
+    from booster_gym_torch.testing import task_dims
+
+    err = {}
+    for task, env in ctx["envs"].items():
+        plain = make_substep(env.model, env.sim_cfg, env.feet_indices, "cuda")
+        for B in (4096, 1000):   # the paths' batch, and a ragged one
+            e1 = compare_kernel(task, env.substep, plain, env.model, B, task="T1Serial")
+            e2, share = compare_control(task, env.substep, env.model, B, task="T1Serial")
+            err[("K1", task)] = max(err.get(("K1", task), 0.0), e1, e2)
+            log(f"8a. K1 for {task} at B={B} matches its plain version: per substep max abs err "
+                f"{e1:.3e}, per control step {e2:.3e} ({share:.2%} of the envs left out as "
+                "chaotic)")
+    for task, Bs, anchor_dtypes in (("T1Standup", (4096, 1000), ("bf16", "f32")),
+                                    ("T1Serial", (4096,), ("bf16",))):
+        dims = task_dims(task)
+        for dtype in ("bf16", "f32"):
+            for B in Bs:
+                for k, e in compare_update_kernels(dtype, B, dims=dims).items():
+                    err[(k, task)] = max(err.get((k, task), 0.0), e)
+                if dtype in anchor_dtypes:
+                    for k, e in compare_anchor_kernels(dtype, B, dims=dims).items():
+                        err[(k, task)] = max(err.get((k, task), 0.0), e)
+        log(f"8a. K2-K4 and K8-K10 for {task} (dims {dims}) match their plain versions: max abs "
+            "err " + ", ".join(f"{k} {e:.3e}" for (k, t), e in err.items() if t == task))
+    torch.cuda.synchronize()
+    return err
+
+
+def compare_settle(card, ctx, every=5, samples=32):
+    """K1 over T1Standup's bank settle at the path's 4096 envs, against the
+    plain loop from the same drops (the env's draws from one seed), the
+    standup path's regime: bodies falling onto the ground and coming to
+    rest on dozens of contact points.  Every control step of the settle
+    runs both from the plain loop's state, and the kernel's state must be
+    finite exactly where the plain loop's is.  Every `every`-th round each
+    of its substeps runs both from the plain substep's state, so that the
+    comparison measures one substep's error, not divergence: each env is
+    held to the env step's tolerance, but for a few (at most 1% a substep)
+    where a contact decision (activation at zero margin, the bounce gate,
+    the friction cone) falls the other way.  Those are held to a stricter
+    rule: the plain substep reaches the kernel's outcome within the
+    tolerance from one of `samples` copies of its input state perturbed by
+    rounding (each component times 1 + eps N(0, 1), eps 1e-7 and 1e-6).
+    Also reported: each held round's envs off the tolerance after the
+    whole control step, and the non-finite entries of a settle by the
+    kernel alone and by the plain loop alone.  Returns the max abs error of
+    a substep over the held envs."""
+    import copy
+
+    import torch
+
+    from booster_gym_torch.envs import make_task
+    from booster_gym_torch.envs.t1 import T1
+    from booster_gym_torch.physics.engine import make_substep
+
+    env = make_task(copy.deepcopy(ctx["cfgs"]["T1Standup"]), "cuda")
+    B, k, nd = env.num_envs, env.substep, env.model.num_dofs
+    plain = make_substep(env.model, env.sim_cfg, env.feet_indices, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = T1.init_params(env, gen)   # the base env's: no bank
+    drops = env._fallen_seed_states(env._draw_fallen(gen))
+    targets = env.default_dof_pos.expand(B, nd).contiguous()
+    pdyn = k.pack_dyn(params.dyn)
+    gains = [x.contiguous() for x in (params.dof_stiffness, params.dof_damping,
+                                      params.dof_friction)]
+    held = (pdyn, targets, targets, torch.zeros(B, dtype=torch.int64, device="cuda"), *gains,
+            env.torque_limits, torch.zeros(B, 6, device="cuda"))
+    control = lambda ps: k.control_step(ps, *held, decimation=env.decimation).state
+    kp, kd, fric = (x.T for x in gains)
+    lim = env.torque_limits[:, None]
+
+    def torques(ps):   # the settle's PD, its targets latched from substep 0
+        pd = kp * (targets.T - ps[13:13 + nd]) - kd * ps[13 + nd:]
+        f = torch.minimum(torch.abs(pd), fric) * torch.sign(pd)
+        return torch.minimum(torch.maximum(pd - f, -lim), lim).contiguous()
+
+    def plain_substep(ps, dyn, tau):
+        z = torch.zeros(ps.shape[1], 3, device="cuda")
+        return k.pack_sim(plain(k.unpack_sim(ps), k.unpack_dyn(dyn), tau.T, z, z)[0])
+
+    off_tol = lambda a, b: ((a - b).abs() / (TOL_ENV + TOL_ENV * b.abs())).amax(0)
+    noise = torch.Generator(device="cuda").manual_seed(7)
+
+    def nearest(ps, tau, out, idx):
+        """Per env of idx: the nearest plain outcome to the kernel's (max
+        error over the tolerance) from `samples` perturbed copies of its
+        input state at each eps."""
+        rep = lambda t: t[:, idx].repeat_interleave(samples, 1)
+        x, d, t, o = rep(ps), rep(pdyn), rep(tau), rep(out)
+        best = None
+        for eps in (1e-7, 1e-6):
+            y = plain_substep(x * (1 + eps * torch.randn(x.shape, generator=noise, device="cuda")),
+                              d, t)
+            r = off_tol(y, o).view(len(idx), samples).amin(1)
+            best = r if best is None else torch.minimum(best, r)
+        return best
+
+    ps = pk = k.pack_sim(drops)
+    worst, flips, most, off_control = 0.0, 0, 0, []
+    for r in range(env.settle_rounds):
+        out = control(ps)
+        pk = control(pk)
+        hold = r % every == every - 1
+        x = ps
+        for i in range(env.decimation):
+            tau = torques(x)
+            nxt = plain_substep(x, pdyn, tau)
+            if hold:
+                sk = k.packed_call(x, pdyn, tau, torch.zeros(6, B, device="cuda"))[0]
+                finite = torch.isfinite(nxt).all(0)
+                require(torch.equal(torch.isfinite(sk).all(0), finite),
+                        f"K1 on T1Standup's settle, round {r} substep {i}: the kernel's state is "
+                        "non-finite where the plain substep's is finite, or the other way")
+                ratio = off_tol(sk, nxt)
+                off = (ratio > 1) & finite
+                idx = off.nonzero()[:, 0]
+                require(len(idx) <= B // 100, f"K1 on T1Standup's settle, round {r} substep {i}: "
+                        f"{len(idx)} of {B} envs past the tolerance")
+                if len(idx):
+                    best = nearest(x, tau, sk, idx)
+                    require(bool((best <= 1).all()),
+                            f"K1 on T1Standup's settle, round {r} substep {i}: envs "
+                            f"{idx[best > 1].tolist()} past the tolerance, and no perturbed plain "
+                            f"substep reaches the kernel's outcome (nearest {float(best.max()):.2f})")
+                keep = finite & ~off
+                worst = max(worst, float((sk - nxt).abs()[:, keep].max()))
+                flips, most = flips + len(idx), max(most, len(idx))
+            x = nxt
+        finite = torch.isfinite(x).all(0)
+        require(torch.equal(torch.isfinite(out).all(0), finite),
+                f"K1 on T1Standup's settle, round {r}: the kernel's control step is non-finite "
+                "where the plain loop's is finite, or the other way")
+        if hold:
+            off_control.append(int(((off_tol(out, x) > 1) & finite).sum()))
+        ps = x
+    torch.cuda.synchronize()
+    nonfinite = lambda p: int((~torch.isfinite(p).all(0)).sum())
+    log(f"8a. T1Standup's bank settle at B={B} [{card}], {env.settle_rounds} rounds, each from the "
+        f"plain loop's state: the kernel's control step finite exactly where the plain loop's is "
+        f"in every round; every substep of {len(off_control)} rounds from the plain substep's "
+        f"state: max abs err {worst:.3e} over the envs within {TOL_ENV}, {flips} (env, substep) "
+        f"past it (at most {most} in a substep), each reached by the plain substep from a "
+        f"rounding-perturbed state; envs off the tolerance after those rounds' whole control "
+        f"steps {off_control}; non-finite entries after the settle: {nonfinite(pk)} by the kernel "
+        f"alone, {nonfinite(ps)} by the plain loop alone")
+    return worst
+
+
+def phase8_train(card, ctx, workdir):
+    """8b: T1Standup at 4096 envs: the bank's settle timed on its own (60
+    control-step launches), then 2 training iterations (24 control steps
+    and 20 each of K2-K4 per iteration, after the bank's 60); 8d: the
+    exported standup policy against the f32 actor on the card, bitwise;
+    8b': T1StandupFT resumes the checkpoint for one iteration; 8c:
+    T1Serial, 1 iteration.  Returns {task: (runner, records)}."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from booster_gym_torch import export as port_export
+    from booster_gym_torch.runner import Runner
+    from booster_gym_torch.testing import standup_path_cfg
+    from booster_gym_torch.utils.recorder import load_checkpoint
+
+    os.chdir(tempfile.mkdtemp(prefix="chip_smoke_serial_", dir=workdir))   # logs/ of its own
+    out = {}
+    for task in PHASE8_TASKS:
+        runner = Runner(ctx["cfgs"][task], device="cuda")
+        env, fused = runner.env, runner.ppo.fused
+        horizon = ctx["cfgs"][task]["runner"]["horizon_length"]
+        epochs = ctx["cfgs"][task]["runner"]["mini_epochs"]
+        iters = ctx["cfgs"][task]["basic"]["max_iterations"]
+        settle = 0
+        if task == "T1Standup":
+            settle = env.settle_rounds
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            env.init_params(gen)   # the kernel builds at its first launch
+            n0 = env.substep.launches
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            params = env.init_params(gen)
+            t1.record()
+            t1.synchronize()
+            bank = params.init_bank
+            fields = [getattr(bank, f) for f in ("root_pos", "root_quat", "root_lin_vel",
+                                                 "root_ang_vel", "q", "qd")]
+            finite = torch.stack([torch.isfinite(x).all(1) for x in fields]).all(0)
+            z = bank.root_pos[finite, 2]
+            # a drop can blow the contact solve up, in the plain loop as in the
+            # kernel (the JAX package banks such states too; a reset that
+            # draws one is reset again by the termination's fault check)
+            log(f"8b. T1Standup's bank at {env.num_envs} envs [{card}]: init_params with the "
+                f"settle {t0.elapsed_time(t1):.2f} ms by CUDA events, "
+                f"{env.substep.launches - n0} control-step launches; settled trunk heights "
+                f"{float(z.min()):.3f}-{float(z.max()):.3f} m; {int((~finite).sum())} of "
+                f"{env.num_envs} entries non-finite")
+            require(env.substep.launches - n0 == settle
+                    and int((~finite).sum()) <= env.num_envs // 100, "the bank's settle")
+        zero_counts(runner)
+        records = runner.train()
+        torch.cuda.synchronize()
+        per_iter = [[int(r[k]) for k in ("substep_kernel_launches", "gae_launches",
+                                          "grads_stats_launches", "opt_stage_launches")]
+                    for r in records]
+        got = [env.substep.launches, fused.gae_launches, fused.grads_stats_launches,
+               fused.opt_stage_launches]
+        for r in records:
+            log(f"8{'b' if task == 'T1Standup' else 'c'}. {task} iteration at {env.num_envs} envs "
+                f"[{card}]: {r['iter_ms']:.2f} ms (rollout {r['rollout_ms']:.2f} ms, update "
+                f"{r['update_ms']:.2f} ms), {r['env_steps_per_sec']:,.0f} env-steps/s, reward "
+                f"{r['reward']:.4f}, value_loss {r['value_loss']:.4f}, kl {r['kl_mean']:.5f}")
+        log(f"  {task} launches: K1/K2/K3/K4 per iteration {per_iter}, in all {got} (the bank's "
+            f"{settle} control steps included)")
+        require(len(records) == iters and per_iter == [[horizon, epochs, epochs, epochs]] * iters
+                and got == [settle + iters * horizon] + [iters * epochs] * 3,
+                f"{task}'s kernel launches")
+        ts = runner.train_state
+        require(ts.obs.shape == (env.num_envs, env.num_obs)
+                and ts.privileged_obs.shape == (env.num_envs, 14)
+                and bool(torch.isfinite(ts.obs).all())
+                and all(np.isfinite(v) for r in records for v in r.values()),
+                f"{task}'s observations and metrics after training")
+        out[task] = (runner, records)
+        if task == "T1Standup":
+            # 8d. the exported standup policy, bitwise against the f32 actor
+            (ckpt,) = glob.glob(os.path.join("logs", "*", "nn", f"model_{iters}.pt"))
+            path = port_export.export(ckpt, output=os.path.abspath("standup_policy.pt"),
+                                      task="T1Standup")
+            module = torch.jit.load(path, map_location="cuda")
+            seq = port_export.actor_sequential(
+                port_export.actor_params(load_checkpoint(ckpt))).to("cuda")
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            obs = torch.randn(4096, env.frame_obs, generator=gen, device="cuda")
+            stack = torch.randn(4096, env.deploy_stack, env.frame_obs, generator=gen,
+                                device="cuda")
+            with torch.no_grad():
+                a = module(obs, stack)
+                b = seq(stack[:, :env.train_stack].reshape(4096, -1))
+            same = torch.equal(a, b)
+            log(f"8d. export of {ckpt} with the standup wrapper -> {path}: TorchScript on the "
+                f"card (obs [4096, {env.frame_obs}], a {env.deploy_stack}-frame stack) against "
+                f"the f32 Sequential on the newest {env.train_stack} frames: bitwise {same}, "
+                f"max |a| {float(a.abs().max()):.4f}")
+            require(same and a.shape == (4096, env.num_actions) and bool(torch.isfinite(a).all()),
+                    "the standup export")
+            # 8b'. the fine-tune stage (T1StandupFT.yaml, the standup class)
+            # resumes that checkpoint for one iteration
+            fcfg = standup_path_cfg(ctx["urdf"], ctx["mjcf"], task="T1StandupFT")
+            fcfg["basic"].update(checkpoint=ckpt, max_iterations=iters + 1)
+            ft = Runner(fcfg, device="cuda")
+            zero_counts(ft)
+            frecs = ft.train()
+            torch.cuda.synchronize()
+            fper = [[int(r[k]) for k in ("substep_kernel_launches", "gae_launches",
+                                          "grads_stats_launches", "opt_stage_launches")]
+                    for r in frecs]
+            log(f"8b'. T1StandupFT from {ckpt} [{card}]: {len(frecs)} iteration, numbered "
+                f"{ft.train_state.iteration}, {frecs[-1]['iter_ms']:.2f} ms (rollout "
+                f"{frecs[-1]['rollout_ms']:.2f}, update {frecs[-1]['update_ms']:.2f}); launches "
+                f"K1/K2/K3/K4 {fper}, in all {ft.env.substep.launches} control steps (the bank's "
+                f"{settle} included)")
+            require(type(ft.env).__name__ == "T1Standup" and ft.train_state.iteration == iters + 1
+                    and fper == [[horizon, epochs, epochs, epochs]]
+                    and ft.env.substep.launches == settle + horizon,
+                    "the fine-tune stage's resumed iteration")
+            del ft
+    os.chdir(ROOT)
+    return out
+
+
+def phase8_timing(card, ctx, trained, err):
+    """The `kernels` entries of phase 8: K1's control step on each new
+    robot at 4096 envs (launches: its path's run, the bank's settle
+    included on T1Standup), and K2-K4 and K8-K10 at each new path's widths
+    from prof_update (bf16, T = 24, B = 4096; launches: K2-K4 the path's
+    run, K8-K10 prof_update's), beside each plain version's time."""
+    import torch
+
+    from booster_gym_torch import prof_update
+    from booster_gym_torch.testing import bound, control_inputs, task_dims, time_cuda
+
+    entries = []
+    for task, (runner, _) in trained.items():
+        env = ctx["envs"][task]
+        k, model, B = env.substep, env.model, 4096
+        cargs = control_inputs(k, model, B, "cuda", seed=5, task="T1Serial")
+        ms, _ = time_cuda(lambda: k.control_step(*cargs), 25)
+        plain_ms, _ = time_cuda(lambda: k.control_step_plain(*cargs), 3, warmup=1)
+        nbytes = control_bytes(k) * B
+        nops = 10 * substep_op_count(model, env.sim_cfg) * B + epilogue_op_count(k) * B
+        bound_ms, bound_by = bound(nbytes, nops)
+        launches = runner.env.substep.launches
+        epb = k.info()["envs_per_block"]
+        log(f"8. K1 for {task} ({model.num_points} points, {epb} envs per block) one "
+            f"control step at {B} envs [{card}]: {ms * 1e3:.2f} us per launch; plain loop "
+            f"{plain_ms:.2f} ms; bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes / 1e6:.2f} "
+            f"MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32); launches on the path {launches}")
+        entries.append({
+            "name": f"K1 substep (plane), {task}'s serial robot ({model.num_points} points), "
+                    "one control step per launch",
+            "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
+            "replaces": "booster_gym_tpu/physics/pallas_engine.py:267", "launches": launches,
+            "max_abs_err": err[("K1", task)], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "envs_per_block": epb})
+    for task, (runner, _) in trained.items():
+        records = prof_update.main(["--task", task, "--iters", "20"])
+        by_kernel = {r["kernel"]: r for r in records}
+        plains = update_plains(24, 4096, task_dims(task))[3]
+        path = runner.ppo.fused
+        path_launches = {"K2": path.gae_launches, "K3": path.grads_stats_launches,
+                         "K4": path.opt_stage_launches}
+        for kname, plain in plains.items():
+            rec = by_kernel[kname]
+            plain_ms, _ = time_cuda(plain, 5)
+            launches = path_launches.get(kname, rec["launches"])
+            log(f"8. {kname} for {task} at N=98304 bf16 ({rec['n_params']} parameters) [{card}]: "
+                f"{rec['ms']:.4f} ms/call (prof_update); plain version {plain_ms:.3f} ms; bound "
+                f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({rec['bytes'] / 1e6:.2f} MB, "
+                f"{rec['operations'] / 1e9:.3f} Gop); launches {launches} "
+                f"({'the path' if kname in path_launches else 'prof_update'}); library: none")
+            name, replaces = UPDATE_META[kname]
+            entries.append({
+                "name": f"{name}, {task}'s widths", "route": "cuda",
+                "source": "booster_gym_torch/csrc/update.cu", "replaces": replaces,
+                "launches": launches, "max_abs_err": err[(kname, task)], "ms": rec["ms"],
+                "plain_ms": plain_ms, "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": None, "n_params": rec["n_params"]})
+    return entries
+
+
+def serial_and_standup(card, ctx, workdir):
+    """Phase 8 after its builds: 8a, 8b-8d, then the timing; returns its
+    `kernels` entries."""
+    t0 = time.perf_counter()
+    phase8_info(card, ctx)
+    err = phase8_kernels(card, ctx)
+    err[("K1", "T1Standup")] = max(err[("K1", "T1Standup")], compare_settle(card, ctx))
+    trained = phase8_train(card, ctx, workdir)
+    entries = phase8_timing(card, ctx, trained, err)
+    log(f"8. phase 8 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "booster_gym_torch")):
         print("chip_smoke.py: the booster_gym_torch package is not beside this script",
@@ -1224,6 +1705,8 @@ def main():
                    for n, k in no_epilogue.items()})
     builds["K6+K7"] = kernel_build.start_build(sample_kernel.SOURCE, {})
     builds["K2-K4, K8-K10"] = kernel_build.start_build(update_kernel.SOURCE, update_sizes)
+    ctx8 = phase8_setup(workdir)
+    builds.update(phase8_builds(ctx8))
     for name, (path, proc, tmp) in builds.items():
         report = kernel_build.finish_build(path, proc, tmp)
         log(f"built {name}: {os.path.basename(path)} (done {time.perf_counter() - t0:.1f} s "
@@ -1295,9 +1778,9 @@ def main():
     for name in ("toy", "t1"):
         for B in (4096, 1000):
             control_err["K1"] = max(control_err["K1"], compare_control(
-                name, kernels[name], models[name], B))
+                name, kernels[name], models[name], B)[0])
             control_err["K5"] = max(control_err["K5"], compare_control(
-                name, general[name], models[name], B, terrain=terrain))
+                name, general[name], models[name], B, terrain=terrain)[0])
             compare_control_general_with_plane(name, kernels[name], general[name],
                                                models[name], B)
     log("K1 and K5 control steps match the plain loop: max abs err "
@@ -1606,6 +2089,9 @@ def main():
 
     # -- 7. resume, the JAX checkpoint played, export -------------------------
     resume_play_export(card, urdf)
+
+    # -- 8. the serial robot and the standup task ------------------------------
+    line["kernels"] += serial_and_standup(card, ctx8, workdir)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -247,13 +247,17 @@ def test_library_name_carries_the_envs_per_block_and_source_hash(robot):
     _, model, _ = robot
     feet = feet_of(model)
     sizes = sk.kernel_sizes(model, feet)
-    assert sizes["EPB"] == sk.ENVS_PER_BLOCK
+    # the source picks the envs per block from the robot's sizes; a variant
+    # build that sets them carries them in its name
+    assert "EPB" not in sizes and "MINB" not in sizes
     path = kernel_build.library_path(sk.SOURCE, sizes)
     # the source's bytes, then those of the sampler's header it includes
     header = kernel_build.source_path("terrain_sample.cuh")
     digest = hashlib.sha256(open(sk.CSRC, "rb").read()
                             + open(header, "rb").read()).hexdigest()[:10]
-    assert path.endswith(f"_epb{sk.ENVS_PER_BLOCK}_{digest}.so")
+    assert path.endswith(f"_plane1_{digest}.so")
+    variant = kernel_build.library_path(sk.SOURCE, dict(sizes, EPB=4, MINB=6))
+    assert variant.endswith(f"_plane1_epb4_minb6_{digest}.so")
     # the entry points the wrapper binds, with their argument counts
     src = open(sk.CSRC).read()
     import re
