@@ -6,7 +6,11 @@
 PATH is the port's model_<it>.pt or the JAX package's model_<it>.ckpt.
 Steps 10 s of control steps with the actor's mean and prints the mean
 reward per step, then the steps' rate (CUDA events on a GPU, the host
-clock on the CPU).  Runs on cuda unless --device cpu.
+clock on the CPU).  Runs on cuda unless --device cpu.  Under
+viewer.record_video (T1.yaml: true) env viewer.record_env_idx's states
+are rendered offline to videos/<time>.mp4 by eval/render.py (MuJoCo's
+offscreen renderer on the asset's MJCF); without mujoco or a GL backend
+it prints why there is no video.
 """
 
 import numpy as np
@@ -27,7 +31,13 @@ def main(argv=None):
     print(f"{len(traj) / (ms / 1e3):,.1f} steps/s ({rews.size / (ms / 1e3):,.0f} env-steps/s) "
           f"on {runner.device}")
     if cfg["viewer"].get("record_video", False):
-        print("video rendering unavailable: the port has no renderer yet")
+        try:
+            from booster_gym_torch.eval.render import render_trajectory
+
+            path = render_trajectory(cfg, traj, env_idx=cfg["viewer"].get("record_env_idx", 0))
+            print(f"video written to {path}")
+        except Exception as e:
+            print(f"video rendering unavailable: {e}")
     return traj
 
 

@@ -137,6 +137,76 @@ def write_t1_shaped_urdf(directory):
     return path
 
 
+def t1_shaped_mjcf_text(base_height=0.72):
+    """MJCF text of the T1-shaped stand-in, read from its URDF: each link a
+    body at its joint's origin with the link's inertial and collision boxes
+    and cylinders, each revolute joint a hinge with the URDF's range and a
+    motor of the joint's name with ctrlrange +-effort (the 12 actuators in
+    joint order, named as T1.yaml's gain and angle keys match them), the
+    trunk on a free joint at `base_height`, and the IMU the MuJoCo
+    evaluation reads: an `orientation` framequat and an `angular-velocity`
+    gyro on a site at the trunk's origin.  The robot's geoms collide with
+    the ground plane only."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(t1_shaped_urdf_text())
+    vec = lambda text: " ".join(f"{float(v):.6g}" for v in text.split())
+    links = {link.get("name"): link for link in root.findall("link")}
+    children = {}
+    for j in root.findall("joint"):
+        children.setdefault(j.find("parent").get("link"), []).append(j)
+    motors = []
+
+    def link_xml(name):
+        link = links[name]
+        inertial = link.find("inertial")
+        i = inertial.find("inertia")
+        parts = [f'<inertial pos="{vec(inertial.find("origin").get("xyz"))}" '
+                 f'mass="{inertial.find("mass").get("value")}" diaginertia="{i.get("ixx")} '
+                 f'{i.get("iyy")} {i.get("izz")}"/>']
+        for c in link.findall("collision"):
+            pos, geom = vec(c.find("origin").get("xyz")), c.find("geometry")
+            if geom.find("box") is not None:
+                half = " ".join(f"{float(v) / 2:.6g}" for v in geom.find("box").get("size").split())
+                parts.append(f'<geom type="box" size="{half}" pos="{pos}"/>')
+            else:
+                cyl = geom.find("cylinder")
+                parts.append(f'<geom type="cylinder" size="{cyl.get("radius")} '
+                             f'{float(cyl.get("length")) / 2:.6g}" pos="{pos}"/>')
+        for j in children.get(name, []):
+            child = j.find("child").get("link")
+            head = f'<body name="{child}" pos="{vec(j.find("origin").get("xyz"))}">'
+            hinge = ""
+            if j.get("type") == "revolute":
+                lim = j.find("limit")
+                hinge = (f'<joint name="{j.get("name")}" type="hinge" '
+                         f'axis="{vec(j.find("axis").get("xyz"))}" range="{lim.get("lower")} '
+                         f'{lim.get("upper")}"/>')
+                motors.append((j.get("name"), float(lim.get("effort"))))
+            parts.append(head + hinge + link_xml(child) + "</body>")
+        return "".join(parts)
+
+    trunk = (f'<body name="Trunk" pos="0 0 {base_height}"><freejoint/>'
+             '<site name="imu" pos="0 0 0"/>' + link_xml("Trunk") + "</body>")
+    actuators = "".join(f'<motor name="{n}" joint="{n}" ctrllimited="true" '
+                        f'ctrlrange="{-e:g} {e:g}"/>' for n, e in motors)
+    return ('<mujoco model="T1_shaped">\n<compiler angle="radian"/>\n'
+            '<default><geom contype="1" conaffinity="0"/></default>\n<worldbody>\n'
+            '<geom name="ground" type="plane" size="0 0 1" contype="0" conaffinity="1"/>\n'
+            + trunk + "\n</worldbody>\n<actuator>" + actuators + "</actuator>\n<sensor>"
+            '<framequat name="orientation" objtype="site" objname="imu"/>'
+            '<gyro name="angular-velocity" site="imu"/></sensor>\n</mujoco>\n')
+
+
+def write_t1_shaped_mjcf(directory):
+    """Write the stand-in MJCF into `directory`; returns its absolute
+    path."""
+    path = os.path.abspath(os.path.join(directory, "T1_shaped.xml"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(t1_shaped_mjcf_text())
+    return path
+
+
 # The 23-DoF serial stand-in: the bodies and joints of the SDK's serial
 # order (head x 2, left arm x 4, right arm x 4, waist, left leg x 6, right
 # leg x 6), each (joint, joint type, parent, child, joint origin, axis,
@@ -423,6 +493,111 @@ def standup_path_cfg(urdf, mjcf, task="T1Standup"):
     cfg["basic"]["max_iterations"] = 2
     cfg["basic"]["seed"] = 0
     return cfg
+
+
+def mpc_path_cfg(urdf):
+    """T1.yaml on the plane with one env, on the T1-shaped stand-in at
+    `urdf`: the sampling MPC's setting (its K samples are the rollout's
+    batch), seed 0."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = 1
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = urdf
+    cfg["basic"]["seed"] = 0
+    return cfg
+
+
+def mpc_start(urdf, device, seed=0):
+    """(env, state1, dyn1): mpc_path_cfg's env on `device`, and a start
+    drawn on the CPU from `seed` (init_params, then reset_all), so that
+    every device starts from the same state."""
+    import torch
+
+    from booster_gym_torch.envs.t1 import T1
+
+    cfg = mpc_path_cfg(urdf)
+    cpu = T1(cfg, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    params = cpu.init_params(gen)
+    sim = cpu.reset_all(params, gen)[0].sim
+    env = cpu if torch.device(device).type == "cpu" else T1(cfg, device)
+    to = lambda obj: type(obj)(**{k: v.to(device) for k, v in vars(obj).items()})
+    return env, to(sim), to(params.dyn)
+
+
+def hold_mpc_rollout(mpc, state1, dyn1, noise, tol=2e-3, samples=16, seed=7):
+    """The MPC's rollout for one plan (from mpc._mean and `noise`), one
+    control step at a time, each step from the kernel's own state: the
+    env's control_step (K1 on the card) against control_step_plain on the
+    same inputs, state and cost held to `tol` (atol + rtol |b|), by the
+    exclusion rules of chip_smoke.py's phases 3b and 8.  A sample whose
+    plain state moves past `tol` under a one-ulp nudge of the input state
+    is chaotic and left out.  A sample past `tol` otherwise (a resting
+    contact's decision that falls the other way) passes only if the plain
+    step reaches the kernel's outcome within `tol` from one of `samples`
+    copies of its input state perturbed by rounding (each component times
+    1 + eps N(0, 1), eps 1e-7 and 1e-6; N from a generator seeded with
+    `seed`); it is counted as flipped and left out of the error.  Returns
+    a dict: deltas [H, K, nd]; costs [H, K] of the kernel's states and
+    plain_costs of the plain states; state_err [H], the largest state
+    difference over the samples held; chaotic and flipped [H, K]; over
+    [H], whether a sample past `tol` was not reached; finite_same, whether
+    every step's state is finite exactly where the plain one is."""
+    import torch
+
+    from booster_gym_torch.mpc import tile
+
+    sub, K = mpc.env.substep, mpc.num_samples
+    deltas, targets = mpc.sample(mpc._mean, noise)
+    state_k, dyn_k = tile(state1, dyn1, K)
+    psim, pdyn = sub.pack_sim(state_k), sub.pack_dyn(dyn_k)
+    fixed = mpc.rollout_inputs(K)
+    gen = torch.Generator(device=psim.device).manual_seed(seed)
+    ratio = lambda a, b: ((a - b).abs() / (tol + tol * b.abs()))
+    plain = lambda ps, pd, t, fx: sub.control_step_plain(ps, pd, t, t, *fx,
+                                                         decimation=mpc.decimation).state
+    cost = lambda ps: mpc.cost_fn(sub.unpack_sim(ps))
+    out = {k: [] for k in ("costs", "plain_costs", "state_err", "over", "chaotic", "flipped")}
+    finite_same = True
+    for t in targets:
+        t = t.contiguous()
+        kern = sub.control_step(psim, pdyn, t, t, *fixed, decimation=mpc.decimation).state
+        ref = plain(psim, pdyn, t, fixed)
+        nudged = torch.nextafter(psim, torch.full_like(psim, float("inf")))
+        chaotic = (ratio(plain(nudged, pdyn, t, fixed), ref) > 1).any(0)
+        finite = torch.isfinite(ref)
+        finite_same &= torch.equal(torch.isfinite(kern), finite)
+        cost_k, cost_p = cost(kern), cost(ref)
+        off = ((ratio(kern, ref) > 1) & finite).any(0) | (ratio(cost_k, cost_p) > 1)
+        off &= ~chaotic
+        idx = off.nonzero()[:, 0]
+        reached = torch.zeros_like(off)
+        if len(idx):
+            rep = lambda x: x[..., idx].repeat_interleave(samples, -1)
+            x, d, o = rep(psim), rep(pdyn), rep(kern)
+            tt = t[idx].repeat_interleave(samples, 0)
+            fx = mpc.rollout_inputs(len(idx) * samples)   # the same for every sample
+            best = None
+            for eps in (1e-7, 1e-6):
+                y = plain(x * (1 + eps * torch.randn(x.shape, generator=gen, device=x.device)),
+                          d, tt, fx)
+                r = torch.maximum(ratio(y, o).amax(0), ratio(cost(y), cost(o)))
+                r = r.view(len(idx), samples).amin(1)
+                best = r if best is None else torch.minimum(best, r)
+            reached[idx] = best <= 1
+        held = ~chaotic & ~off
+        err = torch.where(finite, (kern - ref).abs(), 0.0)
+        out["costs"].append(cost_k)
+        out["plain_costs"].append(cost_p)
+        out["state_err"].append(float(err[:, held].max()) if bool(held.any()) else 0.0)
+        out["over"].append(bool((off & ~reached).any()))
+        out["chaotic"].append(chaotic)
+        out["flipped"].append(off & reached)
+        psim = kern
+    for k in ("costs", "plain_costs", "chaotic", "flipped"):
+        out[k] = torch.stack(out[k])
+    out.update(deltas=deltas, finite_same=finite_same)
+    return out
 
 
 def point_terrain_inputs(npt, B, seed):

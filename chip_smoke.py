@@ -123,7 +123,22 @@ Phases, in order; any failure exits non-zero:
      actor on the card; 8b' T1StandupFT resumes that checkpoint for one
      iteration; 8c T1Serial, 1 iteration at 4096 envs; then every kernel
      at the new widths timed beside its bound and plain version (K8-K10
-     through prof_update).
+     through prof_update);
+  9. the sampling MPC (booster_gym_torch.mpc) at its defaults (K = 256
+     samples, H = 16 control steps, decimation 10) on the T1-shaped
+     stand-in on the plane, its rollout one K1 launch per control step (32
+     blocks of 8 envs): 9a one plan's rollout held step by step to
+     control_step_plain from the kernel's own state, state and cost, by
+     phase 3b's and phase 8's exclusion rules (chaotic samples left out;
+     a sample past the tolerance passes only where the plain step reaches
+     its outcome from a rounding-perturbed state; both shares printed),
+     and the plan's weighting, new mean and info equal exactly to torch's
+     recomputation from the kernel's costs;
+     9b 25 plans of closed-loop control (K1's count zeroed before: 16
+     launches per plan and one per closed-loop step), ms per plan by CUDA
+     events, the root held above 0.55 m and the cost finite; 9c K1's time
+     per launch at K = 256 beside its bound and at 4096 envs.  There is no
+     MuJoCo phase: the card's machine has no mujoco package.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -1626,6 +1641,153 @@ def serial_and_standup(card, ctx, workdir):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sampling MPC
+MPC_PLANS = 25          # closed-loop plans: 0.5 s of control at 50 Hz
+MPC_MIN_HEIGHT = 0.55   # the root height tests/test_torch_mpc.py holds the stand-in above
+
+
+def mpc_phase(card, urdf):
+    """Phase 9: booster_gym_torch.mpc's SamplingMPC at its defaults on the
+    T1-shaped stand-in on the plane, its rollout through K1 (one launch per
+    control step at K = 256).  9a holds each control step of one plan's
+    rollout to control_step_plain from the kernel's own state, state and
+    cost (testing.hold_mpc_rollout: chaotic and flipped samples left out,
+    the shares printed), and the plan's weighting, new mean and info to
+    torch's recomputation from the kernel's costs, exactly; 9b runs the
+    closed loop (counts zeroed before it), ms per plan by CUDA events; 9c
+    times K1 at the MPC's batch beside the main path's 4096 envs.  Returns
+    K1's `kernels` entry on the MPC's path."""
+    import math
+
+    import torch
+
+    from booster_gym_torch.mpc import SamplingMPC, standup_cost, tile
+    from booster_gym_torch.testing import bound, hold_mpc_rollout, mpc_start, time_cuda
+
+    t0 = time.perf_counter()
+    log("9. no MuJoCo phase: the card's machine has no mujoco package; the MuJoCo evaluation, "
+        "renderer and play_mujoco run on the CPU (tests/test_torch_eval.py)")
+    env, sim, dyn1 = mpc_start(urdf, "cuda")
+    mpc = SamplingMPC(env)
+    sub, model = env.substep, env.model
+    K, H = mpc.num_samples, mpc.horizon
+    require((K, H, mpc.decimation) == (256, 16, 10) and sub.plane,
+            "the MPC's defaults: K = 256, H = 16, decimation 10, on the plane kernel")
+    epb = sub.info()["envs_per_block"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = math.ceil(K / epb)
+    log(f"9. SamplingMPC: K={K} samples, H={H} control steps of {mpc.decimation} substeps; K1's "
+        f"launch: {blocks} blocks of {epb} envs on the card's {sms} SMs")
+
+    # -- 9a. one plan's rollout held step by step ----------------------------
+    noise = mpc.draw(torch.Generator("cuda").manual_seed(0))
+    held = hold_mpc_rollout(mpc, sim, dyn1, noise, tol=TOL_STATE)
+    torch.cuda.synchronize()
+    chaotic = held["chaotic"].sum(1).tolist()
+    flipped = held["flipped"].sum(1).tolist()
+    cost_err = torch.where(held["chaotic"] | held["flipped"], 0.0,
+                           (held["costs"] - held["plain_costs"]).abs()).amax(1).tolist()
+    for h in range(H):
+        log(f"  9a. control step {h}: state max abs {held['state_err'][h]:.3e}, cost max abs "
+            f"{cost_err[h]:.3e} over the samples held; {chaotic[h]} of {K} samples "
+            f"({chaotic[h] / K:.2%}) chaotic and {flipped[h]} ({flipped[h] / K:.2%}) flipped "
+            f"(past the tolerance, reached by the plain step from a rounding-perturbed state), "
+            f"left out; tol {TOL_STATE} {'FAIL' if held['over'][h] else 'ok'}")
+    require(held["finite_same"], "K1's MPC rollout is not finite where the plain one is")
+    require(not any(held["over"]), "K1's MPC rollout disagrees with control_step_plain, and no "
+            "perturbed plain step reaches its outcome")
+    require(max(chaotic) <= K // 100, f"more than 1% of the MPC's samples chaotic: {chaotic}")
+    max_err = max(max(held["state_err"]), max(cost_err))
+    # the plan from the same mean and noise, against torch's recomputation
+    # from the kernel's costs (the kernel repeats bitwise, so its costs are
+    # the same)
+    mean0 = mpc._mean.clone()
+    targets, info = mpc.plan(sim, dyn1, noise=noise)
+    costs, deltas = held["costs"], held["deltas"]
+    total = costs.sum(0)
+    w = torch.softmax(-(total - total.min()) / mpc.temperature, dim=0)
+    new_mean = torch.einsum("k,hkj->hj", w, deltas)
+    ref = {"targets": (targets, env.default_dof_pos + new_mean[0]),
+           "mean": (mpc._mean, torch.cat([new_mean[1:], new_mean[-1:]])),
+           "best_cost": (info["best_cost"], total.min()),
+           "mean_cost": (info["mean_cost"], total.mean()),
+           "ess": (info["ess"], 1.0 / (w * w).sum())}
+    same = {k: torch.equal(a, b) for k, (a, b) in ref.items()}
+    log(f"9a. plan from mean {float(mean0.abs().max()):g} and the same noise: the weighting "
+        f"recomputed by torch from the kernel's costs, equal exactly {same}; best cost "
+        f"{float(info['best_cost']):.5f}, mean cost {float(info['mean_cost']):.4f}, ess "
+        f"{float(info['ess']):.3f}; max abs err of the rollout {max_err:.3e}")
+    require(all(same.values()), f"the plan's weighting from the kernel's costs: {same}")
+
+    # -- 9b. the closed loop -------------------------------------------------
+    mpc.reset()
+    gen = torch.Generator("cuda").manual_seed(42)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plan_ms, host_ms, per_plan = [], [], []
+    torch.cuda.synchronize()
+    sub.launches = 0
+    for _ in range(MPC_PLANS):
+        n0 = sub.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        targets, info = mpc.plan(sim, dyn1, gen=gen)
+        end.record()
+        end.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        plan_ms.append(start.elapsed_time(end))
+        per_plan.append(sub.launches - n0)
+        sim = mpc._rollout(dyn1, sim, targets[None, None])[0]
+    launches = sub.launches
+    height = float(sim.root_pos[0, 2])
+    cost = float(standup_cost(sim, env.default_dof_pos)[0])
+    steady = sorted(plan_ms[1:])
+    log(f"9b. closed loop, {MPC_PLANS} plans [{card}]: {steady[len(steady) // 2]:.3f} ms per "
+        f"plan by CUDA events (median of plans 2-{MPC_PLANS}; first {plan_ms[0]:.3f}, mean "
+        f"{sum(steady) / len(steady):.3f}), host {sorted(host_ms[1:])[len(steady) // 2]:.3f} ms; "
+        f"K1 launches per plan {per_plan[0]} (all {sorted(set(per_plan))}), {launches} in the "
+        f"run ({MPC_PLANS} plans and {MPC_PLANS} closed-loop steps); root height {height:.4f} "
+        f"(held above {MPC_MIN_HEIGHT}), standup cost {cost:.4f}, last best cost "
+        f"{float(info['best_cost']):.4f}")
+    require(per_plan == [H] * MPC_PLANS and launches == MPC_PLANS * (H + 1),
+            f"K1's launches in the MPC's closed loop: {per_plan}, {launches}")
+    require(height > MPC_MIN_HEIGHT and math.isfinite(cost),
+            f"the MPC did not keep the stand-in up (h={height:.4f}, cost {cost})")
+
+    # -- 9c. K1 at the MPC's batch beside the main path's --------------------
+    fixed = {B: mpc.rollout_inputs(B) for B in (K, 4096)}
+    args = {}
+    for B in (K, 4096):
+        state_b, dyn_b = tile(sim, dyn1, B)
+        t_ = (env.default_dof_pos + noise[0, :1]).expand(B, -1).contiguous()
+        args[B] = (sub.pack_sim(state_b), sub.pack_dyn(dyn_b), t_, t_, *fixed[B])
+    runs = {K: [], 4096: []}
+    for B in (K, 4096, 4096, K):
+        runs[B].append(time_cuda(lambda: sub.control_step(*args[B], decimation=10), 50)[0])
+    ms = sum(runs[K]) / 2
+    plain_ms, _ = time_cuda(lambda: sub.control_step_plain(*args[K], decimation=10), 3, warmup=1)
+    nbytes = control_bytes(sub) * K
+    nops = (10 * substep_op_count(model, env.sim_cfg) + epilogue_op_count(sub)) * K
+    bound_ms, bound_by = bound(nbytes, nops)
+    log(f"9c. K1 one control step at the MPC's K={K} ({blocks} blocks on {sms} SMs) [{card}]: "
+        f"{ms * 1e3:.2f} us per launch (runs {[round(x * 1e3, 2) for x in runs[K]]}); at 4096 "
+        f"envs {sum(runs[4096]) / 2 * 1e3:.2f} us ({[round(x * 1e3, 2) for x in runs[4096]]}); "
+        f"plain loop {plain_ms:.2f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} "
+        f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32), "
+        f"{ms / bound_ms:.0f}x the bound; per plan {H} launches, {H * ms:.3f} ms of K1 of the "
+        f"plan's {steady[len(steady) // 2]:.3f} ms")
+    log(f"9. phase 9 took {time.perf_counter() - t0:.1f} s")
+    return {"name": "K1 substep (plane), the sampling MPC's rollout (K = 256 samples), one "
+                    "control step per launch",
+            "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
+            "replaces": "booster_gym_tpu/physics/pallas_engine.py:267", "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "launches_per_plan": H,
+            "plan_ms": steady[len(steady) // 2], "ms_at_4096": sum(runs[4096]) / 2,
+            "blocks": blocks, "sms": sms}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "booster_gym_torch")):
         print("chip_smoke.py: the booster_gym_torch package is not beside this script",
@@ -2092,6 +2254,9 @@ def main():
 
     # -- 8. the serial robot and the standup task ------------------------------
     line["kernels"] += serial_and_standup(card, ctx8, workdir)
+
+    # -- 9. the sampling MPC -----------------------------------------------------
+    line["kernels"].append(mpc_phase(card, urdf))
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
