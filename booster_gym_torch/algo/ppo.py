@@ -26,6 +26,18 @@ ratio sitting exactly on a clip bound passes half its gradient.
 torch.maximum splits ties the same way; torch.clamp passes the whole
 gradient at its bounds, so the surrogate's clip is written out as
 jax_clip().  The fused kernels carry the same rules in their own backward.
+
+Data parallelism (booster_gym_torch/parallel): the env's Group says which
+rows of the global batch this rank holds.  The rollout noise is the global
+batch's draw, sliced.  The ranks meet where the JAX package reduces over
+its "dp" axis, and nowhere else: per fused mini-epoch K2's two advantage
+sums (one all-reduce), then K3's gradient and metric sums packed into one
+flat all-reduce, after which K4 and the KL rule run on the same values on
+every rank; per xla mini-epoch the advantages' sum and squared deviation,
+then the gradient with the loss terms' partial means; per iteration the
+episode sums and the curriculum levels' sum (one all-reduce) and max (one).
+Every mean divides by the global count.  At world size 1 there is no
+collective and every operation is the single-process one.
 """
 
 import dataclasses
@@ -39,7 +51,8 @@ from booster_gym_torch.algo.networks import (
     normal_kl,
     normal_log_prob,
 )
-from booster_gym_torch.algo.update_kernel import FusedUpdate
+from booster_gym_torch.algo.update_kernel import STAT_NAMES, FusedUpdate
+from booster_gym_torch.parallel import Group
 
 
 def jax_clip(x, lo, hi):
@@ -103,6 +116,10 @@ class PPO:
         self.env = env
         self.cfg = cfg
         self.device = torch.device(device)
+        # the env's data-parallel group; a stand-in env without one is a
+        # whole batch in this one process
+        self.group = getattr(env, "group", None) or Group(getattr(env, "num_envs", 1),
+                                                         self.device)
         acfg = cfg["algorithm"]
         self.update_backend = acfg.get("update_backend", "fused")
         if self.update_backend not in ("fused", "xla"):
@@ -179,7 +196,7 @@ class PPO:
         bufs = [[] for _ in range(8)]
         for _ in range(self.horizon):
             mu, std = self.network.act(obs)
-            act = mu + std * torch.randn(mu.shape, generator=gen, device=self.device)
+            act = mu + std * self.group.draw(torch.randn, gen, mu.shape, device=self.device)
             env_state, obs2, rew, done, info = self.env.step(env_params, env_state, act, gen)
             d = done.float()
             ep_steps = ep_steps + 1
@@ -212,6 +229,7 @@ class PPO:
         dones = done_buf | timeout_buf
         p = flat_params(net)
         m, v, cnt, lr = ts.opt.m, ts.opt.v, ts.opt.count, ts.lr
+        mean = self._mean
         stats = []
         for _ in range(self.mini_epochs):
             mu, std = net.act(obs_buf)
@@ -222,20 +240,28 @@ class PPO:
                 rwd = torch.where(timeout_buf, vd, rew_buf)
                 adv = discount_values(rwd, dones, vd, lvd, self.gamma, self.lam)
                 returns = vd + adv
-                adv = (adv - adv.mean()) / (torch.std(adv) + 1e-8)   # Bessel-corrected
+                adv = self._normalize(adv)
 
-            value_loss = torch.mean(torch.square(values - returns))
+            value_loss = mean(torch.square(values - returns))
             ratio = torch.exp(normal_log_prob(mu, std, act_buf) - old_logp)
             surr = -adv * ratio
             surr_clipped = -adv * jax_clip(ratio, 1.0 - self.clip_ratio, 1.0 + self.clip_ratio)
-            actor_loss = torch.mean(torch.maximum(surr, surr_clipped))
-            bound_loss = (torch.mean(torch.square(torch.clamp(mu - 1.0, min=0.0)))
-                          + torch.mean(torch.square(torch.clamp(mu + 1.0, max=0.0))))
-            entropy = torch.mean(normal_entropy(std))
+            actor_loss = mean(torch.maximum(surr, surr_clipped))
+            bound_loss = (mean(torch.square(torch.clamp(mu - 1.0, min=0.0)))
+                          + mean(torch.square(torch.clamp(mu + 1.0, max=0.0))))
+            entropy = mean(normal_entropy(std))
             loss = (value_loss + actor_loss + self.bound_coef * bound_loss
                     + self.entropy_coef * entropy)
             grads = torch.autograd.grad(loss, params)
             g = torch.cat([x.reshape(-1) for x in grads])
+            with torch.no_grad():
+                kl_mean = mean(normal_kl(mu_buf, std_buf, mu, std))
+                st = torch.stack([value_loss, actor_loss, bound_loss, entropy, kl_mean]).detach()
+            if self.group.world > 1:
+                # the ranks' gradients and partial means, summed in one
+                flat = self.group.all_reduce(torch.cat([g, st]))
+                g, st = flat[:-5], flat[-5:]
+                kl_mean = st[4]
             p, m, v, cnt = self.flat_adam(g, p, m, v, cnt, lr)
             if self.min_logstd is not None:
                 p = p.clone()
@@ -243,11 +269,27 @@ class PPO:
             set_flat_params(net, p)
 
             with torch.no_grad():
-                kl_mean = torch.mean(normal_kl(mu_buf, std_buf, mu, std))
                 lr = self._adapt_lr(lr, kl_mean)
-                stats.append(torch.stack([value_loss, actor_loss, bound_loss, entropy,
-                                          kl_mean]).detach())
+                stats.append(st)
         return OptState(m=m, v=v, count=cnt), lr, torch.stack(stats)
+
+    def _mean(self, x):
+        """torch.mean at world size 1; over several ranks this rank's part
+        of the global mean (its sum over the global count), which the
+        all-reduce of the update completes."""
+        if self.group.world == 1:
+            return torch.mean(x)
+        return torch.sum(x) / (x.numel() * self.group.world)
+
+    def _normalize(self, adv):
+        """Advantages less their mean over the global batch, over their
+        Bessel-corrected std plus 1e-8 (two passes, as torch.std)."""
+        if self.group.world == 1:
+            return (adv - adv.mean()) / (torch.std(adv) + 1e-8)
+        n = adv.numel() * self.group.world
+        mu = self.group.all_reduce(adv.sum().reshape(1)) / n
+        var = self.group.all_reduce(torch.square(adv - mu).sum().reshape(1)) / (n - 1)
+        return (adv - mu) / (torch.sqrt(var) + 1e-8)
 
     @torch.no_grad()
     def _update_fused(self, ts, carry, buf):
@@ -260,7 +302,7 @@ class PPO:
         obs_buf, priv_buf, act_buf, mu_buf, std_buf, rew_buf, done_buf, timeout_buf = buf
         fused, net = self.fused, self.network
         T, B = rew_buf.shape
-        N, na = T * B, fused.num_act
+        N, na = T * B * self.group.world, fused.num_act     # the global row count
         # epoch-invariant inputs, built once
         nonterm = 1.0 - (done_buf | timeout_buf).float()
         timeout_f = timeout_buf.float()
@@ -274,13 +316,22 @@ class PPO:
         for epoch in range(self.mini_epochs):
             adv_raw, returns, s_a, s_a2 = fused.gae(
                 staged, prep["obsc"], rew_buf, nonterm, timeout_f, self.gamma, self.lam)
+            if self.group.world > 1:
+                s_a, s_a2 = self.group.all_reduce(torch.stack([s_a, s_a2])).unbind()
             # Bessel-corrected std from the one-pass sums; K3 normalizes
             mean = s_a / N
             var = (s_a2 - N * mean * mean) / (N - 1)
             rstd = 1.0 / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-8)
             # epoch 0: K3's own forward is the old policy, kept for the rest
             g, st, mu_out, logp_out = fused.grads_stats(
-                staged, p, prep, adv_raw, returns, mean, rstd, self_old=epoch == 0)
+                staged, p, prep, adv_raw, returns, mean, rstd, self_old=epoch == 0, n_total=N)
+            if self.group.world > 1:
+                # the gradient and the metric sums over the ranks, in one;
+                # K4 and the KL rule then run on the same bits on every rank
+                flat = self.group.all_reduce(torch.cat(
+                    [g, torch.stack([st[k] for k in STAT_NAMES]), st["klsq"]]))
+                g, sums = flat[:fused.n_params], flat[fused.n_params:]
+                st = {**dict(zip(STAT_NAMES, sums.unbind())), "klsq": sums[len(STAT_NAMES):]}
             if epoch == 0:
                 prep = {**prep, "mu_old": mu_out, "old_logp": logp_out}
 
@@ -325,7 +376,8 @@ class PPO:
         if timer:
             timer("end")
         value_loss, actor_loss, bound_loss, entropy, kl_mean = stats.unbind(1)
-        levels = env_state.env_curriculum_level.abs().float()
+        fin_sums, fin_cnt, fin_steps, level_mean, level_max = self._episode_stats(
+            fin_sums, fin_cnt, fin_steps, env_state.env_curriculum_level.abs().float())
         n_ep = torch.clamp(fin_cnt, min=1.0)
         metrics = {
             "reward": fin_sums["reward"] / n_ep,
@@ -337,10 +389,10 @@ class PPO:
             "entropy": entropy.mean(),
             "kl_mean": kl_mean[-1],
             "lr": lr,
-            "curriculum/mean_lin_vel_level": levels[:, 0].mean(),
-            "curriculum/mean_ang_vel_level": levels[:, 1].mean(),
-            "curriculum/max_lin_vel_level": levels[:, 0].max(),
-            "curriculum/max_ang_vel_level": levels[:, 1].max(),
+            "curriculum/mean_lin_vel_level": level_mean[0],
+            "curriculum/mean_ang_vel_level": level_mean[1],
+            "curriculum/max_lin_vel_level": level_max[0],
+            "curriculum/max_ang_vel_level": level_max[1],
         }
         for name in self.env.reward_scales:
             metrics[f"episode/{name}"] = fin_sums[name] / n_ep
@@ -348,3 +400,18 @@ class PPO:
                         privileged_obs=priv_last, episode_sums=ep_sums, episode_steps=ep_steps,
                         iteration=ts.iteration + 1)
         return ts, metrics
+
+    def _episode_stats(self, fin_sums, fin_cnt, fin_steps, levels):
+        """The rollout's finished-episode sums and count and the curriculum
+        levels' (lin, ang) mean and max over the global batch: over several
+        ranks the sums and the levels' sums in one all-reduce, the maxima
+        in one more."""
+        if self.group.world == 1:
+            return (fin_sums, fin_cnt, fin_steps, (levels[:, 0].mean(), levels[:, 1].mean()),
+                    (levels[:, 0].max(), levels[:, 1].max()))
+        names = list(fin_sums)
+        sums = self.group.all_reduce(torch.stack(
+            [fin_cnt, fin_steps, *(fin_sums[k] for k in names), *levels.sum(0)]))
+        level_max = self.group.all_reduce(levels.max(0).values.contiguous(), op="max")
+        return (dict(zip(names, sums[2:-2].unbind())), sums[0], sums[1],
+                (sums[-2:] / self.group.num_envs).unbind(), level_max.unbind())

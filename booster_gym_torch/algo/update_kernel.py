@@ -99,8 +99,8 @@ _FUNCTIONS = {
     "bg_critic_info": [_I, _I, _P],
     "bg_gae": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P,
                _P],
-    "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                       _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "bg_grads_stats": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                       _F, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "bg_opt_stage": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                      _P, _P, _P, _P, _P, _P],
     "bg_values": [_I, _P, _P, _P, _P, _I, _P, _I, _P],
@@ -510,11 +510,15 @@ class FusedUpdate:
         return adv, ret, adv.sum(), (adv * adv).sum()
 
     # -- K3 ---------------------------------------------------------------
-    def grads_stats(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd, self_old):
+    def grads_stats(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd, self_old,
+                    n_total=None):
         """(g, stats, mu, logp): the flat f32 gradient of value loss + actor
         loss + bound_coef * bound loss in the parameters' order (the entropy
         term is K4's), stats = {vl, al, bhi, blo, klsq [num_act]} as sums
         over the batch, and the forward's mu [N, num_act] and logp [N].
+        The loss means divide by n_total rows (default N): a data-parallel
+        rank passes the global count, and the ranks' g summed is then the
+        whole batch's gradient.
 
         adv_raw and returns hold N values; the first N rows of prep's
         tensors are read.  adv_mean and adv_rstd are 0-dim tensors.  p gives
@@ -526,17 +530,20 @@ class FusedUpdate:
         1, pass 2 and the reduce."""
         if staged.device.type == "cpu":
             return self.grads_stats_plain(staged, p, prep, adv_raw, returns, adv_mean,
-                                          adv_rstd, self_old)
+                                          adv_rstd, self_old, n_total)
         return self.grads_stats_timed(staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
-                                      self_old, None)
+                                      self_old, None, n_total)
 
     def grads_stats_timed(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
-                          self_old, events):
+                          self_old, events, n_total=None):
         """grads_stats on the card.  `events`, None or four
         torch.cuda.Events that have been recorded once, are recorded on the
         stream before the weight copy and after pass 1, pass 2 and the
         reduce: the passes' times within a whole call, for measurement."""
         n, na = adv_raw.numel(), self.num_act
+        n_total = n if n_total is None else int(n_total)
+        if n_total < n:
+            raise ValueError(f"n_total {n_total} is below the {n} rows")
         obsc = prep["obsc"]
         self._check("staged", staged, (self.n_params,), self.dtype)
         self._check("p", p, (self.n_params,))
@@ -562,8 +569,8 @@ class FusedUpdate:
             self.bf16, staged.data_ptr(), p.data_ptr(), self._offs, self._wpad(dev).data_ptr(),
             obsc.data_ptr(), prep["act"].data_ptr(), prep["mu_old"].data_ptr(),
             prep["old_logp"].data_ptr(), adv_raw.data_ptr(), returns.data_ptr(), norm.data_ptr(),
-            int(bool(self_old)), n, 1.0 - self.clip_ratio, 1.0 + self.clip_ratio,
-            self.bound_coef / (n * na), sc["rows"].data_ptr(), sc["part"].data_ptr(),
+            int(bool(self_old)), n, n_total, 1.0 - self.clip_ratio, 1.0 + self.clip_ratio,
+            self.bound_coef / (n_total * na), sc["rows"].data_ptr(), sc["part"].data_ptr(),
             sc["part_stats"].data_ptr(), sc["stride"], sc["nslab"], sc["slab_rows"],
             self.n_params, g.data_ptr(), stats.data_ptr(), mu.data_ptr(), logp.data_ptr(),
             sc["nblk"], None if events is None else (ctypes.c_void_p * 4)(
@@ -576,13 +583,14 @@ class FusedUpdate:
         return g, st, mu, logp
 
     def grads_stats_plain(self, staged, p, prep, adv_raw, returns, adv_mean, adv_rstd,
-                          self_old):
+                          self_old, n_total=None):
         n, na = adv_raw.numel(), self.num_act
+        n_total = n if n_total is None else int(n_total)
         old = (None, None) if self_old else (prep["old_logp"].reshape(n),
                                              prep["mu_old"].reshape(n, na))
         g, stats, mu, _, logp = self._loss_grads(
             staged, p, prep["obsc"].reshape(-1, self.num_crit)[:n], prep["act"].reshape(n, na),
-            (adv_raw.reshape(n) - adv_mean) * adv_rstd, returns.reshape(n), *old, n)
+            (adv_raw.reshape(n) - adv_mean) * adv_rstd, returns.reshape(n), *old, n_total)
         return g, stats, mu, logp
 
     def _loss_grads(self, staged, p, x, act, adv, ret, old_logp, mu_old, n_total, plan=None):

@@ -4,6 +4,8 @@ unpacked with `git archive` into a git-ignored directory, and this one).
     python booster_gym_torch/compare_trees.py ptxas TREE [-D NAME=VALUE]...
     python booster_gym_torch/compare_trees.py gae TREE OUT
     python booster_gym_torch/compare_trees.py gae-diff OUT_A OUT_B
+    python booster_gym_torch/compare_trees.py k3 TREE OUT
+    python booster_gym_torch/compare_trees.py k3-diff OUT_A OUT_B
     python booster_gym_torch/compare_trees.py sass TREE OUT
     python booster_gym_torch/compare_trees.py sass-diff OUT_A OUT_B
 
@@ -14,11 +16,14 @@ spills of the control-step, substep, K2, K4 and sampler kernels.  `gae`
 runs TREE's K2 at T = 24 (bf16 and f32, B = 4096 and 1000, testing.
 update_case's data) and saves its four outputs to OUT, with ms per call
 (CUDA events) and the device kernels per call; `gae-diff` says whether two
-such files are bitwise equal.  `sass` builds TREE's K1 (the T1-shaped
+such files are bitwise equal.  `k3` and `k3-diff` do the same for K3
+(grads_stats at T = 24, B = 4096 and 1000, bf16 and f32: the gradient,
+the metric sums, mu and logp), called as every tree takes it, without
+n_total.  `sass` builds TREE's K1 (the T1-shaped
 robot's sizes, its foot edge points) and its update library at the T1
 networks' widths and writes each library's machine code (cuobjdump -sass,
 every kernel, bf16 and f32) to OUT; `sass-diff` says whether two such
-files hold the same code, library by library.  Run as a script, so that
+files hold the same code, library by library and kernel by kernel.  Run as a script, so that
 TREE's package, not this one, is imported.  Needs the CUDA toolkit (ptxas,
 sass) or a GPU (gae); gae-diff and sass-diff need neither.
 """
@@ -95,13 +100,34 @@ def gae(tree, out):
     torch.save(res, out)
 
 
-def gae_diff(a, b):
+def k3(tree, out):
+    use_tree(tree)
+    import torch
+
+    from booster_gym_torch import testing
+    from booster_gym_torch.testing import update_case
+
+    res = {}
+    for dtype in ("bf16", "f32"):
+        for B in (4096, 1000):
+            fused, p, staged, prep, d = update_case(dtype, 24, B, "cuda", seed=B)
+            adv = d["adv"]
+            args = (staged, p, prep, adv, d["ret"], adv.mean(), 1.0 / (adv.std() + 1e-8), False)
+            g, st, mu, logp = fused.grads_stats(*args)
+            torch.cuda.synchronize()
+            res[f"{dtype}_{B}"] = [t.cpu() for t in (g, *st.values(), mu, logp)]
+            ms, _ = testing.time_cuda(lambda: fused.grads_stats(*args), 20)
+            print(tree, dtype, B, f"ms/call {ms:.4f}", flush=True)
+    torch.save(res, out)
+
+
+def outputs_diff(label, names, a, b):
     import torch
 
     a, b = torch.load(a), torch.load(b)
     for k in a:
         same = [torch.equal(x, y) for x, y in zip(a[k], b[k])]
-        print("K2", k, "bitwise equal (adv, ret, sum, sum^2):", same)
+        print(label, k, f"bitwise equal ({names}):", same)
 
 
 def sass(tree, out):
@@ -136,6 +162,21 @@ def sass_diff(a, b):
     for name in a:
         print(f"{name}: the same machine code: {a[name] == b.get(name)} ({len(a[name])} and "
               f"{len(b.get(name, []))} lines)")
+        fa, fb = _functions(a[name]), _functions(b.get(name, []))
+        differ = sorted(f for f in set(fa) | set(fb) if fa.get(f) != fb.get(f))
+        print(f"  {len(fa)} and {len(fb)} kernels; those whose code differs: {differ}")
+
+
+def _functions(lines):
+    """{kernel name: its lines} of a library's SASS listing."""
+    out, name = {}, None
+    for line in lines:
+        if "Function" in line:
+            name = line.split(":", 1)[-1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
 
 
 def main(argv=None):
@@ -148,6 +189,12 @@ def main(argv=None):
     p.add_argument("tree")
     p.add_argument("out")
     p = sub.add_parser("gae-diff")
+    p.add_argument("a")
+    p.add_argument("b")
+    p = sub.add_parser("k3")
+    p.add_argument("tree")
+    p.add_argument("out")
+    p = sub.add_parser("k3-diff")
     p.add_argument("a")
     p.add_argument("b")
     p = sub.add_parser("sass")
@@ -165,8 +212,12 @@ def main(argv=None):
         sass(args.tree, args.out)
     elif args.cmd == "sass-diff":
         sass_diff(args.a, args.b)
+    elif args.cmd == "k3":
+        k3(args.tree, args.out)
+    elif args.cmd == "k3-diff":
+        outputs_diff("K3", "g, vl, al, bhi, blo, klsq, mu, logp", args.a, args.b)
     else:
-        gae_diff(args.a, args.b)
+        outputs_diff("K2", "adv, ret, sum, sum^2", args.a, args.b)
 
 
 if __name__ == "__main__":

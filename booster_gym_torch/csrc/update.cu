@@ -1300,9 +1300,10 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
 // bound-loss halves, sum (mu - mu_old)^2 per action, dlogstd per action) to
 // part_stats[blockIdx.x * NSTAT + slot].
 //
+// The loss means divide by n_total while the mask keeps the local row count
+// n (a data-parallel rank passes the global count; K3 and K9 alike).
 // ANCHOR makes it K9: the advantages are used as given (no mean, rstd),
-// the old policy is always old_logp, the loss means divide by n_total while
-// the mask keeps the local row count n, no metric sum is formed (only the
+// the old policy is always old_logp, no metric sum is formed (only the
 // dlogstd slots), and each valid row's mu and value leave in type T
 // through mu_t and val_t in place of mu_out and logp_out.
 struct K3Args {
@@ -1328,7 +1329,7 @@ k3_pass1(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
     load_bias<T, ActorNet>(s, staged, offs.ab);
     load_bias<T, CriticNet>(s, staged, offs.cb);
     const float mean = ANCHOR ? 0.0f : a.norm[0], rstd = ANCHOR ? 1.0f : a.norm[1];
-    const float inv_n = 1.0f / (float)(ANCHOR ? a.n_total : a.n);
+    const float inv_n = 1.0f / (float)a.n_total;
     const int ntiles = (a.n + TN - 1) / TN;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
         __syncthreads();
@@ -2078,14 +2079,15 @@ int bg_gae(int bf16, const void* staged, const int* offs, void* wpad, const void
 int bg_grads_stats(int bf16, const void* staged, const float* p, const int* offs, void* wpad,
                    const void* obsc, const float* act, const float* mu_old, const float* old_logp,
                    const float* adv, const float* ret, const float* norm, int self_old, int n,
-                   float lo, float hi, float bscale, void* scratch, float* part, float* part_stats,
-                   int stride, int nslab, int slab_rows, int n_params, float* g, float* stats,
-                   float* mu_out, float* logp_out, int nblk, void* const* ev, void* stream) {
+                   int n_total, float lo, float hi, float bscale, void* scratch, float* part,
+                   float* part_stats, int stride, int nslab, int slab_rows, int n_params,
+                   float* g, float* stats, float* mu_out, float* logp_out, int nblk,
+                   void* const* ev, void* stream) {
     K3Args a;
     a.p = p; a.act = act; a.mu_old = mu_old; a.old_logp = old_logp; a.adv = adv; a.ret = ret;
     a.norm = norm; a.part = part; a.part_stats = part_stats; a.mu_out = mu_out;
     a.logp_out = logp_out; a.mu_t = nullptr; a.val_t = nullptr; a.scratch = scratch;
-    a.self_old = self_old; a.n = n; a.n_total = n; a.stride = stride; a.nslab = nslab;
+    a.self_old = self_old; a.n = n; a.n_total = n_total; a.stride = stride; a.nslab = nslab;
     a.slab_rows = slab_rows; a.lo = lo; a.hi = hi; a.bscale = bscale;
     return bf16 ? grads_stats_launch<__nv_bfloat16, false>(staged, offs, wpad, obsc, a, n_params,
                                                            g, stats, nblk, ev, stream)

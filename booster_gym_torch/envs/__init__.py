@@ -10,11 +10,13 @@ from booster_gym_torch.envs.t1 import T1
 TASKS = {"T1": T1, "T1Serial": T1, "T1Standup": T1Standup}
 
 
-def make_task(cfg, device):
+def make_task(cfg, device, group=None):
+    """The task's env on `device`; under a data-parallel Group its rows of
+    the batch (booster_gym_torch/parallel)."""
     name = cfg["basic"].get("env_class") or cfg["basic"]["task"]
     if name not in TASKS:
         raise KeyError(f"Unknown task {name}; known: {sorted(TASKS)}")
-    return TASKS[name](cfg, device=device)
+    return TASKS[name](cfg, device=device, group=group)
 
 
 __all__ = ["T1", "T1Standup", "TASKS", "make_task"]

@@ -21,6 +21,12 @@ Random draws come from the env's torch.Generator.  Each random step is a
 draw (_draw_fallen, _draw_reset: a dict of the values drawn) and a
 function of the draws (_fallen_seed_states, _reset_from_bank), so that the
 tests can hand both packages the same values.
+
+Under a data-parallel Group the draws are the global batch's, sliced, as
+in T1; the tucked drops and the ladder follow the global env index, each
+rank settles its slice of the bank with its own launches, and the slices
+are gathered into the whole bank on every rank, from which any env resets
+(the JAX package's bank is one [B, ...] leaf that its resets gather from).
 """
 
 import copy
@@ -30,7 +36,6 @@ import types
 
 import torch
 
-from booster_gym_torch.envs.randomize import apply_randomization
 from booster_gym_torch.envs.state import EnvParams, EnvState
 from booster_gym_torch.envs.t1 import T1, _resolve_asset
 from booster_gym_torch.math.quat import quat_from_euler_xyz, quat_mul
@@ -61,7 +66,7 @@ def _nan_to_zero(x):
 
 
 class T1Standup(T1):
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, group=None):
         scfg = cfg["standup"]
         self.frame_obs = int(scfg["frame_obs"])
         self.train_stack = int(scfg["train_stack"])
@@ -73,7 +78,7 @@ class T1Standup(T1):
         # applies on top
         base_cfg = copy.deepcopy(cfg)
         base_cfg["env"]["num_actions"] = load_urdf(_resolve_asset(cfg["asset"]["file"])).num_dofs
-        super().__init__(base_cfg, device)
+        super().__init__(base_cfg, device, group)
         if self.num_obs != self.frame_obs * self.train_stack:
             raise ValueError(f"num_observations must be frame_obs * train_stack = "
                              f"{self.frame_obs * self.train_stack}")
@@ -103,12 +108,12 @@ class T1Standup(T1):
         """The drops' random values: tilt angle (radians, 5-120 deg) and its
         sign, roll or pitch, yaw, joint noise, and the tucked drops' tip
         (10-50 deg) and squat depth."""
-        B, nd, dev = self.num_envs, self.model.num_dofs, self.device
-        u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+        B, nd = self.num_envs, self.model.num_dofs
+        u = lambda lo, hi, *shape: lo + (hi - lo) * self._rand(gen, *shape)
         return {"angle": u(math.radians(5.0), math.radians(120.0), B),
-                "flip": torch.rand(B, generator=gen, device=dev) < 0.5,
-                "use_pitch": torch.rand(B, generator=gen, device=dev) < 0.5,
-                "yaw": torch.rand(B, generator=gen, device=dev) * 2 * math.pi,
+                "flip": self._rand(gen, B) < 0.5,
+                "use_pitch": self._rand(gen, B) < 0.5,
+                "yaw": self._rand(gen, B) * 2 * math.pi,
                 "q_noise": u(-0.3, 0.3, B, nd),
                 "tip": u(math.radians(10.0), math.radians(50.0), B),
                 "depth": u(0.6, 1.0, B, 1)}
@@ -131,7 +136,7 @@ class T1Standup(T1):
         roll = torch.where(draws["use_pitch"], 0.0, angle)
         pitch = torch.where(draws["use_pitch"], angle, 0.0)
         q = self.default_dof_pos.expand(B, nd) + draws["q_noise"]
-        tucked = torch.arange(B, device=self.device) % 4 == 3
+        tucked = self._env_index() % 4 == 3
         pitch = torch.where(tucked, draws["tip"], pitch)
         roll = torch.where(tucked, 0.0, roll)
         q_squat = self._squat(self.default_dof_pos.expand(B, nd), draws["depth"][:, 0])
@@ -171,14 +176,19 @@ class T1Standup(T1):
         deeper entries bent toward a full squat with the root lowered to
         match."""
         settled = self._settle(params, self._fallen_seed_states(self._draw_fallen(gen)))
-        return self._standing_ladder(settled)
+        bank = self._standing_ladder(settled)
+        return dataclasses.replace(bank, **{f.name: self.group.all_gather(getattr(bank, f.name))
+                                            for f in dataclasses.fields(bank)})
+
+    def _env_index(self):
+        """The global index of this rank's envs."""
+        return torch.arange(self.group.lo, self.group.hi, device=self.device)
 
     def _standing_ladder(self, settled):
-        B = self.num_envs
-        n_stand = max(1, B // 4)
-        standing = torch.arange(B, device=self.device) < n_stand
-        depth = torch.clamp(torch.arange(B, dtype=torch.float32, device=self.device)
-                            / max(n_stand - 1, 1), 0.0, 1.0)
+        n_stand = max(1, self.global_envs // 4)
+        index = self._env_index()
+        standing = index < n_stand
+        depth = torch.clamp(index.float() / max(n_stand - 1, 1), 0.0, 1.0)
         q_def = self._squat(self.default_dof_pos.expand_as(settled.q), depth)
         q_def = torch.clamp(q_def, self.dof_lower, self.dof_upper)
         pos_def = settled.root_pos.clone()
@@ -198,11 +208,11 @@ class T1Standup(T1):
     def _draw_reset(self, gen, bank_size):
         """A reset's random values: the bank entry, joint noise, the yaw
         turn and the action delay."""
-        B, nd, dev = self.num_envs, self.model.num_dofs, self.device
-        return {"idx": torch.randint(0, bank_size, (B,), generator=gen, device=dev),
-                "q_noise": -0.05 + 0.1 * torch.rand((B, nd), generator=gen, device=dev),
-                "dyaw": torch.rand(B, generator=gen, device=dev) * 2 * math.pi,
-                "delay": torch.randint(0, self.decimation, (B,), generator=gen, device=dev)}
+        B, nd = self.num_envs, self.model.num_dofs
+        return {"idx": self._randint(gen, 0, bank_size, B),
+                "q_noise": -0.05 + 0.1 * self._rand(gen, B, nd),
+                "dyaw": self._rand(gen, B) * 2 * math.pi,
+                "delay": self._randint(gen, 0, self.decimation, B)}
 
     def _reset_envs(self, params, state, mask, gen):
         draws = self._draw_reset(gen, params.init_bank.q.shape[0])
@@ -266,12 +276,12 @@ class T1Standup(T1):
         ncfg, noise = self.cfg["normalization"], self.cfg["noise"]
         idx = self.action_indices
         return torch.cat([
-            apply_randomization(gen, state.projected_gravity, noise.get("gravity"))
+            self._randomize(gen, state.projected_gravity, noise.get("gravity"))
             * ncfg["gravity"],
-            apply_randomization(gen, state.base_ang_vel, noise.get("ang_vel")) * ncfg["ang_vel"],
-            apply_randomization(gen, state.sim.q[:, idx] - self.default_subset,
+            self._randomize(gen, state.base_ang_vel, noise.get("ang_vel")) * ncfg["ang_vel"],
+            self._randomize(gen, state.sim.q[:, idx] - self.default_subset,
                                 noise.get("dof_pos")) * ncfg["dof_pos"],
-            apply_randomization(gen, state.sim.qd[:, idx], noise.get("dof_vel"))
+            self._randomize(gen, state.sim.qd[:, idx], noise.get("dof_vel"))
             * ncfg["dof_vel"],
             state.actions,
         ], dim=-1)
@@ -292,8 +302,8 @@ class T1Standup(T1):
         height = state.sim.root_pos[:, 2] - state.terrain_height_root
         return _nan_to_zero(torch.cat([
             params.base_mass_scaled,
-            apply_randomization(gen, state.base_lin_vel, noise.get("lin_vel")) * ncfg["lin_vel"],
-            apply_randomization(gen, height, noise.get("height"))[:, None],
+            self._randomize(gen, state.base_lin_vel, noise.get("lin_vel")) * ncfg["lin_vel"],
+            self._randomize(gen, height, noise.get("height"))[:, None],
             state.push_force * ncfg["push_force"],
             state.push_torque * ncfg["push_torque"],
         ], dim=-1))

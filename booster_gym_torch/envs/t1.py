@@ -21,6 +21,14 @@ points, the root and the foot edges: each env carries the terrain height
 and normal under its contact points through the next control step's 10
 substeps.  sim.backend: xla runs the eager engine, which queries the
 terrain inside every substep.
+
+Under a data-parallel Group (booster_gym_torch/parallel) the env holds
+rows [lo, hi) of a global batch of global_envs, and num_envs is its local
+count: every random draw is made at the global batch and sliced, the env
+origins come from the global grid, and the curriculum's scatter-add is
+summed over the ranks before its clamp, as the JAX package computes them
+on its sharded batch.  At world size 1 every call is the single-process
+one.
 """
 
 import dataclasses
@@ -40,6 +48,7 @@ from booster_gym_torch.math.quat import (
 )
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.model.mjcf_points import with_mjcf_collision
+from booster_gym_torch.parallel import Group
 from booster_gym_torch.physics import DynParams, SimConfig, SimState
 from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
 from booster_gym_torch.physics.kinematics import point_world_positions
@@ -67,11 +76,16 @@ class T1:
     """Static task definition + step/reset functions; all evolving state is
     in EnvParams / EnvState."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, group=None):
         self.cfg = cfg
         self.device = torch.device(device)
         dev = self.device
-        self.num_envs = cfg["env"]["num_envs"]
+        self.group = Group(cfg["env"]["num_envs"], dev) if group is None else group
+        if self.group.num_envs != cfg["env"]["num_envs"]:
+            raise ValueError(f"the group cuts {self.group.num_envs} envs, the config has "
+                             f"{cfg['env']['num_envs']}")
+        self.global_envs = self.group.num_envs
+        self.num_envs = self.group.local_envs
         self.num_obs = cfg["env"]["num_observations"]
         self.num_privileged_obs = cfg["env"]["num_privileged_obs"]
         self.num_actions = cfg["env"]["num_actions"]
@@ -192,8 +206,9 @@ class T1:
     # ------------------------------------------------------------------
     def _compute_env_origins(self):
         """Grid env origins: env_spacing apart on the plane, spread over the
-        tiles (with the terrain height as z) on trimesh."""
-        B = self.num_envs
+        tiles (with the terrain height as z) on trimesh; the global batch's
+        grid, this rank's rows."""
+        B = self.global_envs
         origins = np.zeros((B, 3), np.float32)
         if self.terrain.type == "plane":
             num_cols = np.floor(np.sqrt(B))
@@ -211,10 +226,20 @@ class T1:
             origins[:, 1] = t.env_length / (num_cols + 1) * (yy.flatten()[:B] + 1)
             xy = torch.as_tensor(origins[:, :2], device=self.device)
             origins[:, 2] = t.heights(xy).cpu().numpy()
-        return origins
+        return self.group.rows(origins)
 
     def _zeros(self, *shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    # the random draws: at the global batch, this rank's rows (Group.draw)
+    def _randomize(self, gen, tensor, spec, return_noise=False):
+        return apply_randomization(gen, tensor, spec, return_noise, group=self.group)
+
+    def _rand(self, gen, *shape):
+        return self.group.draw(torch.rand, gen, shape, device=self.device)
+
+    def _randint(self, gen, lo, hi, n):
+        return self.group.draw(torch.randint, gen, (n,), lo, hi, device=self.device)
 
     # ------------------------------------------------------------------
     def init_params(self, gen):
@@ -224,43 +249,43 @@ class T1:
         rcfg = self.cfg["randomization"]
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-        stiffness = apply_randomization(
+        stiffness = self._randomize(
             gen, self.base_stiffness.expand(B, nd).clone(), rcfg.get("dof_stiffness"))
-        damping = apply_randomization(
+        damping = self._randomize(
             gen, self.base_damping.expand(B, nd).clone(), rcfg.get("dof_damping"))
-        friction = apply_randomization(gen, self._zeros(B, nd), rcfg.get("dof_friction"))
+        friction = self._randomize(gen, self._zeros(B, nd), rcfg.get("dof_friction"))
 
         mass = f32(self.model.body_mass).expand(B, nb).clone()
         com = f32(self.model.body_com).expand(B, nb, 3).clone()
         inertia = f32(self.model.body_inertia).expand(B, nb, 3, 3).clone()
 
         bi = self.base_index
-        base_com, com_noise = apply_randomization(
+        base_com, com_noise = self._randomize(
             gen, com[:, bi], rcfg.get("base_com"), return_noise=True)
-        base_mass, mass_noise = apply_randomization(
+        base_mass, mass_noise = self._randomize(
             gen, mass[:, bi], rcfg.get("base_mass"), return_noise=True)
         com[:, bi] = base_com
         mass[:, bi] = base_mass
         base_mass_scaled = torch.cat([com_noise, mass_noise[:, None]], dim=-1)
 
         other = torch.arange(nb, device=self.device) != bi
-        other_com = apply_randomization(gen, com, rcfg.get("other_com"))
-        other_mass = apply_randomization(gen, mass, rcfg.get("other_mass"))
+        other_com = self._randomize(gen, com, rcfg.get("other_com"))
+        other_mass = self._randomize(gen, mass, rcfg.get("other_mass"))
         com = torch.where(other[None, :, None], other_com, com)
         mass = torch.where(other[None, :], other_mass, mass)
         # like upstream, masses are scaled but rotational inertia is not
 
         if rcfg.get("randomize_all_shapes", False):
-            shape_friction = apply_randomization(gen, self._zeros(B, ns), rcfg.get("friction"))
-            shape_restitution = apply_randomization(
+            shape_friction = self._randomize(gen, self._zeros(B, ns), rcfg.get("friction"))
+            shape_restitution = self._randomize(
                 gen, self._zeros(B, ns), rcfg.get("restitution"))
         else:
             nfs = len(self.foot_shape_indices)
             shape_friction = torch.ones((B, ns), device=self.device)
             shape_restitution = self._zeros(B, ns)
-            shape_friction[:, self.foot_shape_indices] = apply_randomization(
+            shape_friction[:, self.foot_shape_indices] = self._randomize(
                 gen, self._zeros(B, nfs), rcfg.get("friction"))
-            shape_restitution[:, self.foot_shape_indices] = apply_randomization(
+            shape_restitution[:, self.foot_shape_indices] = self._randomize(
                 gen, self._zeros(B, nfs), rcfg.get("restitution"))
 
         dyn = DynParams(body_mass=mass, body_com=com, body_inertia=inertia,
@@ -392,17 +417,17 @@ class T1:
         m1 = mask[:, None]
         curriculum_prob = self._update_curriculum(state, mask)
 
-        dof_pos = apply_randomization(
+        dof_pos = self._randomize(
             gen, self.default_dof_pos.expand(B, nd).clone(), rcfg.get("init_dof_pos"))
         q = torch.where(m1, dof_pos, state.sim.q)
         qd = torch.where(m1, torch.zeros_like(state.sim.qd), state.sim.qd)
 
         pos_xy = params.env_origins[:, :2] + self.base_init_pos[:2]
-        pos_xy = apply_randomization(gen, pos_xy, rcfg.get("init_base_pos_xy"))
+        pos_xy = self._randomize(gen, pos_xy, rcfg.get("init_base_pos_xy"))
         pos_z = self.base_init_pos[2] + self.terrain.heights(pos_xy, params.height_field)
-        yaw = torch.rand(B, generator=gen, device=self.device) * 2 * math.pi
+        yaw = self._rand(gen, B) * 2 * math.pi
         quat = quat_from_euler_xyz(torch.zeros_like(yaw), torch.zeros_like(yaw), yaw)
-        lin_xy = apply_randomization(gen, self._zeros(B, 2), rcfg.get("init_base_lin_vel_xy"))
+        lin_xy = self._randomize(gen, self._zeros(B, 2), rcfg.get("init_base_lin_vel_xy"))
         lin_vel = torch.cat([lin_xy, self._zeros(B, 1)], dim=-1) + self.base_init_lin_vel
         ang_vel = self.base_init_ang_vel.expand(B, 3)
 
@@ -412,7 +437,7 @@ class T1:
             root_lin_vel=torch.where(m1, lin_vel, state.sim.root_lin_vel),
             root_ang_vel=torch.where(m1, ang_vel, state.sim.root_ang_vel),
             q=q, qd=qd)
-        delay = torch.randint(0, self.decimation, (B,), generator=gen, device=self.device)
+        delay = self._randint(gen, 0, self.decimation, B)
         zero = torch.zeros_like(state.episode_length)
         return state.replace(
             sim=sim, curriculum_prob=curriculum_prob,
@@ -427,7 +452,10 @@ class T1:
     # ------------------------------------------------------------------
     def _update_curriculum(self, state, mask):
         """Success diffusion on the command grid, as an order-free
-        scatter-add clamped once at the end."""
+        scatter-add clamped once at the end.  Over several ranks each
+        scatters its envs into a zero grid; the grids' sum over the ranks is
+        added to the grid, then clamped: the JAX package's scatter-add on
+        the whole batch, up to the order of the additions."""
         cc = self.cfg["commands"]
         if not cc["curriculum"]:
             return state.curriculum_prob
@@ -443,18 +471,23 @@ class T1:
         y = state.env_curriculum_level[:, 1] + cc["ang_vel_levels"]
         w = torch.where(success, cc["update_rate"], 0.0)
         H, W = self.curriculum_shape
-        flat = state.curriculum_prob.reshape(-1).clone()
+        several = self.group.world > 1
+        flat = state.curriculum_prob.reshape(-1)
+        flat = torch.zeros_like(flat) if several else flat.clone()
         idx = x * W + y
         zero = torch.zeros_like(w)
         flat.index_add_(0, idx, w)
         for ok, nidx in ((x > 0, (x - 1) * W + y), (x < H - 1, (x + 1) * W + y),
                          (y > 0, x * W + y - 1), (y < W - 1, x * W + y + 1)):
             flat.index_add_(0, torch.where(ok, nidx, idx), torch.where(ok, w, zero))
+        if several:
+            flat = state.curriculum_prob.reshape(-1) + self.group.all_reduce(flat)
         return torch.clamp(flat.reshape(H, W), max=1.0)
 
     # ------------------------------------------------------------------
     def _uniform(self, gen, lo, hi, n):
-        return lo + (hi - lo) * torch.rand(n, generator=gen, device=self.device)
+        n = n if isinstance(n, tuple) else (n,)
+        return lo + (hi - lo) * self._rand(gen, *n)
 
     def _resample_commands(self, state, gen):
         """Command and gait resampling at per-env resample times."""
@@ -471,22 +504,24 @@ class T1:
         gait_freq = self._uniform(gen, *cc["gait_frequency"], B)
         if cc.get("still_mode", "bernoulli") == "exact_fraction":
             # of the k envs resampling this step, exactly floor(p k)
-            # uniformly random ones go still
-            score = torch.where(mask, torch.rand(B, generator=gen, device=self.device),
-                                torch.full((B,), math.inf, device=self.device))
-            rank = torch.empty(B, dtype=torch.int64, device=self.device)
-            rank[torch.argsort(score)] = torch.arange(B, device=self.device)
-            k_still = torch.floor(cc["still_proportion"] * mask.sum()).to(torch.int64)
-            still = mask & (rank < k_still)
+            # uniformly random ones go still: k and the ranks over the
+            # global batch (its mask gathered from every rank)
+            Bg, g_mask = self.global_envs, self.group.all_gather(mask)
+            score = torch.where(g_mask, torch.rand(Bg, generator=gen, device=self.device),
+                                torch.full((Bg,), math.inf, device=self.device))
+            rank = torch.empty(Bg, dtype=torch.int64, device=self.device)
+            rank[torch.argsort(score)] = torch.arange(Bg, device=self.device)
+            k_still = torch.floor(cc["still_proportion"] * g_mask.sum()).to(torch.int64)
+            still = self.group.rows(g_mask & (rank < k_still))
         else:
-            still = torch.rand(B, generator=gen, device=self.device) < cc["still_proportion"]
+            still = self._rand(gen, B) < cc["still_proportion"]
         commands = torch.where(still[:, None], 0.0, commands)
         gait_freq = torch.where(still, 0.0, gait_freq)
 
         lo, hi = (int(t / self.dt) for t in cc["resampling_time_s"])
         # jax.random.randint's bounds: an empty range gives its lower bound
         # (T1Standup.yaml's 1000 s to 1000 s)
-        step = (torch.randint(lo, hi, (B,), generator=gen, device=self.device) if hi > lo
+        step = (self._randint(gen, lo, hi, B) if hi > lo
                 else torch.full((B,), lo, dtype=torch.int64, device=self.device))
         next_time = state.cmd_resample_time + step
         return state.replace(
@@ -501,7 +536,8 @@ class T1:
         B = self.num_envs
         H, W = self.curriculum_shape
         weights = torch.clamp(state.curriculum_prob.reshape(-1), min=1e-20)
-        grid_idx = torch.multinomial(weights, B, replacement=True, generator=gen)
+        grid_idx = self.group.rows(torch.multinomial(weights, self.global_envs,
+                                                     replacement=True, generator=gen))
         if cc.get("curriculum_transpose_quirk", False):
             # upstream's axis swap: consistent only for square grids
             if H != W:
@@ -642,8 +678,8 @@ class T1:
         """Velocity kicks every kick_interval steps."""
         rcfg = self.cfg["randomization"]
         do = state.common_step_counter % self.kick_interval == 0
-        lin = apply_randomization(gen, state.sim.root_lin_vel, rcfg.get("kick_lin_vel"))
-        ang = apply_randomization(gen, state.sim.root_ang_vel, rcfg.get("kick_ang_vel"))
+        lin = self._randomize(gen, state.sim.root_lin_vel, rcfg.get("kick_lin_vel"))
+        ang = self._randomize(gen, state.sim.root_ang_vel, rcfg.get("kick_ang_vel"))
         sim = SimState(
             root_pos=state.sim.root_pos, root_quat=state.sim.root_quat,
             root_lin_vel=torch.where(do, lin, state.sim.root_lin_vel),
@@ -656,8 +692,8 @@ class T1:
         rcfg = self.cfg["randomization"]
         phase = state.common_step_counter % self.push_interval
         start, stop = phase == 0, phase == self.push_duration
-        new_f = apply_randomization(gen, torch.zeros_like(state.push_force), rcfg.get("push_force"))
-        new_t = apply_randomization(gen, torch.zeros_like(state.push_torque),
+        new_f = self._randomize(gen, torch.zeros_like(state.push_force), rcfg.get("push_force"))
+        new_t = self._randomize(gen, torch.zeros_like(state.push_torque),
                                     rcfg.get("push_torque"))
         force = torch.where(start, new_f, torch.where(stop, 0.0, state.push_force))
         torque = torch.where(start, new_t, torch.where(stop, 0.0, state.push_torque))
@@ -713,21 +749,21 @@ class T1:
         gait_on = (state.gait_frequency > 1.0e-8).float()
         phase = 2 * math.pi * state.gait_process
         obs = torch.cat([
-            apply_randomization(gen, state.projected_gravity, noise.get("gravity")) * ncfg["gravity"],
-            apply_randomization(gen, state.base_ang_vel, noise.get("ang_vel")) * ncfg["ang_vel"],
+            self._randomize(gen, state.projected_gravity, noise.get("gravity")) * ncfg["gravity"],
+            self._randomize(gen, state.base_ang_vel, noise.get("ang_vel")) * ncfg["ang_vel"],
             state.commands[:, :3] * commands_scale,
             (torch.cos(phase) * gait_on)[:, None],
             (torch.sin(phase) * gait_on)[:, None],
-            apply_randomization(gen, state.sim.q - self.default_dof_pos,
+            self._randomize(gen, state.sim.q - self.default_dof_pos,
                                 noise.get("dof_pos")) * ncfg["dof_pos"],
-            apply_randomization(gen, state.sim.qd, noise.get("dof_vel")) * ncfg["dof_vel"],
+            self._randomize(gen, state.sim.qd, noise.get("dof_vel")) * ncfg["dof_vel"],
             state.actions,
         ], dim=-1)
         height = state.sim.root_pos[:, 2] - state.terrain_height_root
         privileged = torch.cat([
             params.base_mass_scaled,
-            apply_randomization(gen, state.base_lin_vel, noise.get("lin_vel")) * ncfg["lin_vel"],
-            apply_randomization(gen, height, noise.get("height"))[:, None],
+            self._randomize(gen, state.base_lin_vel, noise.get("lin_vel")) * ncfg["lin_vel"],
+            self._randomize(gen, height, noise.get("height"))[:, None],
             state.push_force * ncfg["push_force"],
             state.push_torque * ncfg["push_torque"],
         ], dim=-1)

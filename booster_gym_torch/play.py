@@ -22,6 +22,7 @@ from booster_gym_torch.utils.config import build_cfg, parse_args
 def main(argv=None):
     args = parse_args(argv)
     cfg = build_cfg(args)
+    cfg["basic"]["data_parallel"] = False     # play runs in this one process
     runner = Runner(cfg, device=args.device)
     timer = _Timer(runner.device)
     traj = runner.play(timer=timer)

@@ -1,10 +1,18 @@
 """Training and evaluation runner (port of booster_gym_tpu/runner.py).
 
-Builds the task and the PPO trainer on one device, loops over train
-iterations, logs and checkpoints; resumes from the port's checkpoints and
-the JAX package's pickle checkpoints (basic.checkpoint), and plays a
-policy.  On a CUDA device every iteration is timed with CUDA events
-(rollout, update, whole iteration); on the CPU with the host clock.
+Builds the task and the PPO trainer, loops over train iterations, logs and
+checkpoints; resumes from the port's checkpoints and the JAX package's
+pickle checkpoints (basic.checkpoint), and plays a policy.  On a CUDA
+device every iteration is timed with CUDA events (rollout, update, whole
+iteration); on the CPU with the host clock.
+
+Data parallelism, the JAX runner's mesh: where the environment configures
+a process group (torchrun, or booster_gym_torch.train's own launcher),
+this process is one rank of it and trains its slice of the env batch
+(booster_gym_torch/parallel), unless basic.data_parallel is false.  Rank 0
+alone writes the run's directory, records and checkpoints, and every rank
+waits for each save; on resume every rank loads the same checkpoint.  The
+metrics are the all-reduced ones, the times and launch counts this rank's.
 """
 
 import os
@@ -17,6 +25,13 @@ import torch
 from booster_gym_torch.algo.ppo import PPO, OptState
 from booster_gym_torch.convert import train_state_from_jax_checkpoint
 from booster_gym_torch.envs import make_task
+from booster_gym_torch.parallel import (
+    Group,
+    default_backend,
+    initialize_distributed,
+    process_group,
+    rank_device,
+)
 from booster_gym_torch.utils.recorder import Recorder, load_checkpoint, resolve_checkpoint
 
 
@@ -52,24 +67,47 @@ class _Timer:
         return 1e3 * (self.marks[b] - self.marks[a])
 
 
+def build_group(cfg, device):
+    """The JAX runner's initialize_distributed and _build_mesh: this
+    process's rank of the process group the environment configures, on
+    cuda:(LOCAL_RANK % device count) for a CUDA device, over nccl where each
+    rank has a card and gloo otherwise; a group of its own where nothing is
+    configured or under basic.data_parallel: false."""
+    num_envs = cfg["env"]["num_envs"]
+    if (cfg["basic"].get("data_parallel", True) is False
+            or not initialize_distributed(default_backend(device))):
+        return Group(num_envs, device)
+    return process_group(num_envs, rank_device(device))
+
+
 class Runner:
-    def __init__(self, cfg, device="cuda"):
+    def __init__(self, cfg, device="cuda", group=None):
+        """`group`: this rank's data-parallel Group; by default the one the
+        environment configures (build_group)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = build_group(cfg, self.device) if group is None else group
+        self.device = self.group.device
+        self.rank0 = self.group.rank == 0
         ckpt = cfg["basic"].get("checkpoint")
         self.checkpoint = resolve_checkpoint(ckpt) if ckpt else None
         seed = cfg["basic"]["seed"]
         if seed == -1:
-            seed = np.random.randint(0, 10000)
+            seed = int(self.group.broadcast(torch.tensor(
+                [np.random.randint(0, 10000)], device=self.device))[0])
             cfg["basic"]["seed"] = seed
-        print(f"Setting seed: {seed}")
+        self._print(f"Setting seed: {seed}")
         random.seed(seed)
         np.random.seed(seed)
         self.seed = seed
-        self.env = make_task(cfg, self.device)
+        self.env = make_task(cfg, self.device, self.group)
         self.ppo = PPO(self.env, cfg, self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
+
+    def _print(self, *args):
+        if self.rank0:
+            print(*args, flush=True)
 
     def _init_state(self):
         """(env_params, TrainState): ppo.init from the generator seeded
@@ -82,7 +120,7 @@ class Runner:
         env_params, ts = self.ppo.init(self.gen)
         if self.checkpoint is None:
             return env_params, ts
-        print(f"Loading model from {self.checkpoint}")
+        self._print(f"Loading model from {self.checkpoint}")
         saved = load_checkpoint(self.checkpoint)
         jax_ckpt = "opt_state" in saved
         if jax_ckpt:
@@ -152,13 +190,16 @@ class Runner:
         fused update's K2, K3 and K4).  A resumed run starts at the saved
         iteration.  Under basic.profile (True or a directory) iterations
         start + 10 to start + 13 are traced by torch.profiler into a Chrome
-        trace under <run>/profile or that directory."""
-        recorder = Recorder(self.cfg)
+        trace under <run>/profile or that directory.  Over several ranks
+        the records hold the all-reduced metrics, env_steps_per_sec is the
+        global batch's, the times and launches are this rank's; rank 0 alone
+        records, saves and profiles."""
+        recorder = Recorder(self.cfg) if self.rank0 else None
         env_params, ts = self._init_state()
         max_iterations = self.cfg["basic"]["max_iterations"]
         save_interval = self.cfg["runner"]["save_interval"]
-        steps_per_iter = self.cfg["runner"]["horizon_length"] * self.env.num_envs
-        profile_dir = self.cfg["basic"].get("profile")
+        steps_per_iter = self.cfg["runner"]["horizon_length"] * self.env.global_envs
+        profile_dir = self.cfg["basic"].get("profile") if self.rank0 else None
         if profile_dir is True:
             profile_dir = os.path.join(recorder.dir, "profile")
         start, prof, records = ts.iteration, None, []
@@ -171,20 +212,27 @@ class Runner:
                 if prof is not None and it >= start + 13:
                     self._stop_profile(prof, profile_dir)
                     prof = None
-                if (it + 1) % 10 == 0 or it == start or it + 1 == max_iterations:
+                last = it + 1 == max_iterations
+                if recorder is not None and ((it + 1) % 10 == 0 or it == start or last):
                     recorder.record_statistics(rec, it)
                     print(f"epoch: {it + 1}/{max_iterations} reward={rec['reward']:.3f} "
                           f"iter={rec['iter_ms']:.1f}ms (rollout {rec['rollout_ms']:.1f}, "
                           f"update {rec['update_ms']:.1f}) "
                           f"steps/s={rec['env_steps_per_sec']:,.0f}")
                 if (it + 1) % save_interval == 0:
-                    recorder.save(self._checkpoint_dict(ts), it + 1)
+                    self._save(recorder, ts, it + 1)
         finally:
             if prof is not None:
                 self._stop_profile(prof, profile_dir)
-        recorder.save(self._checkpoint_dict(ts), max_iterations)
+        self._save(recorder, ts, max_iterations)
         self.train_state = ts
         return records
+
+    def _save(self, recorder, ts, it):
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if recorder is not None:
+            recorder.save(self._checkpoint_dict(ts), it)
+        self.group.barrier()
 
     def _iteration(self, env_params, ts, steps_per_iter):
         """One train iteration: (TrainState, its record)."""
@@ -224,7 +272,8 @@ class Runner:
 
     @torch.no_grad()
     def play(self, num_steps=None, deterministic=True, timer=None):
-        """Policy rollout from basic.checkpoint (JAX runner.py play): the
+        """Policy rollout from basic.checkpoint (JAX runner.py play), in one
+        process (booster_gym_torch.play sets basic.data_parallel false): the
         action is the actor's mean, or mean + std * noise from the runner's
         generator when not deterministic; 10 s of control steps by default.
         Returns one dict per step of numpy arrays: root_pos, root_quat, q,

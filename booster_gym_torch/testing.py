@@ -1013,3 +1013,262 @@ def device_kernels(fn, calls=10):
     return {ev.key: (ev.count / calls, _device_time(ev) / 1e3 / ev.count)
             for ev in _device_events(fn, calls)
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count}
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: the ranks' work of tests/test_torch_parallel.py and of
+# chip_smoke.py's phase 10 (each rank a process of launch(), or the whole
+# run at world size 1 in the calling process)
+
+def dp_cfg(urdf, num_envs=16, horizon=4, mini_epochs=2, iterations=1, compute_dtype="f32",
+           terrain="plane", curriculum=True, seed=0):
+    """main_path_cfg cut to a data-parallel check, with the command
+    curriculum on (T1.yaml has it off) so that its draws and its
+    all-reduce run; trimesh is a small field of 2 tiles of 4 m x 4 m."""
+    cfg = main_path_cfg(urdf)
+    cfg["env"]["num_envs"] = num_envs
+    cfg["terrain"]["type"] = terrain
+    if terrain == "trimesh":
+        cfg["terrain"].update(num_terrains=2, terrain_width=4.0, terrain_length=4.0,
+                              border_size=2.0)
+    cfg["runner"].update(horizon_length=horizon, mini_epochs=mini_epochs, save_interval=1)
+    cfg["algorithm"]["compute_dtype"] = compute_dtype
+    cfg["commands"]["curriculum"] = curriculum
+    cfg["basic"].update(max_iterations=iterations, seed=seed)
+    return cfg
+
+
+def restored_pieces(runner, ts, saved):
+    """{piece: restored bitwise} for every piece of a port checkpoint that
+    runner._init_state() gave back as (runner, ts)."""
+    import torch
+
+    sd = runner.ppo.network.state_dict()
+    same = lambda a, b: torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
+    return {
+        "params": sorted(sd) == sorted(saved["params"])
+        and all(same(sd[k], v) for k, v in saved["params"].items()),
+        "m": same(ts.opt.m, saved["adam_m"]), "v": same(ts.opt.v, saved["adam_v"]),
+        "count": ts.opt.count == saved["adam_count"],
+        "lr": same(ts.lr, torch.tensor(saved["lr"], dtype=torch.float32)),
+        "iteration": ts.iteration == saved["iteration"],
+        "curriculum": same(ts.env_state.curriculum_prob, saved["curriculum"]),
+        "generator": same(runner.gen.get_state(), saved["gen_state"])}
+
+
+def _timed_group(group):
+    """`group` whose all_reduce calls are logged as (numel, op, start, end):
+    CUDA events on a card, host clock readings on the CPU."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from booster_gym_torch.parallel import Group
+
+    @dataclasses.dataclass(frozen=True)
+    class TimedGroup(Group):
+        log: list = dataclasses.field(default_factory=list)
+
+        def all_reduce(self, x, op="sum"):
+            cuda = self.device.type == "cuda"
+            mark = (lambda: torch.cuda.Event(enable_timing=True)) if cuda else time.perf_counter
+            start = mark()
+            if cuda:
+                start.record()
+            out = super().all_reduce(x, op)
+            end = mark()
+            if cuda:
+                end.record()
+            self.log.append((x.numel(), op, start, end))
+            return out
+
+    return TimedGroup(**{f.name: getattr(group, f.name) for f in dataclasses.fields(group)})
+
+
+def _log_ms(log):
+    import torch
+
+    out = []
+    for numel, op, start, end in log:
+        if isinstance(start, torch.cuda.Event):
+            end.synchronize()
+            out.append((numel, op, start.elapsed_time(end)))
+        else:
+            out.append((numel, op, 1e3 * (end - start)))
+    return out
+
+
+def _rank_group(cfg, device):
+    """The rank's Group, as the runner builds it; on the CPU the rank runs
+    one thread (the checks' batches are small, and the ranks share the host
+    with whatever else runs there)."""
+    import torch
+
+    from booster_gym_torch.runner import build_group, resolve_device
+
+    group = build_group(cfg, resolve_device(device))
+    if group.device.type == "cpu":
+        torch.set_num_threads(1)
+    return group
+
+
+def curriculum_check(env):
+    """The curriculum grid after one _update_curriculum on a made-up state:
+    every third env of the global batch resets after a success at a level
+    that follows its global index, on a grid that starts below the clamp."""
+    import torch
+
+    g, dev = env.group, env.device
+    B = env.global_envs
+    i = torch.arange(B, device=dev)
+    levels = torch.stack([i % 3 - 1, (i // 3) % 3 - 1], dim=-1)
+    state = env._zero_state()
+    state = state.replace(episode_length=torch.full_like(state.episode_length, 10_000),
+                          env_curriculum_level=g.rows(levels),
+                          curriculum_prob=torch.full_like(state.curriculum_prob, 0.25))
+    mask = g.rows(i % 3 == 0)
+    return env._update_curriculum(state, mask).cpu()
+
+
+def probe_collectives(group):
+    """{collective: "ok", or the error it raised, or what it got wrong} for
+    each of Group's collectives on a tensor of the group's device: sum and
+    max all-reduce, all-gather, broadcast, barrier."""
+    import torch
+
+    r = group.rank + 1.0
+    x = lambda: torch.tensor([r, -r], device=group.device)
+    ranks = torch.arange(1.0, group.world + 1.0)
+    checks = {
+        "all_reduce sum": (lambda: group.all_reduce(x()),
+                           lambda y: y.tolist() == [ranks.sum().item(), -ranks.sum().item()]),
+        "all_reduce max": (lambda: group.all_reduce(x(), op="max"),
+                           lambda y: y.tolist() == [float(group.world), -1.0]),
+        "all_gather": (lambda: group.all_gather(x()),
+                       lambda y: y.tolist() == [v for k in ranks.tolist() for v in (k, -k)]),
+        "broadcast": (lambda: group.broadcast(x()), lambda y: y.tolist() == [1.0, -1.0]),
+        "barrier": (lambda: group.barrier(), lambda y: True)}
+    out = {}
+    for name, (run, ok) in checks.items():
+        try:
+            y = run()
+            out[name] = "ok" if ok(None if y is None else y.cpu()) else f"wrong: {y.tolist()}"
+        except Exception as e:      # reported by the caller, which fails on it
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def dp_train(spec, out_dir):
+    """One rank's training run of a data-parallel check: Runner(spec["cfg"],
+    spec["device"]) trains in out_dir (rank 0 writes logs/ there), then the
+    rank's results go to out_dir/rank<r>.pt: the records; after each
+    iteration the parameters, Adam m, v and count, and lr; the first
+    iteration's rollout buffers (obs, priv, act, mu, std, rew, done,
+    time_outs) on the CPU; the curriculum_check grid; the all-reduce calls
+    of each iteration as (numel, op, ms); under spec["probe"] the
+    probe_collectives of the group before training; and under
+    spec["resume"] (a checkpoint path) restored_pieces of a second Runner
+    resumed from it on the same group."""
+    import copy
+
+    import torch
+
+    from booster_gym_torch.algo.ppo import flat_params
+    from booster_gym_torch.runner import Runner
+    from booster_gym_torch.utils.recorder import load_checkpoint
+
+    os.chdir(out_dir)
+    cfg = copy.deepcopy(spec["cfg"])
+    group = _timed_group(_rank_group(cfg, spec["device"]))
+    runner = Runner(cfg, device=spec["device"], group=group)
+    ppo, net = runner.ppo, runner.ppo.network
+    res = {"rank": group.rank, "world": group.world, "snaps": [], "reduce": [], "buffers": None}
+    rollout, iteration = ppo.rollout, runner._iteration
+
+    def first_rollout(*args):
+        carry, buf = rollout(*args)
+        if res["buffers"] is None:
+            res["buffers"] = [b.cpu() for b in buf]
+        return carry, buf
+
+    def each_iteration(*args):
+        group.log.clear()
+        ts, rec = iteration(*args)
+        res["snaps"].append({"p": flat_params(net).cpu(), "m": ts.opt.m.cpu(),
+                             "v": ts.opt.v.cpu(), "count": ts.opt.count, "lr": ts.lr.cpu()})
+        res["reduce"].append(_log_ms(group.log))
+        return ts, rec
+
+    if spec.get("probe"):
+        res["collectives"] = probe_collectives(group)
+    ppo.rollout, runner._iteration = first_rollout, each_iteration
+    res["records"] = runner.train()
+    res["curriculum"] = curriculum_check(runner.env) if cfg["commands"]["curriculum"] else None
+    res["n_params"] = ppo.fused.n_params
+    if spec.get("resume"):
+        rcfg = copy.deepcopy(cfg)
+        rcfg["basic"]["checkpoint"] = spec["resume"]
+        resumed = Runner(rcfg, device=spec["device"], group=group)
+        _, ts = resumed._init_state()
+        res["restored"] = restored_pieces(resumed, ts, load_checkpoint(spec["resume"]))
+    torch.save(res, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+def dp_bank(spec, out_dir):
+    """One rank's fallen-state bank of the standup task (spec["cfg"] on
+    spec["device"], the generator seeded with the config's seed), saved as
+    out_dir/rank<r>.pt: {field: [global batch, ...] on the CPU}."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from booster_gym_torch.envs import make_task
+
+    cfg = copy.deepcopy(spec["cfg"])
+    group = _rank_group(cfg, spec["device"])
+    env = make_task(cfg, group.device, group)
+    gen = torch.Generator(device=group.device).manual_seed(cfg["basic"]["seed"])
+    bank = env.init_params(gen).init_bank
+    torch.save({f.name: getattr(bank, f.name).cpu() for f in dataclasses.fields(bank)},
+               os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+def dp_update(spec, out_dir):
+    """One rank's PPO.update on its rows of fixed rollout buffers:
+    spec["inputs"] is a pickle of host trees (flax params, Adam m0 and v0
+    trees, lr0, count0, and the buffers (obs, priv, act, mu, std, rew, done,
+    time_outs) [T, B, ...] with obs_last, priv_last [B, ...]), spec["cfg"]
+    the task config (its update_backend and mini_epochs).  Saved as
+    out_dir/rank<r>.pt: the flat parameters, Adam m, v and count, lr and the
+    per-epoch stats after the update."""
+    import copy
+    import pickle
+    import types
+
+    import torch
+
+    from booster_gym_torch.algo.ppo import PPO, OptState, flat_params
+    from booster_gym_torch.convert import flat_from_flax, params_from_flax
+
+    with open(spec["inputs"], "rb") as f:
+        d = pickle.load(f)
+    cfg = copy.deepcopy(spec["cfg"])
+    buf = [torch.as_tensor(x) for x in d["buf"]]
+    T, B = buf[0].shape[:2]
+    cfg["env"]["num_envs"] = B
+    group = _rank_group(cfg, spec["device"])
+    rows = slice(group.lo, group.hi)
+    env = types.SimpleNamespace(num_actions=buf[2].shape[-1], num_obs=buf[0].shape[-1],
+                                num_privileged_obs=buf[1].shape[-1], group=group)
+    ppo = PPO(env, cfg, group.device)
+    net = ppo.network
+    net.load_state_dict(params_from_flax(d["params"]))
+    ts = types.SimpleNamespace(opt=OptState(m=flat_from_flax(net, d["m0"]),
+                                            v=flat_from_flax(net, d["v0"]), count=d["count0"]),
+                               lr=torch.tensor(d["lr0"]))
+    last = [torch.as_tensor(d[k])[rows] for k in ("obs_last", "priv_last")]
+    opt, lr, stats = ppo.update(ts, (None, *last), tuple(x[:, rows] for x in buf))
+    torch.save({"p": flat_params(net), "m": opt.m, "v": opt.v, "count": opt.count, "lr": lr,
+                "stats": stats}, os.path.join(out_dir, f"rank{group.rank}.pt"))

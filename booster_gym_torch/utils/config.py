@@ -1,7 +1,7 @@
 """Config loading and CLI overrides (port of
 booster_gym_tpu/utils/config.py plus --device, --asset_file and
---mujoco_file; without
---no_data_parallel: the port trains on one device).
+--mujoco_file).  --no_data_parallel sets basic.data_parallel: false, so
+that training runs in the calling process on one device.
 
 The port reads its own copy of envs/configs/<task>.yaml, and follows its
 algorithm.update_backend (T1.yaml: fused) as the JAX package does.
@@ -37,6 +37,8 @@ def parse_args(argv=None):
     parser.add_argument("--mujoco_file", type=str, help="Robot MJCF, for tasks whose "
                         "contact points come from its collision geoms (asset.collision_source: "
                         "mjcf); the same lookup as --asset_file.")
+    parser.add_argument("--no_data_parallel", action="store_true",
+                        help="Train in this process on one device, not one rank per GPU.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu.")
     return parser.parse_args(argv)
@@ -46,6 +48,8 @@ def build_cfg(args):
     cfg = load_task_cfg(args.task)
     if getattr(args, "profile", None) is not None:
         cfg["basic"]["profile"] = args.profile
+    if getattr(args, "no_data_parallel", False):
+        cfg["basic"]["data_parallel"] = False
     for key in ("checkpoint", "headless", "seed", "max_iterations"):
         val = getattr(args, key, None)
         if val is not None:

@@ -138,7 +138,24 @@ Phases, in order; any failure exits non-zero:
      launches per plan and one per closed-loop step), ms per plan by CUDA
      events, the root held above 0.55 m and the cost finite; 9c K1's time
      per launch at K = 256 beside its bound and at 4096 envs.  There is no
-     MuJoCo phase: the card's machine has no mujoco package.
+     MuJoCo phase: the card's machine has no mujoco package;
+ 10. data parallelism (booster_gym_torch/parallel), two ranks sharing the
+     one card over gloo with CUDA tensors, each started as a process by the
+     launcher of python -m booster_gym_torch.train (NCCL refuses two ranks
+     on one card; NCCL across cards is not run here): 10a the flat path
+     (4096 global envs, horizon 24, 20 mini-epochs, bf16, fused, seed 0), 2
+     iterations at world size 1 in this process and in 2 ranks of 2048
+     envs; each rank must launch K1 24 times and K2, K3 and K4 20 times each
+     per iteration, the ranks' parameters, Adam m/v/count and lr must be
+     bitwise equal after each iteration, the first rollout's buffers held to
+     the world-1 rows at 2e-3 and iteration 1's reward and value loss to
+     the world-1 run's at the CPU test's tolerances; each rank's iteration
+     ms and all-reduce ms per mini-epoch printed (CUDA events; two ranks
+     sharing one card, not a scaling number); 10b the rough path (K5), 2
+     ranks, 1 iteration, launch counts; 10c the world-1 checkpoint resumed
+     by both ranks and the 2-rank rank-0 checkpoint at world size 1, every
+     piece bitwise.  A rank that fails or outlives DP_RANK_TIMEOUT_S fails
+     the phase.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -1056,19 +1073,9 @@ JAX_CKPT = os.path.join(ROOT, "logs", "2026-08-17-04-03-56", "nn", "model_1100.c
 
 def check_restored(label, runner, ts, saved):
     """Every piece of a port checkpoint restored bitwise by _init_state."""
-    import torch
+    from booster_gym_torch.testing import restored_pieces
 
-    sd = runner.ppo.network.state_dict()
-    same = lambda a, b: torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu())
-    checks = {
-        "params": sorted(sd) == sorted(saved["params"])
-        and all(same(sd[k], v) for k, v in saved["params"].items()),
-        "m": same(ts.opt.m, saved["adam_m"]), "v": same(ts.opt.v, saved["adam_v"]),
-        "count": ts.opt.count == saved["adam_count"],
-        "lr": same(ts.lr, torch.tensor(saved["lr"], dtype=torch.float32)),
-        "iteration": ts.iteration == saved["iteration"],
-        "curriculum": same(ts.env_state.curriculum_prob, saved["curriculum"]),
-        "generator": same(runner.gen.get_state(), saved["gen_state"])}
+    checks = restored_pieces(runner, ts, saved)
     log(f"  {label}: restored bitwise {checks}")
     require(all(checks.values()), f"{label}: a piece was not restored bitwise")
 
@@ -1788,6 +1795,179 @@ def mpc_phase(card, urdf):
             "blocks": blocks, "sms": sms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism, two ranks sharing the one card
+DP_RANK_TIMEOUT_S = 600     # a launch whose ranks have not all exited by then fails
+TOL_REWARD_RTOL, TOL_REWARD_ATOL, TOL_VALUE_LOSS_RTOL = 1e-3, 1e-5, 5e-2   # the CPU test's
+
+
+def dp_ranks(spec, out_dir, world=2):
+    """The ranks' results of testing.dp_train launched as `world` ranks by
+    booster_gym_torch.parallel.launch (the launcher of python -m
+    booster_gym_torch.train): each rank a process with torchrun's
+    environment; on one card the ranks share it over gloo.  A rank that
+    fails or outlives DP_RANK_TIMEOUT_S makes launch raise."""
+    import torch
+
+    from booster_gym_torch.parallel import launch
+    from booster_gym_torch.testing import dp_train
+
+    os.makedirs(out_dir, exist_ok=True)
+    launch(dp_train, world, (spec, out_dir), timeout_s=DP_RANK_TIMEOUT_S)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dp_launches(rec):
+    return {"K1/K5": int(rec["substep_kernel_launches"]),
+            "K6+K7 fused": int(rec["fused_sampler_launches"]), "K2": int(rec["gae_launches"]),
+            "K3": int(rec["grads_stats_launches"]), "K4": int(rec["opt_stage_launches"])}
+
+
+def data_parallel_phase(card, urdf):
+    """Phase 10: env-batch data parallelism, two ranks on the one card over
+    gloo with CUDA tensors (NCCL refuses two ranks on one card; NCCL across
+    cards is not run here).  10a the flat path (main_path_cfg: 4096 global
+    envs, horizon 24, 20 mini-epochs, bf16, fused, seed 0), 2 iterations at
+    world size 1 in this process and in 2 ranks of 2048 envs: each rank's
+    launches per iteration, its parameters, Adam m/v/count and lr bitwise
+    equal to the other's after each iteration, the first rollout's buffers
+    held to the world-1 rows, the metrics of iteration 1 to the world-1
+    run's; each rank's iteration ms and all-reduce ms per mini-epoch (CUDA
+    events).  10b the rough path (K5), 2 ranks, 1 iteration, launch counts.
+    10c the world-1 checkpoint resumed by both ranks, and the world-2 rank-0
+    checkpoint at world size 1, every piece bitwise."""
+    import numpy as np
+    import torch
+
+    from booster_gym_torch.parallel import Group
+    from booster_gym_torch.runner import Runner
+    from booster_gym_torch.testing import (
+        dp_train,
+        main_path_cfg,
+        restored_pieces,
+        rough_path_cfg,
+        time_cuda,
+    )
+    from booster_gym_torch.utils.recorder import load_checkpoint
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    cfg = main_path_cfg(urdf)
+    cfg["basic"]["max_iterations"] = 2
+    horizon, epochs = cfg["runner"]["horizon_length"], cfg["runner"]["mini_epochs"]
+    B, na = cfg["env"]["num_envs"], cfg["env"]["num_actions"]
+    want = {"K1/K5": horizon, "K6+K7 fused": 0, "K2": epochs, "K3": epochs, "K4": epochs}
+
+    # -- 10a. world size 1 here, then 2 ranks sharing the card --------------
+    d1, d2 = os.path.join(root, "world1"), os.path.join(root, "world2")
+    os.makedirs(d1)
+    dp_train({"cfg": cfg, "device": "cuda"}, d1)
+    os.chdir(ROOT)
+    one = torch.load(os.path.join(d1, "rank0.pt"), weights_only=False)
+    ckpt1 = glob_one(os.path.join(d1, "logs", "*", "nn", "model_2.pt"))
+    t1 = time.perf_counter()
+    two = dp_ranks({"cfg": cfg, "device": "cuda", "resume": ckpt1, "probe": True}, d2)
+    log(f"10a. 2 ranks x {B // 2} envs on one card over gloo, 2 iterations, launched and "
+        f"joined in {time.perf_counter() - t1:.1f} s (world size 1 in this process: "
+        f"{[round(r['iter_ms'], 2) for r in one['records']]} ms per iteration)")
+    require([r["world"] for r in two] == [2, 2] and one["world"] == 1, "the worlds' sizes")
+    for r in two:
+        log(f"  rank {r['rank']}: gloo's collectives on CUDA tensors {r['collectives']}")
+        require(all(v == "ok" for v in r["collectives"].values()),
+                f"a collective on rank {r['rank']}")
+    n_params = two[0]["n_params"]
+    for r in two:
+        got = [dp_launches(rec) for rec in r["records"]]
+        per_epoch = [sum(ms for numel, op, ms in calls
+                         if op == "sum" and numel in (2, n_params + 4 + na)) / epochs
+                     for calls in r["reduce"]]
+        log(f"  rank {r['rank']} [{card}; two ranks sharing one card, not a scaling number]: "
+            f"iteration {[round(rec['iter_ms'], 2) for rec in r['records']]} ms (rollout "
+            f"{[round(rec['rollout_ms'], 2) for rec in r['records']]}, update "
+            f"{[round(rec['update_ms'], 2) for rec in r['records']]}); all-reduce per "
+            f"mini-epoch (K2's 2 sums + K3's {n_params + 4 + na} floats) "
+            f"{[round(x, 3) for x in per_epoch]} ms by CUDA events; all-reduce calls per "
+            f"iteration {[len(c) for c in r['reduce']]}; launches per iteration {got} "
+            f"(expected {want})")
+        require(got == [want, want], f"rank {r['rank']}'s launches per iteration")
+    for i, (a, b) in enumerate(zip(two[0]["snaps"], two[1]["snaps"])):
+        same = {k: torch.equal(a[k], b[k]) if k != "count" else a[k] == b[k] for k in a}
+        log(f"  after iteration {i + 1}: rank 1's parameters, Adam state and lr against rank "
+            f"0's, bitwise {same}")
+        require(all(same.values()), f"the ranks' state after iteration {i + 1}")
+    names = ("obs", "priv", "act", "mu", "std", "rew", "done", "time_outs")
+    worst, bitwise = {}, True
+    for i, name in enumerate(names):
+        whole = one["buffers"][i].float()
+        for r in two:
+            part = r["buffers"][i].float()
+            lo = r["rank"] * part.shape[1]
+            ref = whole[:, lo:lo + part.shape[1]]
+            worst[name] = max(worst.get(name, 0.0), float((part - ref).abs().max()))
+            bitwise &= torch.equal(part, ref)
+    log(f"  the first rollout's buffers, the ranks' rows against the world-1 run's: max |diff| "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (tol {TOL_ENV}); bitwise "
+        f"{bitwise}")
+    require(max(worst.values()) <= TOL_ENV, "the 2-rank rollout against the world-1 rollout")
+    ra, rb = one["records"][0], two[0]["records"][0]
+    log(f"  iteration 1's metrics: reward {rb['reward']:.6g} against {ra['reward']:.6g}, "
+        f"value_loss {rb['value_loss']:.6g} against {ra['value_loss']:.6g}, kl_mean "
+        f"{rb['kl_mean']:.6g} against {ra['kl_mean']:.6g}")
+    require(np.isclose(rb["reward"], ra["reward"], rtol=TOL_REWARD_RTOL, atol=TOL_REWARD_ATOL)
+            and np.isclose(rb["value_loss"], ra["value_loss"], rtol=TOL_VALUE_LOSS_RTOL),
+            "the 2-rank metrics against the world-1 metrics")
+    timing = ("rollout_ms", "update_ms", "iter_ms", "env_steps_per_sec")
+    require(all({k: v for k, v in x.items() if k not in timing}
+                == {k: v for k, v in y.items() if k not in timing}
+                for x, y in zip(two[0]["records"], two[1]["records"])),
+            "the ranks' all-reduced metrics")
+    # rule 1's cost: every draw at the global batch, sliced
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    half = Group(B, torch.device("cuda"), world=2, rank=1, backend="gloo")
+    sliced_ms, _ = time_cuda(lambda: half.draw(torch.randn, gen, (B // 2, na)), 200)
+    local_ms, _ = time_cuda(lambda: torch.randn((B // 2, na), generator=gen, device="cuda"), 200)
+    log(f"  a rank's draw of its {B // 2} x {na} action noise [{card}]: {sliced_ms * 1e3:.2f} us "
+        f"at the global batch, sliced, against {local_ms * 1e3:.2f} us for its own rows alone")
+
+    # -- 10b. the rough path, 2 ranks, 1 iteration ------------------------------
+    rcfg = rough_path_cfg(urdf)
+    rcfg["basic"]["max_iterations"] = 1
+    rough = dp_ranks({"cfg": rcfg, "device": "cuda"}, os.path.join(root, "rough"))
+    want_rough = {**want, "K6+K7 fused": horizon}
+    for r in rough:
+        got = dp_launches(r["records"][0])
+        log(f"10b. rough path, rank {r['rank']} of 2 [{card}]: iteration "
+            f"{r['records'][0]['iter_ms']:.2f} ms; launches {got} (expected {want_rough})")
+        require(got == want_rough, f"rank {r['rank']}'s launches on the rough path")
+
+    # -- 10c. resume across world sizes ---------------------------------------
+    for r in two:
+        log(f"10c. the world-1 checkpoint resumed on rank {r['rank']} of 2: restored bitwise "
+            f"{r['restored']}")
+        require(all(r["restored"].values()), "a piece of the world-1 checkpoint on 2 ranks")
+    ckpt2 = glob_one(os.path.join(d2, "logs", "*", "nn", "model_2.pt"))
+    rcfg = main_path_cfg(urdf)
+    rcfg["basic"]["checkpoint"] = ckpt2
+    resumed = Runner(rcfg, device="cuda")
+    _, ts = resumed._init_state()
+    pieces = restored_pieces(resumed, ts, load_checkpoint(ckpt2))
+    log(f"10c. the 2-rank run's rank-0 checkpoint at world size 1: restored bitwise {pieces}")
+    require(all(pieces.values()), "a piece of the 2-rank checkpoint at world size 1")
+    os.chdir(ROOT)
+    log(f"10. phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
+def glob_one(pattern):
+    import glob
+
+    found = glob.glob(pattern)
+    require(len(found) == 1, f"one file for {pattern}, found {found}")
+    return found[0]
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "booster_gym_torch")):
         print("chip_smoke.py: the booster_gym_torch package is not beside this script",
@@ -2257,6 +2437,9 @@ def main():
 
     # -- 9. the sampling MPC -----------------------------------------------------
     line["kernels"].append(mpc_phase(card, urdf))
+
+    # -- 10. data parallelism: two ranks sharing the card ---------------------
+    data_parallel_phase(card, urdf)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

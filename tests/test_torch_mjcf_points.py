@@ -256,3 +256,4 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     bad = [f"{path}:{i}" for path in files
            for i, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]
     assert len(files) > 30 and not bad, bad
+    assert os.path.join(root, "booster_gym_torch", "parallel", "mesh.py") in files

@@ -108,12 +108,54 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'booster_gym_tpu'))\n"
-        "print(len([n for n in sys.modules if n.startswith('booster_gym_torch')]), bad)\n")
+        "print(len([n for n in sys.modules if n.startswith('booster_gym_torch')]), bad)\n"
+        "print(sorted(n for n in sys.modules if n.startswith('booster_gym_torch')), "
+        "file=sys.stderr)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
+    assert "booster_gym_torch.parallel.mesh" in out.stderr, out.stderr   # the walk reached it
+
+
+@pytest.mark.parametrize("no_data_parallel", [False, True])
+def test_no_data_parallel_trains_in_the_calling_process(tmp_path, monkeypatch, capsys,
+                                                       no_data_parallel):
+    """Where the machine has several cards the CLI starts one rank per card
+    through the launcher, as the JAX train.py uses the whole slice;
+    --no_data_parallel sets basic.data_parallel: false and trains in the
+    calling process.  (Four cards stood in by monkeypatching; no rank is
+    started.)"""
+    from booster_gym_torch import train as port_train
+    from booster_gym_torch.parallel.mesh import _DIST_ENV_SIGNALS
+
+    for k in _DIST_ENV_SIGNALS:
+        monkeypatch.delenv(k, raising=False)
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(port_train, "train", lambda cfg, device: calls.append(("here", cfg)))
+    monkeypatch.setattr(port_train, "launch", lambda fn, world, args, **kw: calls.append(
+        ("launch", world, fn, args)))
+    argv = ["--task=T1", "--terrain=plane", "--num_envs", "8",
+            "--asset_file", write_t1_shaped_urdf(tmp_path)]
+    argv += ["--no_data_parallel"] if no_data_parallel else []
+    port_train.main(argv)
+    if no_data_parallel:
+        ((where, cfg),) = calls
+        assert where == "here" and cfg["basic"]["data_parallel"] is False
+        assert "data-parallel" not in capsys.readouterr().out
+    else:
+        ((where, world, fn, (cfg, device)),) = calls
+        assert (where, world, fn, device) == ("launch", 4, port_train.train, "cuda")
+        assert cfg["basic"].get("data_parallel", True) is True
+        assert "data-parallel: 4 devices x 2 envs/device" in capsys.readouterr().out
+    # --device cpu trains here whatever the cards
+    calls.clear()
+    port_train.main(argv[:-1] + ["--device", "cpu"] if no_data_parallel
+                    else argv + ["--device", "cpu"])
+    assert [c[0] for c in calls] == ["here"]
 
 
 def _cfg(tmp_path, *extra):
