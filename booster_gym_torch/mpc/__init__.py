@@ -1,3 +1,3 @@
-from booster_gym_torch.mpc.sampling import SamplingMPC, standup_cost, tile
+from booster_gym_torch.mpc.sampling import SamplingMPC, flat_ground, standup_cost, tile
 
-__all__ = ["SamplingMPC", "standup_cost", "tile"]
+__all__ = ["SamplingMPC", "flat_ground", "standup_cost", "tile"]

@@ -6,19 +6,24 @@ batched physics the trainer uses, scores them with a task cost, and takes
 the exponentially weighted mean.  The K samples are K envs of one batch.
 
 On the env's kernel backend each control step of the rollout is one call
-of physics/substep_kernel.py's control_step: one launch of K1 on the card
-for all K samples, its plain version (the decimation loop around the
-plain substep) on the CPU.  The call has no delay (the new targets act
-from substep 0), no joint friction and no push, and the env's base gains,
-so it computes clip(kp (targets - q) - kd qd, +-torque_limits) per
-substep, as the JAX planner's rollout does.  The state stays in the
+of physics/substep_kernel.py's control_step: one launch of K1 (K5 on a
+trimesh env) on the card for all K samples, its plain version (the
+decimation loop around the plain substep) on the CPU.  The call has no
+delay (the new targets act from substep 0), no joint friction and no push,
+and the env's base gains, so it computes clip(kp (targets - q) - kd qd,
++-torque_limits) per substep, as the JAX planner's rollout does.  The state stays in the
 kernel's packed [nstate, K] layout across the horizon; the cost reads it
 through views.  Under sim.backend: xla the rollout is the decimation loop
 around the eager engine, as the env's own loop is there.
 
-The kernel path is plane only: on trimesh the kernel (K5) needs the
-terrain under the contact points at every control step, which this
-rollout does not sample, so a trimesh env on its kernel backend raises.
+On a trimesh env the kernel is K5, and the rollout plans as the JAX
+planner does on its Pallas backend: there env.substep is the plane=False
+kernel's plane-signature step, which passes h = 0 and n = +z at every
+contact point, every substep (flat_ground).  So the kernel backend plans a
+trimesh env on flat ground at z = 0 and never samples the field; on the
+card that plan is the plane env's K1 plan, bitwise.  Under sim.backend:
+xla the engine queries the field in every substep, as the JAX XLA engine
+does.
 """
 
 import functools
@@ -35,6 +40,15 @@ def tile(state1, dyn1, K):
     rep = lambda obj: type(obj)(**{k: v.expand(K, *v.shape[1:]).contiguous()
                                    for k, v in vars(obj).items()})
     return rep(state1), rep(dyn1)
+
+
+def flat_ground(npt, K, device):
+    """K5's terrain inputs for K samples on flat ground at z = 0: heights
+    ph [npt, K] all 0 and normals pn [3 npt, K] +z at every point (row
+    3 p + 2 is 1), the JAX plane=False kernel's plane-signature step."""
+    pn = torch.zeros((npt, 3, K), device=device)
+    pn[:, 2] = 1.0
+    return torch.zeros((npt, K), device=device), pn.reshape(3 * npt, K)
 
 
 def standup_cost(state: SimState, default_dof_pos, target_height=0.68):
@@ -72,27 +86,28 @@ class SamplingMPC:
         self.decimation = decimation or env.decimation
         self.cost_fn = cost_fn or functools.partial(
             standup_cost, default_dof_pos=env.default_dof_pos)
-        sub = env.substep
-        if sub is not None and not sub.plane:
-            raise ValueError(
-                "SamplingMPC on trimesh needs sim.backend: xla: the kernel's rollout runs on "
-                "the plane only (K5 would need the terrain under the contact points at every "
-                "control step)")
         nd = self.model.num_dofs
         self._mean = torch.zeros((horizon, nd), device=self.device)
+        self._ground = {}
 
     # -- rollout -----------------------------------------------------------
     def rollout_inputs(self, K):
         """The control step's inputs that the rollout holds fixed, in
         control_step's order after the targets and latched targets: no
         delay, the base gains for every sample, no joint friction, the
-        torque limits, no push."""
+        torque limits, no push; on K5 then flat_ground's heights and
+        normals, made once per K."""
         env, nd = self.env, self.model.num_dofs
-        return (torch.zeros(K, dtype=torch.int64, device=self.device),
-                env.base_stiffness.expand(K, nd).contiguous(),
-                env.base_damping.expand(K, nd).contiguous(),
-                torch.zeros((K, nd), device=self.device), env.torque_limits,
-                torch.zeros((K, 6), device=self.device))
+        fixed = (torch.zeros(K, dtype=torch.int64, device=self.device),
+                 env.base_stiffness.expand(K, nd).contiguous(),
+                 env.base_damping.expand(K, nd).contiguous(),
+                 torch.zeros((K, nd), device=self.device), env.torque_limits,
+                 torch.zeros((K, 6), device=self.device))
+        if env.substep is None or env.substep.plane:
+            return fixed
+        if K not in self._ground:
+            self._ground[K] = flat_ground(self.model.num_points, K, self.device)
+        return fixed + self._ground[K]
 
     def _rollout(self, dyn_k, state_k, target_seq):
         """Roll the K samples through the physics for the horizon.

@@ -13,6 +13,7 @@ this process is one rank of it and trains its slice of the env batch
 alone writes the run's directory, records and checkpoints, and every rank
 waits for each save; on resume every rank loads the same checkpoint.  The
 metrics are the all-reduced ones, the times and launch counts this rank's.
+play runs on the same group, and rank 0 gathers the trajectory.
 """
 
 import os
@@ -272,13 +273,17 @@ class Runner:
 
     @torch.no_grad()
     def play(self, num_steps=None, deterministic=True, timer=None):
-        """Policy rollout from basic.checkpoint (JAX runner.py play), in one
-        process (booster_gym_torch.play sets basic.data_parallel false): the
-        action is the actor's mean, or mean + std * noise from the runner's
-        generator when not deterministic; 10 s of control steps by default.
-        Returns one dict per step of numpy arrays: root_pos, root_quat, q,
-        rew, done.  `timer`, when given, is called as timer("steps") before
-        the first step and timer("end") after the last."""
+        """Policy rollout from basic.checkpoint (JAX runner.py play) on the
+        runner's group, as train runs: each rank steps its rows [lo, hi) of
+        the env batch.  The action is the actor's mean, or mean + std *
+        noise when not deterministic, the noise drawn at the global batch
+        from the runner's generator and sliced (Group.draw); 10 s of
+        control steps by default.  Rank 0 returns one dict per step of
+        numpy arrays over the global batch in env order: root_pos,
+        root_quat, q, rew, done (all-gathered after the last step); the
+        other ranks return None.  `timer`, when given, is called as
+        timer("steps") before the first step and timer("end") after the
+        last, on this rank."""
         env_params, ts = self._init_state()
         state, obs = ts.env_state, ts.obs
         keys = ("root_pos", "root_quat", "q", "rew", "done")
@@ -287,13 +292,26 @@ class Runner:
             timer("steps")
         for _ in range(num_steps or 10 * int(1.0 / self.env.dt)):
             mu, std = self.ppo.network.act(obs)
-            act = mu if deterministic else mu + std * torch.randn(
-                mu.shape, generator=self.gen, device=self.device)
+            act = mu if deterministic else mu + std * self.group.draw(torch.randn, self.gen,
+                                                                      mu.shape)
             state, obs, rew, done, _ = self.env.step(env_params, state, act, self.gen)
             for k, x in zip(keys, (state.sim.root_pos, state.sim.root_quat, state.sim.q,
                                    rew, done)):
                 steps[k].append(x.clone())
         if timer:
             timer("end")
-        arrays = {k: torch.stack(v).cpu().numpy() for k, v in steps.items()}
+        stacked = {k: self._gather_envs(torch.stack(v)) for k, v in steps.items()}
+        if not self.rank0:
+            return None
+        arrays = {k: v.cpu().numpy() for k, v in stacked.items()}
         return [{k: arrays[k][i] for k in keys} for i in range(len(steps["rew"]))]
+
+    def _gather_envs(self, x):
+        """x [T, local envs, ...] -> [T, global envs, ...] in env order, on
+        every rank (all_gather); x itself at world size 1.  bool goes as
+        uint8 (gloo has no bool)."""
+        if self.group.world == 1:
+            return x
+        y = x.transpose(0, 1).contiguous()
+        y = self.group.all_gather(y.to(torch.uint8) if x.dtype == torch.bool else y)
+        return y.to(x.dtype).transpose(0, 1)

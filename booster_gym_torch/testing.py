@@ -495,13 +495,14 @@ def standup_path_cfg(urdf, mjcf, task="T1Standup"):
     return cfg
 
 
-def mpc_path_cfg(urdf):
-    """T1.yaml on the plane with one env, on the T1-shaped stand-in at
-    `urdf`: the sampling MPC's setting (its K samples are the rollout's
-    batch), seed 0."""
+def mpc_path_cfg(urdf, terrain="plane"):
+    """T1.yaml with one env, on the T1-shaped stand-in at `urdf`: the
+    sampling MPC's setting (its K samples are the rollout's batch), seed
+    0; on the plane, or with terrain="trimesh" on T1.yaml's own terrain
+    block (a 900 x 200 field)."""
     cfg = load_task_cfg("T1")
     cfg["env"]["num_envs"] = 1
-    cfg["terrain"]["type"] = "plane"
+    cfg["terrain"]["type"] = terrain
     cfg["asset"]["file"] = urdf
     cfg["basic"]["seed"] = 0
     return cfg
@@ -1212,6 +1213,39 @@ def dp_train(spec, out_dir):
         resumed = Runner(rcfg, device=spec["device"], group=group)
         _, ts = resumed._init_state()
         res["restored"] = restored_pieces(resumed, ts, load_checkpoint(spec["resume"]))
+    torch.save(res, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+def dp_play(spec, out_dir):
+    """One rank's play of a data-parallel check: Runner(spec["cfg"],
+    spec["device"]) on the rank's group plays spec["steps"] steps
+    (deterministic, and with spec["noisy"] a second play with noise),
+    saved as out_dir/rank<r>.pt: the rank and world; "plays", one entry
+    per play of {key: [steps, global envs, ...] numpy} on rank 0 and None
+    on the others; the substep kernel's launches and fused samplings in
+    the first play; and its ms by this rank's timer."""
+    import copy
+
+    import torch
+
+    from booster_gym_torch.runner import Runner, _Timer
+
+    os.chdir(out_dir)
+    cfg = copy.deepcopy(spec["cfg"])
+    group = _rank_group(cfg, spec["device"])
+    runner = Runner(cfg, device=spec["device"], group=group)
+    sub = runner.env.substep
+    counts = lambda: (0, 0) if sub is None else (sub.launches, sub.fused_sampler_launches)
+    res = {"rank": group.rank, "world": group.world, "plays": []}
+    for deterministic in (True, False)[:1 + bool(spec.get("noisy"))]:
+        n0 = counts()
+        timer = _Timer(runner.device)
+        traj = runner.play(num_steps=spec["steps"], deterministic=deterministic, timer=timer)
+        if deterministic:
+            res["ms"] = timer.ms("steps", "end")
+            res["launches"], res["fused"] = (a - b for a, b in zip(counts(), n0))
+        res["plays"].append(None if traj is None else
+                            {k: np.stack([t[k] for t in traj]) for k in traj[0]})
     torch.save(res, os.path.join(out_dir, f"rank{group.rank}.pt"))
 
 

@@ -137,8 +137,17 @@ Phases, in order; any failure exits non-zero:
      9b 25 plans of closed-loop control (K1's count zeroed before: 16
      launches per plan and one per closed-loop step), ms per plan by CUDA
      events, the root held above 0.55 m and the cost finite; 9c K1's time
-     per launch at K = 256 beside its bound and at 4096 envs.  There is no
-     MuJoCo phase: the card's machine has no mujoco package;
+     per launch at K = 256 beside its bound and at 4096 envs; 9d the same
+     planner on the rough path's env (T1.yaml's trimesh terrain, one env),
+     whose rollout is K5 on flat ground (h = 0, n = +z at every point, no
+     terrain sampled: the JAX planner's semantics on its Pallas backend):
+     the rollout held step by step as in 9a, one plan from 9a's start and
+     noise bitwise equal to 9a's K1 plan (targets, new mean, info) with 16
+     K5 launches and no fused sampling, the closed loop of 9b on K5 (counts
+     zeroed before it) giving 9b's targets at every plan bitwise, ms per
+     plan by CUDA events, and K5's time per launch at K = 256 beside 4096
+     envs, its bound and its plain time.  There is no MuJoCo phase: the
+     card's machine has no mujoco package;
  10. data parallelism (booster_gym_torch/parallel), two ranks sharing the
      one card over gloo with CUDA tensors, each started as a process by the
      launcher of python -m booster_gym_torch.train (NCCL refuses two ranks
@@ -154,8 +163,21 @@ Phases, in order; any failure exits non-zero:
      sharing one card, not a scaling number); 10b the rough path (K5), 2
      ranks, 1 iteration, launch counts; 10c the world-1 checkpoint resumed
      by both ranks and the 2-rank rank-0 checkpoint at world size 1, every
-     piece bitwise.  A rank that fails or outlives DP_RANK_TIMEOUT_S fails
-     the phase.
+     piece bitwise; 10d play over ranks: the JAX run's model_1100.ckpt
+     played 100 steps on the flat path at 4096 global envs at world size 1
+     and in 2 ranks sharing the card (launch, gloo), rank 0's gathered
+     trajectory bitwise the world-1 play, rank 1's None, one K1 launch per
+     rank and step, each rank's steps/s; then 20 steps of the rough path in
+     2 ranks, one K5 launch per step, each sampling the terrain in its
+     epilogue.  A rank that fails or outlives DP_RANK_TIMEOUT_S fails the
+     phase;
+ 11. the port's deploy stack, a CPU phase (the robot's runtime runs on the
+     CPU by design): the JAX run's actor exported by
+     booster_gym_torch.export drives python -m
+     booster_gym_torch.deploy.main --mock --seconds 2 in a subprocess whose
+     imports of jax and booster_gym_tpu raise; exit 0, the `mock run done`
+     line, a nonzero leg target and neither module loaded are required;
+     whether the native publisher built (g++) is printed.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -257,31 +279,32 @@ def substep_bytes(kernel):
     return 4 * (reads + writes)
 
 
-def control_bytes(kernel):
+def control_bytes(kernel, sampled=True):
     """Bytes a control step must move per env: the state read once and
     written once, dyn, the targets, latched targets, gains and joint
     friction read, the latched targets and the torque sum written, the
     delay (int64) and the push read, the last substep's forces and feet
     written; K5 also reads h and n and writes the points' xy; the epilogue
-    writes the foot edge points and, on K5 with its terrain, the queries'
-    heights and normals.  The torque limits, the edge offsets and the field
-    are shared (the caller adds the field once)."""
+    writes the foot edge points and, on K5 with its terrain and `sampled`
+    (the call passes the field), the queries' heights and normals.  The
+    torque limits, the edge offsets and the field are shared (the caller
+    adds the field once)."""
     reads = kernel.nstate + kernel.ndyn + 5 * kernel.nd + 2 + 6
     writes = kernel.nstate + 2 * kernel.nd + 3 * kernel.nb + 12 * kernel.nf
     writes += 3 * kernel.nf * kernel.ne
     if not kernel.plane:
         reads, writes = reads + 4 * kernel.npt, writes + 2 * kernel.npt
-        if kernel.sampler is not None:
+        if kernel.sampler is not None and sampled:
             writes += 4 * kernel.nq
     return 4 * (reads + writes)
 
 
-def epilogue_op_count(kernel):
+def epilogue_op_count(kernel, sampled=True):
     """f32 operations of the control step's epilogue for one env: 6 per
-    edge coordinate; K5 with its terrain also ~50 per sampled query (the
-    standalone sampler's count)."""
+    edge coordinate; K5 with its terrain and `sampled` also ~50 per sampled
+    query (the standalone sampler's count)."""
     ops = 18 * kernel.nf * kernel.ne
-    if kernel.sampler is not None:
+    if kernel.sampler is not None and sampled:
         ops += 50 * kernel.nq
     return ops
 
@@ -1711,6 +1734,7 @@ def mpc_phase(card, urdf):
     # the same)
     mean0 = mpc._mean.clone()
     targets, info = mpc.plan(sim, dyn1, noise=noise)
+    k1_plan = (targets, mpc._mean.clone(), info)
     costs, deltas = held["costs"], held["deltas"]
     total = costs.sum(0)
     w = torch.softmax(-(total - total.min()) / mpc.temperature, dim=0)
@@ -1728,10 +1752,11 @@ def mpc_phase(card, urdf):
     require(all(same.values()), f"the plan's weighting from the kernel's costs: {same}")
 
     # -- 9b. the closed loop -------------------------------------------------
+    sim0 = sim
     mpc.reset()
     gen = torch.Generator("cuda").manual_seed(42)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    plan_ms, host_ms, per_plan = [], [], []
+    plan_ms, host_ms, per_plan, loop_targets = [], [], [], []
     torch.cuda.synchronize()
     sub.launches = 0
     for _ in range(MPC_PLANS):
@@ -1745,6 +1770,7 @@ def mpc_phase(card, urdf):
         host_ms.append(1e3 * (time.perf_counter() - t))
         plan_ms.append(start.elapsed_time(end))
         per_plan.append(sub.launches - n0)
+        loop_targets.append(targets)
         sim = mpc._rollout(dyn1, sim, targets[None, None])[0]
     launches = sub.launches
     height = float(sim.root_pos[0, 2])
@@ -1784,15 +1810,137 @@ def mpc_phase(card, urdf):
         f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32), "
         f"{ms / bound_ms:.0f}x the bound; per plan {H} launches, {H * ms:.3f} ms of K1 of the "
         f"plan's {steady[len(steady) // 2]:.3f} ms")
+    k1_entry = {"name": "K1 substep (plane), the sampling MPC's rollout (K = 256 samples), one "
+                        "control step per launch",
+                "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
+                "replaces": "booster_gym_tpu/physics/pallas_engine.py:267", "launches": launches,
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None, "launches_per_plan": H,
+                "plan_ms": steady[len(steady) // 2], "ms_at_4096": sum(runs[4096]) / 2,
+                "blocks": blocks, "sms": sms}
+    k5_entry = mpc_rough_phase(card, urdf, sim0, dyn1, noise, k1_plan, loop_targets)
     log(f"9. phase 9 took {time.perf_counter() - t0:.1f} s")
-    return {"name": "K1 substep (plane), the sampling MPC's rollout (K = 256 samples), one "
-                    "control step per launch",
+    return [k1_entry, k5_entry]
+
+
+def mpc_rough_phase(card, urdf, sim, dyn1, noise, k1_plan, k1_loop):
+    """Phase 9d: the MPC on the rough path's env (T1.yaml's trimesh
+    terrain, one env), whose rollout is K5 on flat ground (h = 0, n = +z at
+    every point, no terrain sampled: the JAX planner's semantics on its
+    Pallas backend).  From phase 9's start and noise one plan must equal
+    9a's K1 plan bitwise (targets, new mean, info), with 16 K5 launches and
+    no fused sampling, after the rollout is held step by step to
+    control_step_plain as 9a holds K1's; the closed loop of 9b from the
+    same generator seed must give 9b's targets at every plan, bitwise
+    (counts zeroed before it); then K5's time per launch at K = 256 beside
+    4096 envs, its bound and its plain time.  Returns the `K5 (MPC)`
+    kernels entry."""
+    import math
+
+    import torch
+
+    from booster_gym_torch.envs.t1 import T1
+    from booster_gym_torch.mpc import SamplingMPC, tile
+    from booster_gym_torch.testing import bound, hold_mpc_rollout, mpc_path_cfg, time_cuda
+
+    t0 = time.perf_counter()
+    env = T1(mpc_path_cfg(urdf, terrain="trimesh"), "cuda")
+    mpc = SamplingMPC(env)
+    sub, model = env.substep, env.model
+    K, H = mpc.num_samples, mpc.horizon
+    require((K, H) == (256, 16) and not sub.plane and sub.sampler is not None,
+            "the MPC on the rough path's env: K = 256, H = 16, on K5 built with its terrain")
+    field = tuple(env.terrain.height_field.shape)
+
+    # -- 9d. one plan from 9a's inputs ----------------------------------------
+    held = hold_mpc_rollout(mpc, sim, dyn1, noise, tol=TOL_STATE)
+    chaotic = held["chaotic"].sum(1).tolist()
+    flipped = held["flipped"].sum(1).tolist()
+    cost_err = torch.where(held["chaotic"] | held["flipped"], 0.0,
+                           (held["costs"] - held["plain_costs"]).abs()).amax(1).tolist()
+    max_err = max(max(held["state_err"]), max(cost_err))
+    log(f"9d. the MPC on the rough path's env (field {field}), K5 on flat ground: its rollout "
+        f"held step by step to control_step_plain, max abs err {max_err:.3e} (tol {TOL_STATE}); "
+        f"chaotic samples per step {chaotic}, flipped {flipped}")
+    require(held["finite_same"], "K5's MPC rollout is not finite where the plain one is")
+    require(not any(held["over"]), "K5's MPC rollout disagrees with control_step_plain, and no "
+            "perturbed plain step reaches its outcome")
+    require(max(chaotic) <= K // 100, f"more than 1% of the MPC's samples chaotic: {chaotic}")
+    sub.launches = sub.fused_sampler_launches = 0
+    targets, info = mpc.plan(sim, dyn1, noise=noise)
+    torch.cuda.synchronize()
+    got = {"K5": sub.launches, "fused sampling": sub.fused_sampler_launches}
+    t1, mean1, info1 = k1_plan
+    same = {"targets": torch.equal(targets, t1), "mean": torch.equal(mpc._mean, mean1),
+            **{k: torch.equal(v, info1[k]) for k, v in info.items()}}
+    log(f"9d. one plan from 9a's start and noise [{card}]: against 9a's K1 plan, bitwise {same}; "
+        f"launches {got} (expected K5 {H}, fused sampling 0); best cost "
+        f"{float(info['best_cost']):.5f}")
+    require(all(same.values()), f"the trimesh env's plan against the plane env's K1 plan: {same}")
+    require(got == {"K5": H, "fused sampling": 0}, f"the plan's launches: {got}")
+
+    # -- the closed loop of 9b on K5 ------------------------------------------
+    mpc.reset()
+    gen = torch.Generator("cuda").manual_seed(42)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plan_ms, per_plan, loop_same = [], [], []
+    torch.cuda.synchronize()
+    sub.launches = sub.fused_sampler_launches = 0
+    for k1_targets in k1_loop:
+        n0 = sub.launches
+        start.record()
+        targets, info = mpc.plan(sim, dyn1, gen=gen)
+        end.record()
+        end.synchronize()
+        plan_ms.append(start.elapsed_time(end))
+        per_plan.append(sub.launches - n0)
+        loop_same.append(torch.equal(targets, k1_targets))
+        sim = mpc._rollout(dyn1, sim, targets[None, None])[0]
+    launches, fused = sub.launches, sub.fused_sampler_launches
+    steady = sorted(plan_ms[1:])
+    plan_med = steady[len(steady) // 2]
+    log(f"9d. closed loop, {len(k1_loop)} plans [{card}]: {plan_med:.3f} ms per plan by CUDA "
+        f"events (median of plans 2-{len(k1_loop)}; first {plan_ms[0]:.3f}); K5 launches per "
+        f"plan {sorted(set(per_plan))}, {launches} in the run, fused sampling {fused}; every "
+        f"plan's targets bitwise 9b's K1 targets: {all(loop_same)} ({sum(loop_same)} of "
+        f"{len(loop_same)}); root height {float(sim.root_pos[0, 2]):.4f}")
+    require(per_plan == [H] * len(k1_loop) and launches == len(k1_loop) * (H + 1)
+            and fused == 0, f"K5's launches in the MPC's closed loop: {per_plan}, {launches}, "
+            f"{fused}")
+    require(all(loop_same), "the closed loop on K5 left 9b's K1 targets")
+
+    # -- K5 at the MPC's batch beside 4096 envs ---------------------------------
+    args = {}
+    for B in (K, 4096):
+        state_b, dyn_b = tile(sim, dyn1, B)
+        t_ = (env.default_dof_pos + noise[0, :1]).expand(B, -1).contiguous()
+        args[B] = (sub.pack_sim(state_b), sub.pack_dyn(dyn_b), t_, t_, *mpc.rollout_inputs(B))
+    runs = {K: [], 4096: []}
+    n0 = sub.launches
+    for B in (K, 4096, 4096, K):
+        runs[B].append(time_cuda(lambda: sub.control_step(*args[B], decimation=10), 50)[0])
+    ms = sum(runs[K]) / 2
+    plain_ms, _ = time_cuda(lambda: sub.control_step_plain(*args[K], decimation=10), 3, warmup=1)
+    nbytes = control_bytes(sub, sampled=False) * K
+    nops = (10 * substep_op_count(model, env.sim_cfg, plane=False)
+            + epilogue_op_count(sub, sampled=False)) * K
+    bound_ms, bound_by = bound(nbytes, nops)
+    blocks = math.ceil(K / sub.info()["envs_per_block"])
+    log(f"9d. K5 one control step on flat ground at the MPC's K={K} ({blocks} blocks) [{card}]: "
+        f"{ms * 1e3:.2f} us per launch (runs {[round(x * 1e3, 2) for x in runs[K]]}); at 4096 "
+        f"envs {sum(runs[4096]) / 2 * 1e3:.2f} us ({[round(x * 1e3, 2) for x in runs[4096]]}); "
+        f"plain loop {plain_ms:.2f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} "
+        f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.1f} Mop at 67 TFLOP/s f32), {ms / bound_ms:.0f}x "
+        f"the bound; per plan {H} launches, {H * ms:.3f} ms of K5 of the plan's {plan_med:.3f} "
+        f"ms; timing launches {sub.launches - n0}")
+    log(f"9d. took {time.perf_counter() - t0:.1f} s")
+    return {"name": "K5 (MPC) substep (general terrain) on flat ground, the sampling MPC's "
+                    "rollout on a trimesh env (K = 256 samples), one control step per launch",
             "route": "cuda", "source": "booster_gym_torch/csrc/substep.cu",
             "replaces": "booster_gym_tpu/physics/pallas_engine.py:267", "launches": launches,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "launches_per_plan": H,
-            "plan_ms": steady[len(steady) // 2], "ms_at_4096": sum(runs[4096]) / 2,
-            "blocks": blocks, "sms": sms}
+            "plan_ms": plan_med, "ms_at_4096": sum(runs[4096]) / 2, "blocks": blocks}
 
 
 # ---------------------------------------------------------------------------
@@ -1958,6 +2106,167 @@ def data_parallel_phase(card, urdf):
     require(all(pieces.values()), "a piece of the 2-rank checkpoint at world size 1")
     os.chdir(ROOT)
     log(f"10. phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
+DP_PLAY_STEPS, DP_ROUGH_PLAY_STEPS = 100, 20
+
+
+def dp_play_phase(card, urdf):
+    """Phase 10d: play over ranks.  Phase 7's JAX checkpoint played on the
+    flat path (4096 global envs, DP_PLAY_STEPS steps) at world size 1 in
+    this process and in 2 ranks sharing the card over gloo, started by
+    launch as in phase 10: rank 0's gathered trajectory must equal the
+    world-1 trajectory bitwise, rank 1 returns None, and each rank launches
+    K1 once per step; each rank's steps/s.  Then DP_ROUGH_PLAY_STEPS steps
+    of the rough path in 2 ranks: one K5 launch per step, each sampling the
+    terrain in its epilogue."""
+    import numpy as np
+    import torch
+
+    from booster_gym_torch.parallel import launch
+    from booster_gym_torch.testing import dp_play, main_path_cfg, rough_path_cfg
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_play_")
+
+    def run(cfg_fn, steps, world, name):
+        cfg = cfg_fn(urdf)
+        cfg["basic"]["checkpoint"] = JAX_CKPT
+        spec, out = {"cfg": cfg, "device": "cuda", "steps": steps}, os.path.join(root, name)
+        os.makedirs(out)
+        if world == 1:
+            dp_play(spec, out)
+            os.chdir(ROOT)
+        else:
+            launch(dp_play, world, (spec, out), timeout_s=DP_RANK_TIMEOUT_S)
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    (one,) = run(main_path_cfg, DP_PLAY_STEPS, 1, "world1")
+    t1 = time.perf_counter()
+    two = run(main_path_cfg, DP_PLAY_STEPS, 2, "world2")
+    B = main_path_cfg(urdf)["env"]["num_envs"]
+    log(f"10d. {JAX_CKPT} played {DP_PLAY_STEPS} steps on the flat path at {B} global envs: "
+        f"world size 1 in this process {DP_PLAY_STEPS / (one['ms'] / 1e3):,.1f} steps/s; 2 ranks "
+        f"x {B // 2} envs on one card over gloo, launched and joined in "
+        f"{time.perf_counter() - t1:.1f} s")
+    whole, gathered = one["plays"][0], two[0]["plays"][0]
+    require(two[1]["plays"][0] is None and gathered is not None, "rank 0 alone returns the play")
+    bitwise, worst = True, {}
+    for k, ref in whole.items():
+        got = gathered[k]
+        require(got.shape == ref.shape == (DP_PLAY_STEPS, B, *ref.shape[2:]),
+                f"the gathered {k}'s shape {got.shape}")
+        bitwise &= np.array_equal(got, ref)
+        worst[k] = float(np.abs(got.astype(np.float64) - ref.astype(np.float64)).max())
+    finite = all(np.isfinite(v).all() for v in whole.values())
+    log(f"  rank 0's gathered trajectory against the world-1 play: bitwise {bitwise}; max |diff| "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; finite {finite}; mean reward "
+        f"per step {whole['rew'].mean():.4f} (gathered {gathered['rew'].mean():.4f})")
+    for r in two:
+        log(f"  rank {r['rank']} of 2 [{card}; two ranks sharing one card, not a scaling "
+            f"number]: {DP_PLAY_STEPS / (r['ms'] / 1e3):,.1f} steps/s ({r['ms']:.1f} ms by CUDA "
+            f"events for {B // 2} envs); K1 launches {r['launches']} (expected {DP_PLAY_STEPS}), "
+            f"fused sampling {r['fused']}")
+        require((r["launches"], r["fused"]) == (DP_PLAY_STEPS, 0),
+                f"rank {r['rank']}'s launches in play")
+    require(finite and bitwise, "the 2-rank play against the world-1 play")
+    rough = run(rough_path_cfg, DP_ROUGH_PLAY_STEPS, 2, "rough")
+    for r in rough:
+        log(f"10d. rough path, rank {r['rank']} of 2 [{card}]: {DP_ROUGH_PLAY_STEPS} steps "
+            f"in {r['ms']:.1f} ms; K5 launches {r['launches']}, fused sampling {r['fused']} "
+            f"(expected {DP_ROUGH_PLAY_STEPS} each)")
+        require((r["launches"], r["fused"]) == (DP_ROUGH_PLAY_STEPS, DP_ROUGH_PLAY_STEPS),
+                f"rank {r['rank']}'s launches in the rough play")
+    require(rough[1]["plays"][0] is None and all(
+        np.isfinite(v).all() and v.shape[:2] == (DP_ROUGH_PLAY_STEPS, B)
+        for v in rough[0]["plays"][0].values()), "the rough play's gathered trajectory")
+    log(f"10d. took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the port's deploy stack, on the CPU
+_DEPLOY_MAIN = r"""
+import importlib.util, json, runpy, sys
+specs = {m: importlib.util.find_spec(m) for m in ("jax", "booster_gym_tpu")}
+installed = {m: spec and (spec.origin or str(spec.submodule_search_locations))
+             for m, spec in specs.items()}
+
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "booster_gym_tpu"):
+            raise ImportError(f"{name} cannot be imported here")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+sys.argv = ["booster_gym_torch.deploy.main"] + sys.argv[1:]
+try:
+    runpy.run_module("booster_gym_torch.deploy.main", run_name="__main__")
+finally:
+    loaded = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "booster_gym_tpu"))
+    print("modules: " + json.dumps({"installed": installed, "loaded": loaded}))
+"""
+
+
+def deploy_phase(card):
+    """Phase 11, a CPU phase: the deploy runtime runs on the CPU by design,
+    as on the robot.  The JAX checkpoint's actor exported with
+    booster_gym_torch.export drives `python -m booster_gym_torch.deploy.main
+    --mock --seconds 2` (the port's deploy config with its policy_path
+    pointed at the export) in a subprocess whose imports of jax and
+    booster_gym_tpu raise (whether they are installed there is printed): it
+    must exit 0, print its `mock run done` line with a nonzero leg target,
+    and have loaded neither.  Then whether the native publisher built
+    (g++)."""
+    import subprocess
+
+    import numpy as np
+    import yaml
+
+    from booster_gym_torch import export as port_export
+    from booster_gym_torch.deploy import native
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    policy = port_export.export(JAX_CKPT, output=os.path.join(work, "policy.pt"))
+    with open(os.path.join(ROOT, "booster_gym_torch", "deploy", "configs", "T1.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["policy"]["policy_path"] = policy
+    cfg_path = os.path.join(work, "T1.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    env = {**os.environ, "PYTHONPATH": ROOT, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", _DEPLOY_MAIN, "--mock", "--seconds", "2",
+                          "--config", cfg_path], cwd=work, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = out.stdout.splitlines()
+    done = [ln for ln in lines if ln.startswith("mock run done")]
+    mods = [json.loads(ln[len("modules: "):]) for ln in lines if ln.startswith("modules: ")]
+    legs = ([float(v) for v in done[0].split("leg_target[0:4]=")[1].strip("[] ").split()]
+            if done else [])
+    log(f"11. the port's deploy stack on the CPU (the robot's runtime; no card): python -m "
+        f"booster_gym_torch.deploy.main --mock --seconds 2 on the export of {JAX_CKPT}: exit "
+        f"{out.returncode} in {time.perf_counter() - t0:.1f} s; {done[0] if done else 'no summary'}; "
+        f"installed (found, importing them raises): {mods[0]['installed'] if mods else '?'}, "
+        f"loaded {mods[0]['loaded'] if mods else '?'}")
+    if out.returncode != 0:
+        log(out.stdout[-3000:], out.stderr[-3000:])
+    require(out.returncode == 0 and len(done) == 1, "the deploy stack's mock run")
+    require(any(abs(v) > 1e-3 for v in legs), f"the policy moved no leg target: {legs}")
+    require(len(mods) == 1 and mods[0]["loaded"] == [], f"the deploy run loaded JAX: {mods}")
+    built = native.available()
+    step = None
+    if built:
+        pub = native.NativePublisher(cfg)
+        pub.init_filtered(np.zeros(23, np.float32))
+        pub.set_targets(np.full(23, 0.1, np.float32), np.zeros(23, np.float32))
+        step = [round(float(x), 4) for x in pub.step()[0][:4]]
+    log(f"11. native publisher (g++ on first use, into {os.path.dirname(native._SO)}): built "
+        f"{built}; one step's q[0:4] {step}; [{card}: not used by this phase]")
 
 
 def glob_one(pattern):
@@ -2436,10 +2745,14 @@ def main():
     line["kernels"] += serial_and_standup(card, ctx8, workdir)
 
     # -- 9. the sampling MPC -----------------------------------------------------
-    line["kernels"].append(mpc_phase(card, urdf))
+    line["kernels"] += mpc_phase(card, urdf)
 
     # -- 10. data parallelism: two ranks sharing the card ---------------------
     data_parallel_phase(card, urdf)
+    dp_play_phase(card, urdf)
+
+    # -- 11. the deploy stack, on the CPU ---------------------------------------
+    deploy_phase(card)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

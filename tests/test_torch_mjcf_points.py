@@ -257,3 +257,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
            for i, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]
     assert len(files) > 30 and not bad, bad
     assert os.path.join(root, "booster_gym_torch", "parallel", "mesh.py") in files
+    deploy = os.path.join(root, "booster_gym_torch", "deploy")
+    for name in ("controller.py", "policy.py", "main.py", "sdk.py", "teleop.py",
+                 os.path.join("native", "__init__.py")):
+        assert os.path.join(deploy, name) in files, name

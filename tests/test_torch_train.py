@@ -117,6 +117,8 @@ def test_port_imports_no_jax():
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
     assert "booster_gym_torch.parallel.mesh" in out.stderr, out.stderr   # the walk reached it
+    for name in ("controller", "policy", "main", "native", "teleop_spoofer"):
+        assert f"booster_gym_torch.deploy.{name}" in out.stderr, name    # and the deploy stack
 
 
 @pytest.mark.parametrize("no_data_parallel", [False, True])
