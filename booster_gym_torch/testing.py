@@ -1306,3 +1306,84 @@ def dp_update(spec, out_dir):
     opt, lr, stats = ppo.update(ts, (None, *last), tuple(x[:, rows] for x in buf))
     torch.save({"p": flat_params(net), "m": opt.m, "v": opt.v, "count": opt.count, "lr": lr,
                 "stats": stats}, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+# Learning: the JAX package's tests/test_learning.py on the port, for
+# tests/test_torch_learning.py and chip_smoke.py's phase 12
+
+LEARNING_EARLY = slice(20, 60)   # first episodes finish ~iteration 17 (8 s / 0.02 / 24)
+LEARNING_LATE = slice(-40, None)
+
+
+def learning_cfg(urdf, num_envs=64):
+    """tests/test_learning.py's config on the robot at `urdf`: T1.yaml on
+    flat terrain, horizon 24, 5 mini-epochs, lr 3e-4, 8 s episodes, and a
+    clean learning signal (no observation noise, no kicks or pushes, no
+    randomized initial joints or base velocity, gentle commands)."""
+    cfg = load_task_cfg("T1")
+    cfg["env"]["num_envs"] = num_envs
+    cfg["terrain"]["type"] = "plane"
+    cfg["asset"]["file"] = urdf
+    cfg["runner"]["horizon_length"] = 24
+    cfg["runner"]["mini_epochs"] = 5
+    cfg["rewards"]["episode_length_s"] = 8.0
+    cfg["algorithm"]["learning_rate"] = 3.e-4
+    cfg["noise"] = {}
+    r = cfg["randomization"]
+    r["kick_interval_s"] = 1000.0
+    r["push_interval_s"] = 1000.0
+    r.pop("init_dof_pos", None)
+    r.pop("init_base_lin_vel_xy", None)
+    cfg["commands"]["lin_vel_x"] = [-0.3, 0.5]
+    cfg["commands"]["lin_vel_y"] = [-0.2, 0.2]
+    cfg["commands"]["ang_vel_yaw"] = [-0.3, 0.3]
+    cfg["commands"]["still_proportion"] = 0.2
+    return cfg
+
+
+def learning_rule(rewards, steps):
+    """tests/test_learning.py's rule on per-iteration reward and episode
+    steps: the LATE window's mean reward above max(1.5 x EARLY's, EARLY's
+    + 0.1), and its mean steps above 0.85 x EARLY's.  Returns (ok, early
+    reward, late reward, early steps, late steps)."""
+    rewards, steps = np.asarray(rewards, np.float64), np.asarray(steps, np.float64)
+    early_r, late_r = rewards[LEARNING_EARLY].mean(), rewards[LEARNING_LATE].mean()
+    early_s, late_s = steps[LEARNING_EARLY].mean(), steps[LEARNING_LATE].mean()
+    ok = bool(np.all(np.isfinite(rewards)) and late_r > max(1.5 * early_r, early_r + 0.1)
+              and late_s > 0.85 * early_s)
+    return ok, float(early_r), float(late_r), float(early_s), float(late_s)
+
+
+def learning_check(cfg, iterations, seed, device, every=0, log=print):
+    """Train `cfg` for `iterations` train iterations from PPO.init on a
+    generator seeded with `seed` (the JAX test's PRNGKey(seed)), as
+    tests/test_learning.py does.  Returns (rewards, steps, counts): numpy
+    arrays of the per-iteration metrics, and the env's and update's kernel
+    launches in the run.  With `every`, logs the reward each `every`
+    iterations."""
+    import torch
+
+    from booster_gym_torch.algo.ppo import PPO
+    from booster_gym_torch.envs import make_task
+
+    env = make_task(cfg, device)
+    ppo = PPO(env, cfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    env_params, ts = ppo.init(gen)
+    launches = lambda: (0 if env.substep is None else env.substep.launches,
+                        ppo.fused.gae_launches, ppo.fused.grads_stats_launches,
+                        ppo.fused.opt_stage_launches)
+    start = launches()
+    rewards, steps = [], []
+    for i in range(iterations):
+        ts, m = ppo.train_iteration(env_params, ts, gen)
+        rewards.append(m["reward"])
+        steps.append(m["steps"])
+        if every and (i + 1) % every == 0:
+            log(f"  iteration {i + 1}: reward {float(m['reward']):.4f} "
+                f"steps {float(m['steps']):.1f}")
+    counts = dict(zip(("substep", "gae", "grads_stats", "opt_stage"),
+                      (b - a for a, b in zip(start, launches()))))
+    return (torch.stack(rewards).double().cpu().numpy(),
+            torch.stack(steps).double().cpu().numpy(), counts)

@@ -177,7 +177,15 @@ Phases, in order; any failure exits non-zero:
      booster_gym_torch.deploy.main --mock --seconds 2 in a subprocess whose
      imports of jax and booster_gym_tpu raise; exit 0, the `mock run done`
      line, a nonzero leg target and neither module loaded are required;
-     whether the native publisher built (g++) is printed.
+     whether the native publisher built (g++) is printed;
+ 12. the port learns: tests/test_learning.py's run (testing.learning_cfg:
+     flat terrain, horizon 24, 5 mini-epochs, lr 3e-4, 8 s episodes, a clean
+     signal and gentle commands) on the T1-shaped stand-in at 4096 envs, bf16,
+     the fused update, seed 3, 300 iterations; the curve printed every 15
+     iterations; the JAX test's rule (testing.learning_rule: the last 40
+     iterations' mean reward above max(1.5 x, + 0.1) iterations 21-60's,
+     their mean episode steps above 0.85 x) must hold, through K1 (24
+     launches an iteration) and K2-K4 (5 each); the phase's seconds printed.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -2269,6 +2277,36 @@ def deploy_phase(card):
         f"{built}; one step's q[0:4] {step}; [{card}: not used by this phase]")
 
 
+LEARNING_ENVS, LEARNING_ITERS, LEARNING_SEED = 4096, 300, 3
+
+
+def learning_phase(card, urdf):
+    """Phase 12: the JAX package's learning test at 4096 envs on the card
+    (testing.learning_check), held to its own rule."""
+    import torch
+
+    from booster_gym_torch.testing import learning_cfg, learning_check, learning_rule
+
+    gc.collect()
+    t0 = time.perf_counter()
+    log(f"12. the learning check: testing.learning_cfg on the stand-in, {LEARNING_ENVS} envs, "
+        f"bf16, fused, seed {LEARNING_SEED}, {LEARNING_ITERS} iterations; reward and episode "
+        f"steps every 15 iterations:")
+    rewards, steps, counts = learning_check(learning_cfg(urdf, LEARNING_ENVS), LEARNING_ITERS,
+                                            LEARNING_SEED, "cuda", every=15, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ok, early_r, late_r, early_s, late_s = learning_rule(rewards, steps)
+    log(f"12. reward iterations 21-60 {early_r:.4f} -> last 40 {late_r:.4f} (rule: above "
+        f"{max(1.5 * early_r, early_r + 0.1):.4f}); episode steps {early_s:.1f} -> {late_s:.1f} "
+        f"(rule: above {0.85 * early_s:.1f}); launches {counts}; rule met: {ok}; phase 12 took "
+        f"{secs:.1f} s [{card}]")
+    require(counts == {"substep": 24 * LEARNING_ITERS, "gae": 5 * LEARNING_ITERS,
+                       "grads_stats": 5 * LEARNING_ITERS, "opt_stage": 5 * LEARNING_ITERS},
+            f"phase 12's launches {counts}")
+    require(ok, "the learning check's rule (tests/test_learning.py) on the card")
+
+
 def glob_one(pattern):
     import glob
 
@@ -2753,6 +2791,9 @@ def main():
 
     # -- 11. the deploy stack, on the CPU ---------------------------------------
     deploy_phase(card)
+
+    # -- 12. the port learns ------------------------------------------------------
+    learning_phase(card, urdf)
     log(card)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -261,3 +261,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for name in ("controller.py", "policy.py", "main.py", "sdk.py", "teleop.py",
                  os.path.join("native", "__init__.py")):
         assert os.path.join(deploy, name) in files, name
+    tools = os.path.join(root, "booster_gym_torch", "tools")
+    for name in ("__init__", "train_curve", "ab_divergence", "standup_probe",
+                 "standup_wrapper_probe", "standup_mujoco", "view"):
+        assert os.path.join(tools, f"{name}.py") in files, name

@@ -145,3 +145,25 @@ def test_play_launcher_starts_a_rank_per_card(tmp_path, monkeypatch, capsys, no_
     calls.clear()
     port_play.main(argv + ["--device", "cpu"])
     assert [c[0] for c in calls] == ["here"]
+
+
+def test_episode_lengths_of_a_play():
+    """Each env's first episode runs from the play's start, later ones from
+    the step after the env's last reset; envs with no reset are counted."""
+    done = np.zeros((6, 3), bool)
+    done[1, 0] = done[4, 0] = True          # env 0: 2 steps, then 3
+    done[5, 1] = True                       # env 1: 6 steps; env 2 never resets
+    assert port_play.episode_lengths(done) == ([2, 3, 6], 1)
+    assert port_play.episode_lengths(np.zeros((4, 2), bool)) == ([], 2)
+
+
+def test_num_steps_reaches_the_play(tmp_path, monkeypatch):
+    """--num_steps N sets basic.play_steps, which Runner.play takes as its
+    step count; without it the config has no play_steps (10 s)."""
+    calls = []
+    monkeypatch.setattr(port_play, "play", lambda cfg, device: calls.append(cfg))
+    argv = ["--task=T1", "--terrain=plane", "--num_envs", "4", "--checkpoint", JAX_CKPT,
+            "--asset_file", write_t1_shaped_urdf(tmp_path), "--device", "cpu"]
+    port_play.main(argv + ["--num_steps", "7"])
+    port_play.main(argv)
+    assert calls[0]["basic"]["play_steps"] == 7 and "play_steps" not in calls[1]["basic"]

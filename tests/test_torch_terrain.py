@@ -75,18 +75,33 @@ def test_direct_queries_match_jax(terrains):
     assert float(h.abs().max()) > 0
 
 
+@pytest.fixture(scope="module")
+def sampler_pair():
+    """Both terrains, the JAX shift table, and the JAX sampler jitted once
+    per query count: the `inside` and `clamped` cases of one (B, N) run one
+    compiled program."""
+    jt = JaxTerrain(T1_BLOCK, seed=3)
+    jsamplers = {}
+
+    def jsample(N):
+        if N not in jsamplers:
+            jsamplers[N] = jit_nofusion(jax_make_sampler(jt, N, interpret=True))
+        return jsamplers[N]
+
+    return jt, Terrain(T1_BLOCK, seed=3), build_shift_table(jt.height_field), jsample
+
+
 @pytest.mark.parametrize("B,N", [(256, 33), (256, 65), (100, 65)])
 @pytest.mark.parametrize("case", ["inside", "clamped"])
-def test_sampler_plain_matches_jax_sampler(B, N, case):
+def test_sampler_plain_matches_jax_sampler(sampler_pair, B, N, case):
     """atol 2e-5 on heights and normals.  `inside`: queries within 0.55 m of
     the root, where the sampler also equals the direct queries.  `clamped`:
     queries up to 2 m away and roots at the field's edge, where it clamps
     to its patch and must still equal the JAX sampler, not heights()."""
-    jt, tt = JaxTerrain(T1_BLOCK, seed=3), Terrain(T1_BLOCK, seed=3)
+    jt, tt, table, jsample = sampler_pair
     clamped = case == "clamped"
     root, pts = sampler_inputs(jt, B, N, 2.0 if clamped else 0.55, clamped, seed=B + N)
-    jsample = jit_nofusion(jax_make_sampler(jt, N, interpret=True))
-    jh, jn = jsample(build_shift_table(jt.height_field), jnp.asarray(root), jnp.asarray(pts))
+    jh, jn = jsample(N)(table, jnp.asarray(root), jnp.asarray(pts))
     sample = make_terrain_sampler(tt, N, "cpu")
     h, n = sample(tt.height_field, torch.as_tensor(root), torch.as_tensor(pts))
     assert h.shape == (B, N) and n.shape == (B, N, 3) and sample.launches == 0

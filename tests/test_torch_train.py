@@ -24,8 +24,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _env():
+    """The CLI's environment: the repository importable, and one OpenMP
+    thread (beside the other test workers, a CLI's spinning OpenMP threads
+    made a 16-env iteration take minutes)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -98,7 +102,7 @@ def test_train_cli_resumes_on_cpu_without_jax(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke.py, loads neither
+    """Importing every module of the port (its tools too), and chip_smoke.py, loads neither
     jax nor booster_gym_tpu (checked in a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -119,6 +123,9 @@ def test_port_imports_no_jax():
     assert "booster_gym_torch.parallel.mesh" in out.stderr, out.stderr   # the walk reached it
     for name in ("controller", "policy", "main", "native", "teleop_spoofer"):
         assert f"booster_gym_torch.deploy.{name}" in out.stderr, name    # and the deploy stack
+    for name in ("train_curve", "ab_divergence", "standup_probe", "standup_wrapper_probe",
+                 "standup_mujoco", "view"):
+        assert f"booster_gym_torch.tools.{name}" in out.stderr, name     # and the tools
 
 
 @pytest.mark.parametrize("no_data_parallel", [False, True])
