@@ -53,6 +53,7 @@ from booster_gym_torch.algo.networks import (
 )
 from booster_gym_torch.algo.update_kernel import STAT_NAMES, FusedUpdate
 from booster_gym_torch.parallel import Group
+from booster_gym_torch.utils.spans import span
 
 
 def jax_clip(x, lo, hi):
@@ -188,39 +189,49 @@ class PPO:
     def rollout(self, env_params, ts, gen):
         """Horizon loop with on-device episode statistics.  Returns (carry,
         buffers), the JAX package's rollout scan outputs."""
-        env_state, obs, priv = ts.env_state, ts.obs, ts.privileged_obs
-        ep_sums, ep_steps = dict(ts.episode_sums), ts.episode_steps
-        fin_sums = {k: torch.zeros((), device=self.device) for k in ep_sums}
-        fin_cnt = torch.zeros((), device=self.device)
-        fin_steps = torch.zeros((), device=self.device)
-        bufs = [[] for _ in range(8)]
-        for _ in range(self.horizon):
-            mu, std = self.network.act(obs)
-            act = mu + std * self.group.draw(torch.randn, gen, mu.shape, device=self.device)
-            env_state, obs2, rew, done, info = self.env.step(env_params, env_state, act, gen)
-            d = done.float()
-            ep_steps = ep_steps + 1
-            for name, val in {"reward": rew, **info["rew_terms"]}.items():
-                s = ep_sums[name] + val
-                fin_sums[name] = fin_sums[name] + torch.sum(s * d)
-                # where(), not s * (1 - d): a non-finite sum must not survive a reset
-                ep_sums[name] = torch.where(done, 0.0, s)
-            fin_cnt = fin_cnt + torch.sum(d)
-            fin_steps = fin_steps + torch.sum(ep_steps * done)
-            ep_steps = ep_steps * (~done)
-            for b, x in zip(bufs, (obs, priv, act, mu, std, rew, done, info["time_outs"])):
-                b.append(x)
-            obs, priv = obs2, info["privileged_obs"]
-        carry = (env_state, obs, priv, ep_sums, ep_steps, fin_sums, fin_cnt, fin_steps)
-        return carry, tuple(torch.stack(b) for b in bufs)
+        with span("ppo.rollout"):
+            env_state, obs, priv = ts.env_state, ts.obs, ts.privileged_obs
+            ep_sums, ep_steps = dict(ts.episode_sums), ts.episode_steps
+            fin_sums = {k: torch.zeros((), device=self.device) for k in ep_sums}
+            fin_cnt = torch.zeros((), device=self.device)
+            fin_steps = torch.zeros((), device=self.device)
+            bufs = [[] for _ in range(8)]
+            for _ in range(self.horizon):
+                with span("ppo.act"):
+                    mu, std = self.network.act(obs)
+                    act = mu + std * self.group.draw(torch.randn, gen, mu.shape,
+                                                     device=self.device)
+                env_state, obs2, rew, done, info = self.env.step(env_params, env_state, act, gen)
+                with span("ppo.episode_stats"):
+                    d = done.float()
+                    ep_steps = ep_steps + 1
+                    for name, val in {"reward": rew, **info["rew_terms"]}.items():
+                        s = ep_sums[name] + val
+                        fin_sums[name] = fin_sums[name] + torch.sum(s * d)
+                        # where(), not s * (1 - d): a non-finite sum must not survive a reset
+                        ep_sums[name] = torch.where(done, 0.0, s)
+                    fin_cnt = fin_cnt + torch.sum(d)
+                    fin_steps = fin_steps + torch.sum(ep_steps * done)
+                    ep_steps = ep_steps * (~done)
+                    for b, x in zip(bufs, (obs, priv, act, mu, std, rew, done,
+                                           info["time_outs"])):
+                        b.append(x)
+                    obs, priv = obs2, info["privileged_obs"]
+            carry = (env_state, obs, priv, ep_sums, ep_steps, fin_sums, fin_cnt, fin_steps)
+            return carry, tuple(torch.stack(b) for b in bufs)
 
     # -- update -----------------------------------------------------------
     def update(self, ts, carry, buf):
         """The mini-epochs on a rollout's buffers.  Updates the network in
         place; returns (OptState, lr, per-epoch stats [mini_epochs] each of
         value_loss, actor_loss, bound_loss, entropy, kl_mean)."""
-        if self.update_backend == "fused":
-            return self._update_fused(ts, carry, buf)
+        with span("ppo.update"):
+            if self.update_backend == "fused":
+                return self._update_fused(ts, carry, buf)
+            return self._update_xla(ts, carry, buf)
+
+    def _update_xla(self, ts, carry, buf):
+        """update() by autograd of the loss."""
         obs_last, priv_last = carry[1], carry[2]
         obs_buf, priv_buf, act_buf, mu_buf, std_buf, rew_buf, done_buf, timeout_buf = buf
         net = self.network
@@ -366,40 +377,41 @@ class PPO:
         tensors).  `timer`, when given, is called as timer("rollout") before
         the rollout, timer("update") between the phases and timer("end")
         after the update."""
-        if timer:
-            timer("rollout")
-        carry, buf = self.rollout(env_params, ts, gen)
-        if timer:
-            timer("update")
-        env_state, obs_last, priv_last, ep_sums, ep_steps, fin_sums, fin_cnt, fin_steps = carry
-        opt, lr, stats = self.update(ts, carry, buf)
-        if timer:
-            timer("end")
-        value_loss, actor_loss, bound_loss, entropy, kl_mean = stats.unbind(1)
-        fin_sums, fin_cnt, fin_steps, level_mean, level_max = self._episode_stats(
-            fin_sums, fin_cnt, fin_steps, env_state.env_curriculum_level.abs().float())
-        n_ep = torch.clamp(fin_cnt, min=1.0)
-        metrics = {
-            "reward": fin_sums["reward"] / n_ep,
-            "steps": fin_steps / n_ep,
-            "episodes": fin_cnt,
-            "value_loss": value_loss.mean(),
-            "actor_loss": actor_loss.mean(),
-            "bound_loss": bound_loss.mean(),
-            "entropy": entropy.mean(),
-            "kl_mean": kl_mean[-1],
-            "lr": lr,
-            "curriculum/mean_lin_vel_level": level_mean[0],
-            "curriculum/mean_ang_vel_level": level_mean[1],
-            "curriculum/max_lin_vel_level": level_max[0],
-            "curriculum/max_ang_vel_level": level_max[1],
-        }
-        for name in self.env.reward_scales:
-            metrics[f"episode/{name}"] = fin_sums[name] / n_ep
-        ts = TrainState(opt=opt, lr=lr, env_state=env_state, obs=obs_last,
-                        privileged_obs=priv_last, episode_sums=ep_sums, episode_steps=ep_steps,
-                        iteration=ts.iteration + 1)
-        return ts, metrics
+        with span("ppo.iteration", str(ts.iteration)):
+            if timer:
+                timer("rollout")
+            carry, buf = self.rollout(env_params, ts, gen)
+            if timer:
+                timer("update")
+            env_state, obs_last, priv_last, ep_sums, ep_steps, fin_sums, fin_cnt, fin_steps = carry
+            opt, lr, stats = self.update(ts, carry, buf)
+            if timer:
+                timer("end")
+            value_loss, actor_loss, bound_loss, entropy, kl_mean = stats.unbind(1)
+            fin_sums, fin_cnt, fin_steps, level_mean, level_max = self._episode_stats(
+                fin_sums, fin_cnt, fin_steps, env_state.env_curriculum_level.abs().float())
+            n_ep = torch.clamp(fin_cnt, min=1.0)
+            metrics = {
+                "reward": fin_sums["reward"] / n_ep,
+                "steps": fin_steps / n_ep,
+                "episodes": fin_cnt,
+                "value_loss": value_loss.mean(),
+                "actor_loss": actor_loss.mean(),
+                "bound_loss": bound_loss.mean(),
+                "entropy": entropy.mean(),
+                "kl_mean": kl_mean[-1],
+                "lr": lr,
+                "curriculum/mean_lin_vel_level": level_mean[0],
+                "curriculum/mean_ang_vel_level": level_mean[1],
+                "curriculum/max_lin_vel_level": level_max[0],
+                "curriculum/max_ang_vel_level": level_max[1],
+            }
+            for name in self.env.reward_scales:
+                metrics[f"episode/{name}"] = fin_sums[name] / n_ep
+            ts = TrainState(opt=opt, lr=lr, env_state=env_state, obs=obs_last,
+                            privileged_obs=priv_last, episode_sums=ep_sums, episode_steps=ep_steps,
+                            iteration=ts.iteration + 1)
+            return ts, metrics
 
     def _episode_stats(self, fin_sums, fin_cnt, fin_steps, levels):
         """The rollout's finished-episode sums and count and the curriculum

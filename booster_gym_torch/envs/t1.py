@@ -54,6 +54,7 @@ from booster_gym_torch.physics.engine import ModelConsts, make_fk, make_substep
 from booster_gym_torch.physics.kinematics import point_world_positions
 from booster_gym_torch.physics.substep_kernel import SubstepKernel, feet_edge_world
 from booster_gym_torch.terrain import Terrain
+from booster_gym_torch.utils.spans import span
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -562,72 +563,82 @@ class T1:
 
     def step(self, params, state, actions, gen):
         """One control step: (state', obs, rew, reset_mask, info)."""
-        actions, dof_targets = self._apply_actions(actions)
-        state = state.replace(actions=actions)
+        with span("env.step"):
+            with span("env.physics"):
+                actions, dof_targets = self._apply_actions(actions)
+                state = state.replace(actions=actions)
 
-        push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
-        push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
-        inner = (self._physics_inner_loop if self.kernel_backend
-                 else self._physics_inner_loop_engine)
-        (sim, last_targets, torques, forces, feet_pos, feet_R, edge_xyz, h_all,
-         n_all) = inner(params, state, dof_targets, push_f_w, push_t_w)
-        state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
-                              contact_forces=forces)
+                push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
+                push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
+                inner = (self._physics_inner_loop if self.kernel_backend
+                         else self._physics_inner_loop_engine)
+                (sim, last_targets, torques, forces, feet_pos, feet_R, edge_xyz, h_all,
+                 n_all) = inner(params, state, dof_targets, push_f_w, push_t_w)
+                state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
+                                      contact_forces=forces)
 
-        edge_h = None
-        B, npt = self.num_envs, self.model.num_points
-        if h_all is not None:
-            # the control step sampled every terrain query of the step: the
-            # contact points, the root and the foot edge points
-            root_h = h_all[:, npt]
-            edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
-        else:
-            root_h = self.terrain.heights(sim.root_pos[:, :2], params.height_field)
-        state = state.replace(terrain_height_root=root_h)
-        state = self._refresh_post_physics(params, state, feet_pos=feet_pos, feet_R=feet_R,
-                                           edge_xyz=edge_xyz, edge_heights=edge_h)
-        state = state.replace(
-            episode_length=state.episode_length + 1,
-            common_step_counter=state.common_step_counter + 1,
-            gait_process=torch.remainder(
-                state.gait_process + self.dt * state.gait_frequency, 1.0))
-
-        state = self._kick_robots(state, gen)
-        state = self._push_robots(state, gen)
-        state = self._check_termination(state)
-        rew, rew_terms = self._compute_reward(params, state)
-
-        reset_mask = state.reset_buf
-        state = self._reset_envs(params, state, reset_mask, gen)
-        state, moved_mask = self._teleport_robots(state)
-        if self.terrain.type != "plane":
-            # reset or teleported envs stand somewhere else now: they take
-            # the terrain under their new root, for the root height and, on
-            # the kernel path, for every contact point until their next
-            # control step samples again (the other envs carry the sampled
-            # values)
-            fix = reset_mask | moved_mask
-            h_root, n_root = self.terrain.heights_and_normals(
-                state.sim.root_pos[:, :2], params.height_field)
-            state = state.replace(terrain_height_root=torch.where(
-                fix, h_root, state.terrain_height_root))
-            if h_all is not None:
+            with span("env.post_physics"):
+                edge_h = None
+                B, npt = self.num_envs, self.model.num_points
+                if h_all is not None:
+                    # the control step sampled every terrain query of the step:
+                    # the contact points, the root and the foot edge points
+                    root_h = h_all[:, npt]
+                    edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
+                else:
+                    root_h = self.terrain.heights(sim.root_pos[:, :2], params.height_field)
+                state = state.replace(terrain_height_root=root_h)
+                state = self._refresh_post_physics(params, state, feet_pos=feet_pos,
+                                                   feet_R=feet_R, edge_xyz=edge_xyz,
+                                                   edge_heights=edge_h)
                 state = state.replace(
-                    point_heights=torch.where(fix[:, None], h_root[:, None], h_all[:, :npt]),
-                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :],
-                                              n_all[:, :npt]))
-        state = self._resample_commands(state, gen)
-        # refresh derived quantities for the envs that were reset
-        state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
-        state, obs, privileged = self._observe(params, state, gen)
+                    episode_length=state.episode_length + 1,
+                    common_step_counter=state.common_step_counter + 1,
+                    gait_process=torch.remainder(
+                        state.gait_process + self.dt * state.gait_frequency, 1.0))
 
-        state = state.replace(
-            last_actions=state.actions, last_dof_vel=state.sim.qd,
-            last_root_vel=torch.cat([state.sim.root_lin_vel, state.sim.root_ang_vel], dim=-1),
-            last_feet_pos=state.feet_pos)
-        info = {"privileged_obs": privileged, "time_outs": state.time_out_buf,
-                "rew_terms": rew_terms}
-        return state, obs, rew, reset_mask, info
+                state = self._kick_robots(state, gen)
+                state = self._push_robots(state, gen)
+                state = self._check_termination(state)
+
+            with span("env.reward"):
+                rew, rew_terms = self._compute_reward(params, state)
+
+            with span("env.reset"):
+                reset_mask = state.reset_buf
+                state = self._reset_envs(params, state, reset_mask, gen)
+                state, moved_mask = self._teleport_robots(state)
+                if self.terrain.type != "plane":
+                    # reset or teleported envs stand somewhere else now: they
+                    # take the terrain under their new root, for the root
+                    # height and, on the kernel path, for every contact point
+                    # until their next control step samples again (the other
+                    # envs carry the sampled values)
+                    fix = reset_mask | moved_mask
+                    h_root, n_root = self.terrain.heights_and_normals(
+                        state.sim.root_pos[:, :2], params.height_field)
+                    state = state.replace(terrain_height_root=torch.where(
+                        fix, h_root, state.terrain_height_root))
+                    if h_all is not None:
+                        state = state.replace(
+                            point_heights=torch.where(fix[:, None], h_root[:, None],
+                                                      h_all[:, :npt]),
+                            point_normals=torch.where(fix[:, None, None], n_root[:, None, :],
+                                                      n_all[:, :npt]))
+                state = self._resample_commands(state, gen)
+                # refresh derived quantities for the envs that were reset
+                state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
+
+            with span("env.observe"):
+                state, obs, privileged = self._observe(params, state, gen)
+                state = state.replace(
+                    last_actions=state.actions, last_dof_vel=state.sim.qd,
+                    last_root_vel=torch.cat([state.sim.root_lin_vel, state.sim.root_ang_vel],
+                                            dim=-1),
+                    last_feet_pos=state.feet_pos)
+            info = {"privileged_obs": privileged, "time_outs": state.time_out_buf,
+                    "rew_terms": rew_terms}
+            return state, obs, rew, reset_mask, info
 
     # ------------------------------------------------------------------
     def _feet_edge_world(self, feet_pos, feet_R):

@@ -191,7 +191,10 @@ class Runner:
         fused update's K2, K3 and K4).  A resumed run starts at the saved
         iteration.  Under basic.profile (True or a directory) iterations
         start + 10 to start + 13 are traced by torch.profiler into a Chrome
-        trace under <run>/profile or that directory.  Over several ranks
+        trace under <run>/profile or that directory; the trace carries the
+        program's spans (utils/spans.py): ppo.iteration, ppo.rollout,
+        ppo.act, env.step with env.physics, env.post_physics, env.reward,
+        env.reset and env.observe, ppo.episode_stats and ppo.update.  Over several ranks
         the records hold the all-reduced metrics, env_steps_per_sec is the
         global batch's, the times and launches are this rank's; rank 0 alone
         records, saves and profiles."""

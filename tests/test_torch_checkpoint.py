@@ -144,6 +144,7 @@ def test_resume_profiles_iterations_ten_to_thirteen_after_the_start(tmp_path, mo
     trace = json.load(open(tmp_path / "prof" / "trace.json"))
     names = {e.get("name") for e in trace["traceEvents"]}
     assert any("aten::" in str(n) for n in names)
+    assert {"ppo.iteration", "ppo.rollout", "env.step", "env.reward", "ppo.update"} <= names
 
 
 def test_resolve_checkpoint_picks_the_newest_by_mtime(tmp_path):
