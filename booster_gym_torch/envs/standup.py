@@ -89,6 +89,9 @@ class T1Standup(T1):
             raise ValueError(f"{self.num_actions} joint_indices, config asks for "
                              f"{cfg['env']['num_actions']} actions")
         self.default_subset = self.default_dof_pos[self.action_indices]
+        # on the device, as T1's contact indices: the step copies no host data
+        self.feet_index = torch.as_tensor(self.feet_indices, dtype=torch.int64,
+                                          device=self.device)
 
     # -- actions: the subset -> full-width PD targets ------------------------
     def _apply_actions(self, actions):
@@ -339,7 +342,7 @@ class T1Standup(T1):
 
     def _reward_standup_feet_load(self, params, state):
         # the share of the body's weight on the feet (vertical contact force)
-        fz = torch.sum(state.contact_forces[:, self.feet_indices, 2], dim=-1)
+        fz = torch.sum(state.contact_forces[:, self.feet_index, 2], dim=-1)
         weight = 9.81 * torch.sum(params.dyn.body_mass, dim=-1)
         return torch.clamp(fz / weight, 0.0, 1.0)
 

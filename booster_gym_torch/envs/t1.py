@@ -22,6 +22,12 @@ and normal under its contact points through the next control step's 10
 substeps.  sim.backend: xla runs the eager engine, which queries the
 terrain inside every substep.
 
+On one card with the kernel backend and one rank, step replays its five
+parts (physics, post-physics, reward, reset, observe) as CUDA graphs
+captured once (envs/step_graph.py), with the op-by-op step's outputs
+bitwise: the step builds no tensor from host data and reads no device
+value on the host, so each part captures as it runs.
+
 Under a data-parallel Group (booster_gym_torch/parallel) the env holds
 rows [lo, hi) of a global batch of global_envs, and num_envs is its local
 count: every random draw is made at the global batch and sliced, the env
@@ -40,6 +46,7 @@ import torch
 
 from booster_gym_torch.envs.randomize import apply_randomization
 from booster_gym_torch.envs.state import EnvParams, EnvState
+from booster_gym_torch.envs.step_graph import Layout, StepGraphs, tensors
 from booster_gym_torch.math.quat import (
     euler_xyz_from_quat,
     quat_from_euler_xyz,
@@ -163,6 +170,14 @@ class T1:
         self.termination_contact_indices = [
             i for i, n in enumerate(names)
             if any(s in n for s in cfg["rewards"]["terminate_contacts_on"])]
+        # the step's constants, made once on the device: the step builds no
+        # tensor from host data (no host-to-device copy, no host sync)
+        idx = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=dev)
+        self.penalized_contact_index = idx(self.penalized_contact_indices)
+        self.termination_contact_index = idx(self.termination_contact_indices)
+        self.gravity_dir = f32([0.0, 0.0, -1.0])
+        ncfg = cfg["normalization"]
+        self.commands_scale = f32([ncfg["lin_vel"], ncfg["lin_vel"], ncfg["ang_vel"]])
         self.base_index = names.index(cfg["asset"]["base_name"])
         self.feet_indices = [names.index(n) for n in cfg["asset"]["foot_names"]]
         self.foot_shape_indices = [
@@ -203,6 +218,8 @@ class T1:
         else:
             self.engine_substep = make_substep(self.model, self.sim_cfg, self.feet_indices, dev,
                                                terrain=self.terrain)
+        self.graph_replays = self.eager_steps = 0
+        self._graphs = self._last_eager = None
 
     # ------------------------------------------------------------------
     def _compute_env_origins(self):
@@ -562,83 +579,153 @@ class T1:
         return actions, self.default_dof_pos + self.cfg["control"]["action_scale"] * actions
 
     def step(self, params, state, actions, gen):
-        """One control step: (state', obs, rew, reset_mask, info)."""
+        """One control step: (state', obs, rew, reset_mask, info).
+
+        On one card with the kernel backend and one rank, the step's five
+        parts replay as CUDA graphs (envs/step_graph.py), captured at the
+        first call whose params, generator and input layout repeat the
+        last op-by-op call's; every other call, on the CPU, under the eager
+        engine or over several ranks (whose collectives in the curriculum
+        and the still-command draw a graph does not hold), runs op by op.
+        Either way the outputs are the op-by-op step's, bitwise, and
+        belong to the caller.  graph_replays and eager_steps count the
+        calls of each kind."""
         with span("env.step"):
-            with span("env.physics"):
-                actions, dof_targets = self._apply_actions(actions)
-                state = state.replace(actions=actions)
+            if self.device.type == "cuda" and self.kernel_backend and self.group.world == 1:
+                with torch.no_grad():
+                    out = self._step_graphed(params, state, actions, gen)
+                if out is not None:
+                    return out
+            self.eager_steps += 1
+            return self._step_eager(params, state, actions, gen)
 
-                push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
-                push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
-                inner = (self._physics_inner_loop if self.kernel_backend
-                         else self._physics_inner_loop_engine)
-                (sim, last_targets, torques, forces, feet_pos, feet_R, edge_xyz, h_all,
-                 n_all) = inner(params, state, dof_targets, push_f_w, push_t_w)
-                state = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
-                                      contact_forces=forces)
+    def _step_graphed(self, params, state, actions, gen):
+        """The step by its graphs, captured first where (params, gen, the
+        inputs' layout) repeat the last op-by-op call's; None where this
+        call runs op by op."""
+        inputs = (state, actions)
+        layout = Layout(tensors(inputs))
+        if self._graphs is None or not self._graphs.serves(params, gen, layout):
+            last, self._last_eager = self._last_eager, (params, gen, layout.key)
+            if last is None or last[0] is not params or last[1] is not gen or last[2] != layout.key:
+                return None
+            self._graphs = None   # the last capture's pool goes first
+            self._graphs = StepGraphs(
+                params, gen, inputs, layout, self._step_parts(), self._step_result,
+                [(self.substep, "launches"), (self.substep, "fused_sampler_launches")])
+        self.graph_replays += 1
+        with span("env.graph"):
+            return self._graphs.replay(layout)
 
-            with span("env.post_physics"):
-                edge_h = None
-                B, npt = self.num_envs, self.model.num_points
-                if h_all is not None:
-                    # the control step sampled every terrain query of the step:
-                    # the contact points, the root and the foot edge points
-                    root_h = h_all[:, npt]
-                    edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
-                else:
-                    root_h = self.terrain.heights(sim.root_pos[:, :2], params.height_field)
-                state = state.replace(terrain_height_root=root_h)
-                state = self._refresh_post_physics(params, state, feet_pos=feet_pos,
-                                                   feet_R=feet_R, edge_xyz=edge_xyz,
-                                                   edge_heights=edge_h)
+
+    def _step_eager(self, params, state, actions, gen):
+        """The step op by op, each part in its span."""
+        carry = {"state": state, "actions": actions}
+        for name, part in self._step_parts():
+            with span(name):
+                part(params, gen, carry)
+        return self._step_result(carry)
+
+    def _step_parts(self):
+        """The step's parts in order, as (span name, part): each part reads
+        and updates the carry dict, the first from {"state", "actions"}."""
+        return (("env.physics", self._step_physics),
+                ("env.post_physics", self._step_post_physics),
+                ("env.reward", self._step_reward),
+                ("env.reset", self._step_reset),
+                ("env.observe", self._step_observe))
+
+    @staticmethod
+    def _step_result(carry):
+        state = carry["state"]
+        info = {"privileged_obs": carry["privileged_obs"], "time_outs": state.time_out_buf,
+                "rew_terms": carry["rew_terms"]}
+        return state, carry["obs"], carry["rew"], carry["reset_mask"], info
+
+    def _step_physics(self, params, gen, carry):
+        """The actions, the control step (K1 or K5) and its unpacking."""
+        actions, dof_targets = self._apply_actions(carry.pop("actions"))
+        state = carry["state"].replace(actions=actions)
+        push_f_w = quat_rotate(state.sim.root_quat, state.push_force)
+        push_t_w = quat_rotate(state.sim.root_quat, state.push_torque)
+        inner = (self._physics_inner_loop if self.kernel_backend
+                 else self._physics_inner_loop_engine)
+        (sim, last_targets, torques, forces, feet_pos, feet_R, edge_xyz, h_all,
+         n_all) = inner(params, state, dof_targets, push_f_w, push_t_w)
+        carry["state"] = state.replace(sim=sim, last_dof_targets=last_targets, torques=torques,
+                                       contact_forces=forces)
+        carry["physics"] = (feet_pos, feet_R, edge_xyz, h_all, n_all)
+
+    def _step_post_physics(self, params, gen, carry):
+        """Root terrain height, post-physics refresh, counters, kicks,
+        pushes, termination."""
+        state = carry["state"]
+        feet_pos, feet_R, edge_xyz, h_all, _ = carry["physics"]
+        edge_h = None
+        npt = self.model.num_points
+        if h_all is not None:
+            # the control step sampled every terrain query of the step:
+            # the contact points, the root and the foot edge points
+            root_h = h_all[:, npt]
+            edge_h = h_all[:, npt + 1:].reshape(edge_xyz[2].shape)
+        else:
+            root_h = self.terrain.heights(state.sim.root_pos[:, :2], params.height_field)
+        state = state.replace(terrain_height_root=root_h)
+        state = self._refresh_post_physics(params, state, feet_pos=feet_pos,
+                                           feet_R=feet_R, edge_xyz=edge_xyz,
+                                           edge_heights=edge_h)
+        state = state.replace(
+            episode_length=state.episode_length + 1,
+            common_step_counter=state.common_step_counter + 1,
+            gait_process=torch.remainder(
+                state.gait_process + self.dt * state.gait_frequency, 1.0))
+
+        state = self._kick_robots(state, gen)
+        state = self._push_robots(state, gen)
+        carry["state"] = self._check_termination(state)
+
+    def _step_reward(self, params, gen, carry):
+        carry["rew"], carry["rew_terms"] = self._compute_reward(params, carry["state"])
+
+    def _step_reset(self, params, gen, carry):
+        """Resets and curriculum, teleport, the trimesh terrain fix, command
+        resampling, the post-reset refresh."""
+        state = carry["state"]
+        _, _, _, h_all, n_all = carry.pop("physics")
+        npt = self.model.num_points
+        reset_mask = state.reset_buf
+        state = self._reset_envs(params, state, reset_mask, gen)
+        state, moved_mask = self._teleport_robots(state)
+        if self.terrain.type != "plane":
+            # reset or teleported envs stand somewhere else now: they
+            # take the terrain under their new root, for the root
+            # height and, on the kernel path, for every contact point
+            # until their next control step samples again (the other
+            # envs carry the sampled values)
+            fix = reset_mask | moved_mask
+            h_root, n_root = self.terrain.heights_and_normals(
+                state.sim.root_pos[:, :2], params.height_field)
+            state = state.replace(terrain_height_root=torch.where(
+                fix, h_root, state.terrain_height_root))
+            if h_all is not None:
                 state = state.replace(
-                    episode_length=state.episode_length + 1,
-                    common_step_counter=state.common_step_counter + 1,
-                    gait_process=torch.remainder(
-                        state.gait_process + self.dt * state.gait_frequency, 1.0))
+                    point_heights=torch.where(fix[:, None], h_root[:, None],
+                                              h_all[:, :npt]),
+                    point_normals=torch.where(fix[:, None, None], n_root[:, None, :],
+                                              n_all[:, :npt]))
+        state = self._resample_commands(state, gen)
+        # refresh derived quantities for the envs that were reset
+        carry["state"] = self._refresh_post_physics(params, state, reset_mask=reset_mask)
+        carry["reset_mask"] = reset_mask
 
-                state = self._kick_robots(state, gen)
-                state = self._push_robots(state, gen)
-                state = self._check_termination(state)
-
-            with span("env.reward"):
-                rew, rew_terms = self._compute_reward(params, state)
-
-            with span("env.reset"):
-                reset_mask = state.reset_buf
-                state = self._reset_envs(params, state, reset_mask, gen)
-                state, moved_mask = self._teleport_robots(state)
-                if self.terrain.type != "plane":
-                    # reset or teleported envs stand somewhere else now: they
-                    # take the terrain under their new root, for the root
-                    # height and, on the kernel path, for every contact point
-                    # until their next control step samples again (the other
-                    # envs carry the sampled values)
-                    fix = reset_mask | moved_mask
-                    h_root, n_root = self.terrain.heights_and_normals(
-                        state.sim.root_pos[:, :2], params.height_field)
-                    state = state.replace(terrain_height_root=torch.where(
-                        fix, h_root, state.terrain_height_root))
-                    if h_all is not None:
-                        state = state.replace(
-                            point_heights=torch.where(fix[:, None], h_root[:, None],
-                                                      h_all[:, :npt]),
-                            point_normals=torch.where(fix[:, None, None], n_root[:, None, :],
-                                                      n_all[:, :npt]))
-                state = self._resample_commands(state, gen)
-                # refresh derived quantities for the envs that were reset
-                state = self._refresh_post_physics(params, state, reset_mask=reset_mask)
-
-            with span("env.observe"):
-                state, obs, privileged = self._observe(params, state, gen)
-                state = state.replace(
-                    last_actions=state.actions, last_dof_vel=state.sim.qd,
-                    last_root_vel=torch.cat([state.sim.root_lin_vel, state.sim.root_ang_vel],
-                                            dim=-1),
-                    last_feet_pos=state.feet_pos)
-            info = {"privileged_obs": privileged, "time_outs": state.time_out_buf,
-                    "rew_terms": rew_terms}
-            return state, obs, rew, reset_mask, info
+    def _step_observe(self, params, gen, carry):
+        """Observations and the last_* bookkeeping."""
+        state, obs, privileged = self._observe(params, carry["state"], gen)
+        carry["state"] = state.replace(
+            last_actions=state.actions, last_dof_vel=state.sim.qd,
+            last_root_vel=torch.cat([state.sim.root_lin_vel, state.sim.root_ang_vel], dim=-1),
+            last_feet_pos=state.feet_pos)
+        carry["obs"], carry["privileged_obs"] = obs, privileged
 
     # ------------------------------------------------------------------
     def _feet_edge_world(self, feet_pos, feet_R):
@@ -651,7 +738,7 @@ class T1:
         (the post-reset refresh) only the base-frame quantities change; the
         feet buffers keep their pre-reset values, as upstream."""
         sim = state.sim
-        gravity = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand_as(sim.root_lin_vel)
+        gravity = self.gravity_dir.expand_as(sim.root_lin_vel)
         base_lin_vel = quat_rotate_inverse(sim.root_quat, sim.root_lin_vel)
         base_ang_vel = quat_rotate_inverse(sim.root_quat, sim.root_ang_vel)
         projected_gravity = quat_rotate_inverse(sim.root_quat, gravity)
@@ -732,7 +819,7 @@ class T1:
         """Reset and timeout flags."""
         rcfg = self.cfg["rewards"]
         if self.termination_contact_indices:
-            term = state.contact_forces[:, self.termination_contact_indices]
+            term = state.contact_forces[:, self.termination_contact_index]
             reset = torch.any(torch.linalg.norm(term, dim=-1) > 1.0, dim=-1)
         else:
             reset = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
@@ -755,14 +842,12 @@ class T1:
         """47-dim actor obs and 14-dim privileged obs."""
         ncfg = self.cfg["normalization"]
         noise = self.cfg["noise"]
-        commands_scale = torch.tensor([ncfg["lin_vel"], ncfg["lin_vel"], ncfg["ang_vel"]],
-                                      device=self.device)
         gait_on = (state.gait_frequency > 1.0e-8).float()
         phase = 2 * math.pi * state.gait_process
         obs = torch.cat([
             self._randomize(gen, state.projected_gravity, noise.get("gravity")) * ncfg["gravity"],
             self._randomize(gen, state.base_ang_vel, noise.get("ang_vel")) * ncfg["ang_vel"],
-            state.commands[:, :3] * commands_scale,
+            state.commands[:, :3] * self.commands_scale,
             (torch.cos(phase) * gait_on)[:, None],
             (torch.sin(phase) * gait_on)[:, None],
             self._randomize(gen, state.sim.q - self.default_dof_pos,
@@ -812,7 +897,7 @@ class T1:
         return torch.square(height - self.cfg["rewards"]["base_height_target"])
 
     def _reward_collision(self, params, state):
-        f = state.contact_forces[:, self.penalized_contact_indices]
+        f = state.contact_forces[:, self.penalized_contact_index]
         return torch.sum(torch.linalg.norm(f, dim=-1) > 1.0, dim=-1).float()
 
     def _reward_lin_vel_z(self, params, state):

@@ -13,7 +13,8 @@ Nothing synchronises the device inside them, so rollout and update overlap
 as they do in training.
 
 The program's spans (utils/spans.py: ppo.iteration, ppo.rollout, ppo.act,
-env.step and its parts, ppo.episode_stats, ppo.update) group the report.
+env.step, env.graph and the step's parts, ppo.episode_stats, ppo.update)
+group the report.
 For each span, per iteration: the host milliseconds inside it, the device
 operations (kernels, copies, fills) whose launching runtime call lies in
 it, their device milliseconds, the device's idle milliseconds put down to
@@ -42,7 +43,7 @@ import time
 import torch
 
 WARMUP_ITERS, PROFILED_ITERS = 2, 2
-SPANS = ("ppo.iteration", "ppo.rollout", "ppo.act", "env.step", "env.physics",
+SPANS = ("ppo.iteration", "ppo.rollout", "ppo.act", "env.step", "env.graph", "env.physics",
          "env.post_physics", "env.reward", "env.reset", "env.observe", "ppo.episode_stats",
          "ppo.update")
 # runtime calls that return only once the device has caught up

@@ -1166,7 +1166,8 @@ def dp_train(spec, out_dir):
     rank's results go to out_dir/rank<r>.pt: the records; after each
     iteration the parameters, Adam m, v and count, and lr; the first
     iteration's rollout buffers (obs, priv, act, mu, std, rew, done,
-    time_outs) on the CPU; the curriculum_check grid; the all-reduce calls
+    time_outs) on the CPU; the curriculum_check grid; the env's op-by-op
+    and replayed steps (env_calls); the all-reduce calls
     of each iteration as (numel, op, ms); under spec["probe"] the
     probe_collectives of the group before training; and under
     spec["resume"] (a checkpoint path) restored_pieces of a second Runner
@@ -1207,6 +1208,7 @@ def dp_train(spec, out_dir):
     res["records"] = runner.train()
     res["curriculum"] = curriculum_check(runner.env) if cfg["commands"]["curriculum"] else None
     res["n_params"] = ppo.fused.n_params
+    res["env_calls"] = (runner.env.eager_steps, runner.env.graph_replays)
     if spec.get("resume"):
         rcfg = copy.deepcopy(cfg)
         rcfg["basic"]["checkpoint"] = spec["resume"]

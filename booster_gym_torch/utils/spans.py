@@ -13,6 +13,8 @@ The names, nested as the training step runs them:
       ppo.rollout        PPO.rollout
         ppo.act          network.act and the noise draw, each control step
         env.step         T1.step
+          env.graph         on one card, the step's CUDA graphs: the inputs copied in,
+                            the five parts below replayed, the outputs copied out
           env.physics       the actions, the control step (K1 or K5) and its unpacking
           env.post_physics  root terrain height, post-physics refresh, counters,
                             kicks, pushes, termination

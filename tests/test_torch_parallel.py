@@ -387,6 +387,15 @@ def test_two_ranks_iterate_as_one_rank(plane_runs):
                      + [(2 + 1 + n_terms + 2, "sum"), (2, "max")])
 
 
+def test_ranks_step_op_by_op(plane_runs):
+    """Over several ranks the env step runs op by op (its collectives stay
+    out of CUDA graphs): every control step of every rank counts as one."""
+    one, two, _ = plane_runs
+    for r in (one, *two):
+        eager, replays = r["env_calls"]
+        assert replays == 0 and eager == len(r["buffers"][0]) * len(r["snaps"])
+
+
 def test_checkpoints_resume_across_world_sizes(plane_runs):
     """A 1-rank checkpoint resumed on 2 ranks and a 2-rank rank-0
     checkpoint on 1 rank: every piece restored bitwise."""
