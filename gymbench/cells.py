@@ -15,6 +15,7 @@ import torch
 
 from gymbench import check_train, spec, stats, train, trace
 from gymbench.counts import substep, update
+from gymbench.reference.envs import env_class
 
 
 @dataclasses.dataclass
@@ -73,6 +74,8 @@ def _free(device):
 
 
 def train_run(cell, cfg, traffic, seed, seconds, traced, t_start, device="cuda"):
+    # a task with no reference env fails here, before set-up and the window
+    env_class(cfg)
     cfg, runner, env_params, ts, cap = train.set_up(cfg, traffic, seed, device)
     sync(device)
     setup_s = time.time() - t_start

@@ -26,10 +26,8 @@ seed, sharing no code or table with the program):
               step leaves, the reward and the observations' noise-free
               columns; a termination that differs, or an observation
               noise past 8 sigma, reads OFF (1e9).  Envs that reset in both
-              compare what a reset fixes whatever its random draws: zero
-              joint velocity and episode length, the start's angular
-              velocity, an upright trunk (the projected gravity) and the
-              trunk's height over the terrain.  The 0.9 quantile over the
+              compare what the task's reset fixes whatever its random draws
+              (the reference env's reset_terms).  The 0.9 quantile over the
               envs, then the worst sampled step.  Step 0 also holds the
               start's observations to the start's state.
   step_share  the share of envs whose gap of the step_gap measure is over
@@ -56,19 +54,22 @@ seed, sharing no code or table with the program):
 The rates of the Adam steps are the program's (reference/algo/ppo.py says
 why).  Random draws are the program's own: the reference compares no
 column that depends on them except through the noise's size.
+
+The reference env is the config's task's (reference/envs/__init__.py's
+env_class), and what is the task's own comes from it: its state and params
+dataclasses, the compared state fields, the observations' noise, what a
+reset fixes and the params it makes itself.  This module names no task.
 """
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
 
 from gymbench.reference.algo.networks import ActorCritic as RefNet
 from gymbench.reference.algo.ppo import Update as RefUpdate
-from gymbench.reference.envs.state import EnvParams as RefParams
-from gymbench.reference.envs.state import EnvState as RefState
-from gymbench.reference.envs.t1 import T1 as RefT1
-from gymbench.reference.physics.types import DynParams as RefDyn
+from gymbench.reference.envs import env_class
 from gymbench.reference.physics.types import SimState as RefSim
 
 ITERATIONS = 3
@@ -97,25 +98,35 @@ def clone(x):
     return x
 
 
-def _as(cls, obj, nested):
-    return cls(**{f.name: (nested[f.name](getattr(obj, f.name)) if f.name in nested
-                           else getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+def _as(cls, obj, own=None):
+    """The program's dataclass `obj` as the reference's `cls`, field by
+    field by name: a field whose type is a dataclass converts in turn, and
+    `own` gives the fields the reference makes itself."""
+    own = own or {}
+    hints = typing.get_type_hints(cls)
+
+    def field(name):
+        if name in own:
+            return own[name]
+        value, kind = getattr(obj, name), hints.get(name)
+        if value is not None and isinstance(kind, type) and dataclasses.is_dataclass(kind):
+            return _as(kind, value)
+        return value
+
+    return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls) if f.init})
 
 
-def ref_state(state):
-    """The program's EnvState as the reference's."""
-    return _as(RefState, state, {"sim": lambda s: _as(RefSim, s, {})})
+def ref_state(ref_env, state):
+    """The program's env state as the reference env's State."""
+    return _as(ref_env.State, state)
 
 
-def ref_params(params, ref_env):
-    """The program's per-env draws (gains, friction, masses) with the
-    reference's own terrain and env origins."""
-    return RefParams(dyn=_as(RefDyn, params.dyn, {}), dof_stiffness=params.dof_stiffness,
-                     dof_damping=params.dof_damping, dof_friction=params.dof_friction,
-                     base_mass_scaled=params.base_mass_scaled, env_origins=ref_env.env_origins,
-                     height_field=(torch.zeros((1, 1), device=ref_env.device)
-                                   if ref_env.terrain.height_field is None
-                                   else ref_env.terrain.height_field))
+def ref_params(ref_env, params):
+    """The program's per-env draws (gains, friction, masses, a task's
+    own such as a bank of starts) as the reference env's Params, with the
+    params the reference makes itself (own_params: the terrain and the env
+    origins)."""
+    return _as(ref_env.Params, params, ref_env.own_params())
 
 
 def flat(network):
@@ -195,28 +206,6 @@ def sample_steps(seed, horizon, count):
 
 # -- the env step -----------------------------------------------------------
 
-def obs_sigmas(cfg, nd, na):
-    """The observation noise's sigma per column of (obs, privileged obs): 0
-    where a column is noise-free (T1's _compute_observations layout)."""
-    n, s = cfg["noise"], cfg["normalization"]
-    sig = lambda key, scale, k: [n[key]["range"][1] * s[scale] if key in n else 0.0] * k
-    obs = (sig("gravity", "gravity", 3) + sig("ang_vel", "ang_vel", 3) + [0.0] * 5
-           + sig("dof_pos", "dof_pos", nd) + sig("dof_vel", "dof_vel", nd) + [0.0] * na)
-    height = [n["height"]["range"][1] if "height" in n else 0.0]   # not normalized
-    priv = [0.0] * 4 + sig("lin_vel", "lin_vel", 3) + height + [0.0] * 6
-    return obs, priv
-
-
-def noise_free_obs(ref_env, params, state):
-    """The reference's observations of a state with the noise left out."""
-    cfg = ref_env.cfg
-    ref_env.cfg = {**cfg, "noise": {}}
-    try:
-        return ref_env._compute_observations(params, state, None)
-    finally:
-        ref_env.cfg = cfg
-
-
 def _rel(a, b, B):
     return ((a.float() - b.float()).abs() / (1.0 + b.float().abs())).reshape(B, -1).amax(1)
 
@@ -226,8 +215,8 @@ def obs_gap(ref_env, params, state, obs, priv, sigmas):
     observations of `state`, or OFF where a noise passes 8 sigma."""
     B = obs.shape[0]
     gap = torch.zeros(B, device=obs.device)
-    for got, want, sig in zip((obs, priv), noise_free_obs(ref_env, params, ref_state(state)),
-                              sigmas):
+    wants = ref_env.noise_free_obs(params, ref_state(ref_env, state))
+    for got, want, sig in zip((obs, priv), wants, sigmas):
         sig = torch.as_tensor(sig, device=obs.device)
         det = sig == 0
         gap = torch.maximum(gap, _rel(got[:, det], want[:, det], B))
@@ -236,32 +225,25 @@ def obs_gap(ref_env, params, state, obs, priv, sigmas):
     return gap
 
 
-STATE_FIELDS = ("torques", "last_dof_targets", "contact_forces", "base_lin_vel",
-                "base_ang_vel", "projected_gravity", "feet_pos", "feet_contact",
-                "terrain_height_root", "point_heights", "point_normals", "filtered_lin_vel",
-                "filtered_ang_vel")
-
-
-def env_gap(out, ref):
+def env_gap(ref_env, out, ref):
     """Per env: the worst relative gap between two env steps' outputs
-    (state, obs, rew, done, info) from one input, and the gap of what a
-    reset fixes (the module docstring) in the envs that reset in both, 0
-    elsewhere.  An env that resets in one only reads OFF."""
+    (state, obs, rew, done, info) from one input over sim's fields and
+    `ref_env`'s STATE_FIELDS, and the gap of what a reset fixes
+    (`ref_env`'s reset_terms) in the envs that reset in both, 0 elsewhere.
+    An env that resets in one only reads OFF."""
     (s, _, rew, done, _), (r, _, rew_r, done_r, _) = out, ref
     B = rew.shape[0]
     keep = ~done & ~done_r
     gap = torch.zeros(B, device=rew.device)
     for name in RefSim.FIELDS:
         gap = torch.maximum(gap, _rel(getattr(s.sim, name), getattr(r.sim, name), B))
-    for name in STATE_FIELDS:
+    for name in ref_env.STATE_FIELDS:
         gap = torch.maximum(gap, _rel(getattr(s, name), getattr(r, name), B))
     gap = torch.where(keep, gap, 0.0)
     both = done & done_r
-    reset = s.sim.qd.abs().amax(1) + (s.episode_length != 0).float()
-    reset = torch.maximum(reset, _rel(s.sim.root_ang_vel, r.sim.root_ang_vel, B))
-    reset = torch.maximum(reset, _rel(s.projected_gravity, r.projected_gravity, B))
-    height = lambda x: x.sim.root_pos[:, 2] - x.terrain_height_root
-    reset = torch.maximum(reset, _rel(height(s), height(r), B))
+    reset, pairs = ref_env.reset_terms(s, r)
+    for got, want in pairs:
+        reset = torch.maximum(reset, _rel(got, want, B))
     reset = torch.where(both, reset, 0.0)
     gap = torch.maximum(torch.maximum(gap, reset), _rel(rew, rew_r, B))
     return torch.where(done != done_r, OFF, gap), reset
@@ -348,14 +330,13 @@ class Reference:
 
     def __init__(self, cfg, device):
         self.cfg, self.device = cfg, torch.device(device)
-        self.env = RefT1(cfg, self.device)
+        self.env = env_class(cfg)(cfg, self.device)
         e, a = cfg["env"], cfg["algorithm"]
         self.net = RefNet(e["num_actions"], e["num_observations"], e["num_privileged_obs"],
                           compute_dtype=a.get("compute_dtype", "bf16"),
                           init_logstd=a.get("init_logstd", -2.0)).to(self.device)
         self.update = RefUpdate(self.net, cfg)
-        nd = self.env.model.num_dofs
-        self.sigmas = obs_sigmas(cfg, nd, e["num_actions"])
+        self.sigmas = self.env.obs_sigmas()
         self.sizes = leaf_sizes(self.net)
 
     def precision(self, control):
@@ -367,23 +348,21 @@ class Reference:
         torch.backends.cudnn.allow_tf32 = bool(control)
 
     def field_gap(self, params):
-        hf, ref = params.height_field, self.env.terrain.height_field
-        if ref is None:
-            ref = torch.zeros((1, 1), device=self.device)
+        hf, ref = params.height_field, self.env.own_params()["height_field"]
         if hf.shape != ref.shape:
             return OFF
         return float((hf.float() - ref.float()).abs().max())
 
     def env_step(self, params, state, act):
         gen = torch.Generator(device=self.device).manual_seed(0)
-        return self.env.step(params, ref_state(state), act, gen)
+        return self.env.step(params, ref_state(self.env, state), act, gen)
 
     def env_steps(self, cap, params, control=False, fault=None):
         """Per captured env step: (per-env gap, termination differs, reset
         gap).  With
         `control` the reference's own step in TF32 stands in the program's
         place; `fault` is planted in the program's step (plant())."""
-        rp = ref_params(params, self.env)
+        rp = ref_params(self.env, params)
         steps = []
         for i, (state, act, out) in sorted(cap.env_steps.items()):
             self.precision(False)
@@ -394,7 +373,7 @@ class Reference:
                 self.precision(False)
             if fault is not None:
                 out = plant(fault, state, out)
-            gap, reset = env_gap(out, ref)
+            gap, reset = env_gap(self.env, out, ref)
             gap = torch.maximum(gap, obs_gap(self.env, rp, out[0], out[1],
                                              out[4]["privileged_obs"], self.sigmas))
             if i == 0:

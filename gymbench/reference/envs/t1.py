@@ -64,6 +64,16 @@ class T1:
     """Static task definition + step/reset functions; all evolving state is
     in EnvParams / EnvState."""
 
+    # the check's hooks (gymbench/reference/envs/__init__.py): the
+    # dataclasses the program's state and params convert into, and the
+    # state's fields that a step compares besides sim's
+    State = EnvState
+    Params = EnvParams
+    STATE_FIELDS = ("torques", "last_dof_targets", "contact_forces", "base_lin_vel",
+                    "base_ang_vel", "projected_gravity", "feet_pos", "feet_contact",
+                    "terrain_height_root", "point_heights", "point_normals",
+                    "filtered_lin_vel", "filtered_ang_vel")
+
     def __init__(self, cfg, device, group=None):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -81,14 +91,8 @@ class T1:
         self.sim_dt = cfg["sim"]["dt"]
         self.dt = self.decimation * self.sim_dt
 
-        self.model = load_urdf(
-            _resolve_asset(cfg["asset"]["file"]),
-            cylinder_rim_points=int(cfg["asset"].get("cylinder_rim_points", 6)))
-        if cfg["asset"].get("collision_source") == "mjcf":
-            raise ValueError("the reference takes its contact points from the URDF only")
+        self.model = self._load_model(cfg)
         nd = self.model.num_dofs
-        if nd != self.num_actions:
-            raise ValueError(f"asset has {nd} dofs, config asks for {self.num_actions} actions")
 
         solver = cfg["sim"].get("solver", {})
         self.sim_cfg = SimConfig(
@@ -186,6 +190,19 @@ class T1:
         else:
             self.engine_substep = make_substep(self.model, self.sim_cfg, self.feet_indices, dev,
                                                terrain=self.terrain)
+
+    def _load_model(self, cfg):
+        """The robot: the URDF's bodies, joints and contact points, one DoF
+        per action."""
+        model = load_urdf(
+            _resolve_asset(cfg["asset"]["file"]),
+            cylinder_rim_points=int(cfg["asset"].get("cylinder_rim_points", 6)))
+        if cfg["asset"].get("collision_source") == "mjcf":
+            raise ValueError("the reference T1 takes its contact points from the URDF only")
+        if model.num_dofs != self.num_actions:
+            raise ValueError(f"asset has {model.num_dofs} dofs, config asks for "
+                             f"{self.num_actions} actions")
+        return model
 
     # ------------------------------------------------------------------
     def _compute_env_origins(self):
@@ -753,6 +770,50 @@ class T1:
         ], dim=-1)
         return obs, privileged
 
+    # -- the check's hooks -----------------------------------------------
+    def obs_sigmas(self):
+        """The observation noise's sigma per column of (obs, privileged
+        obs): 0 where a column is noise-free (_compute_observations'
+        layout)."""
+        n, s = self.cfg["noise"], self.cfg["normalization"]
+        nd, na = self.model.num_dofs, self.num_actions
+        sig = lambda key, scale, k: [n[key]["range"][1] * s[scale] if key in n else 0.0] * k
+        obs = (sig("gravity", "gravity", 3) + sig("ang_vel", "ang_vel", 3) + [0.0] * 5
+               + sig("dof_pos", "dof_pos", nd) + sig("dof_vel", "dof_vel", nd) + [0.0] * na)
+        height = [n["height"]["range"][1] if "height" in n else 0.0]   # not normalized
+        priv = [0.0] * 4 + sig("lin_vel", "lin_vel", 3) + height + [0.0] * 6
+        return obs, priv
+
+    def noise_free_obs(self, params, state):
+        """(obs, privileged obs) of a state with the noise left out."""
+        cfg = self.cfg
+        self.cfg = {**cfg, "noise": {}}
+        try:
+            return self._compute_observations(params, state, None)
+        finally:
+            self.cfg = cfg
+
+    @staticmethod
+    def reset_terms(s, r):
+        """What a reset fixes whatever its random draws, in an env that
+        reset to `s` where the reference's reset to `r`: per env how far off
+        zero the joint velocity and the episode length are, and the pairs
+        (s's, r's) that are set alike: the start's angular velocity, an
+        upright trunk (the projected gravity) and the trunk's height over
+        the terrain."""
+        off = s.sim.qd.abs().amax(1) + (s.episode_length != 0).float()
+        height = lambda x: x.sim.root_pos[:, 2] - x.terrain_height_root
+        return off, [(s.sim.root_ang_vel, r.sim.root_ang_vel),
+                     (s.projected_gravity, r.projected_gravity), (height(s), height(r))]
+
+    def own_params(self):
+        """The params made from the configuration and the seed, not taken
+        from the program: the env origins and the height field ([1, 1]
+        zeros on the plane)."""
+        hf = self.terrain.height_field
+        return {"env_origins": self.env_origins,
+                "height_field": torch.zeros((1, 1), device=self.device) if hf is None else hf}
+
     # ------------------------------------------------------------------
     def _compute_reward(self, params, state):
         """Registered reward terms, each scaled by scale * dt; the total is
@@ -877,3 +938,6 @@ class T1:
         right = (torch.abs(state.gait_process - 0.75) < 0.5 * sp) & on
         return ((left & ~state.feet_contact[:, 0]).float()
                 + (right & ~state.feet_contact[:, 1]).float())
+
+
+TASKS = {"T1": T1, "T1Serial": T1}

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from gymbench import calibrate, cells, check_train, run, spec, train
+from gymbench.reference.envs import env_class
 
 TRAIN = "t1_shaped_flat_train"
 
@@ -102,7 +103,7 @@ def test_a_reset_that_keeps_moving_reads_in_reset_gap():
     done = torch.zeros_like(done)
     done[0] = True
     out = (state, obs, rew, done, info)
-    gap, reset = check_train.env_gap(out, out)
+    gap, reset = check_train.env_gap(env_class(cfg), out, out)
     assert reset[0] >= 1.0 and gap[0] >= 1.0 and (reset[1:] == 0).all()
     assert check_train.step_numbers([(gap, done != done, reset)])["reset_gap"] >= 1.0
 
