@@ -325,8 +325,9 @@ class PPO:
         staged = fused.stage(p)
         stats = []
         for epoch in range(self.mini_epochs):
-            adv_raw, returns, s_a, s_a2 = fused.gae(
-                staged, prep["obsc"], rew_buf, nonterm, timeout_f, self.gamma, self.lam)
+            with span("ppo.gae"):
+                adv_raw, returns, s_a, s_a2 = fused.gae(
+                    staged, prep["obsc"], rew_buf, nonterm, timeout_f, self.gamma, self.lam)
             if self.group.world > 1:
                 s_a, s_a2 = self.group.all_reduce(torch.stack([s_a, s_a2])).unbind()
             # Bessel-corrected std from the one-pass sums; K3 normalizes
@@ -334,8 +335,10 @@ class PPO:
             var = (s_a2 - N * mean * mean) / (N - 1)
             rstd = 1.0 / (torch.sqrt(torch.clamp(var, min=0.0)) + 1e-8)
             # epoch 0: K3's own forward is the old policy, kept for the rest
-            g, st, mu_out, logp_out = fused.grads_stats(
-                staged, p, prep, adv_raw, returns, mean, rstd, self_old=epoch == 0, n_total=N)
+            with span("ppo.grads"):
+                g, st, mu_out, logp_out = fused.grads_stats(
+                    staged, p, prep, adv_raw, returns, mean, rstd, self_old=epoch == 0,
+                    n_total=N)
             if self.group.world > 1:
                 # the gradient and the metric sums over the ranks, in one;
                 # K4 and the KL rule then run on the same bits on every rank
@@ -359,9 +362,10 @@ class PPO:
                        + 0.5 * torch.sum(st["klsq"] / (N * torch.square(std))))
             stats.append(torch.stack([value_loss, actor_loss, bound_loss, entropy, kl_mean]))
 
-            p, m, v, staged = fused.opt_stage(
-                g, p, m, v, cnt, lr, entropy_coef=self.entropy_coef, b1=self.adam_b1,
-                b2=self.adam_b2, eps=self.adam_eps, max_norm=self.grad_norm_clip)
+            with span("ppo.opt"):
+                p, m, v, staged = fused.opt_stage(
+                    g, p, m, v, cnt, lr, entropy_coef=self.entropy_coef, b1=self.adam_b1,
+                    b2=self.adam_b2, eps=self.adam_eps, max_norm=self.grad_norm_clip)
             if self.min_logstd is not None:
                 # K3 reads logstd from p, so the clamped value is what the
                 # next mini-epoch sees

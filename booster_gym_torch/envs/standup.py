@@ -41,6 +41,7 @@ from booster_gym_torch.envs.t1 import T1, _resolve_asset
 from booster_gym_torch.math.quat import quat_from_euler_xyz, quat_mul
 from booster_gym_torch.model import load_urdf
 from booster_gym_torch.physics import SimState
+from booster_gym_torch.utils.spans import span
 
 # the squat of the bank's ladder and of the tucked drops: radians added to
 # these joints at full depth
@@ -103,7 +104,8 @@ class T1Standup(T1):
     # -- the fallen-state bank -------------------------------------------------
     def init_params(self, gen):
         params = super().init_params(gen)
-        bank = self._build_fallen_bank(params, gen)
+        with span("env.bank"):
+            bank = self._build_fallen_bank(params, gen)
         fields = {f.name: getattr(params, f.name) for f in dataclasses.fields(params)}
         return StandupParams(**fields, init_bank=bank)
 

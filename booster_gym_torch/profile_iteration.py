@@ -45,7 +45,7 @@ import torch
 WARMUP_ITERS, PROFILED_ITERS = 2, 2
 SPANS = ("ppo.iteration", "ppo.rollout", "ppo.act", "env.step", "env.graph", "env.physics",
          "env.post_physics", "env.reward", "env.reset", "env.observe", "ppo.episode_stats",
-         "ppo.update")
+         "ppo.update", "ppo.gae", "ppo.grads", "ppo.opt")
 # runtime calls that return only once the device has caught up
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")

@@ -24,6 +24,13 @@ The names, nested as the training step runs them:
           env.observe       observations and the last_* bookkeeping
         ppo.episode_stats  episode sums, counts and buffer appends, each step
       ppo.update         PPO.update, both backends
+        ppo.gae          the fused backend's K2 (values, GAE, advantage sums), each mini-epoch
+        ppo.grads        its K3 (gradients and loss sums), each mini-epoch
+        ppo.opt          its K4 (clip, Adam, staged weights), each mini-epoch
+
+and at set-up, outside the iteration:
+
+    env.bank             T1Standup's bank of settled fallen states, in init_params
 """
 
 import contextlib

@@ -1,9 +1,10 @@
 """The program's profiler spans (booster_gym_torch/utils/spans.py): off
 without a profiler, one shared null context and no record_function call;
 under a CPU profiler one train_iteration of a small stand-in T1 carries
-each span as many times as the step runs it, nested as the step nests;
-and the iteration's outputs are bitwise the same with and without the
-profiler."""
+each span as many times as the step runs it, nested as the step nests
+(the fused update's K2, K3 and K4 once a mini-epoch each); the iteration's
+outputs are bitwise the same with and without the profiler; and
+T1Standup's bank is one span at set-up."""
 
 import pytest
 import torch
@@ -16,6 +17,7 @@ from booster_gym_torch.utils.config import load_task_cfg
 
 HORIZON = 3
 ENV_PARTS = ("env.physics", "env.post_physics", "env.reward", "env.reset", "env.observe")
+UPDATE_PARTS = ("ppo.gae", "ppo.grads", "ppo.opt")
 
 
 def test_span_is_one_null_context_without_a_profiler(monkeypatch):
@@ -31,14 +33,14 @@ def test_span_is_one_null_context_without_a_profiler(monkeypatch):
             pass
 
 
-def _cfg(tmp, terrain):
+def _cfg(tmp, terrain, mini_epochs=1):
     cfg = load_task_cfg("T1")
     cfg["env"]["num_envs"] = 4
     cfg["terrain"]["type"] = terrain
     if terrain == "trimesh":
         cfg["terrain"].update(num_terrains=2, terrain_width=4.0, terrain_length=4.0,
                               border_size=2.0)
-    cfg["runner"].update(horizon_length=HORIZON, mini_epochs=1)
+    cfg["runner"].update(horizon_length=HORIZON, mini_epochs=mini_epochs)
     cfg["basic"].update(seed=5, checkpoint=None, data_parallel=False)
     cfg["asset"]["file"] = write_t1_shaped_urdf(tmp)
     return cfg
@@ -79,6 +81,7 @@ def test_spans_counted_and_nested_in_one_iteration(runs):
         by.setdefault(s[0], []).append(s)
     counts = {name: len(v) for name, v in by.items()}
     assert counts == {"ppo.iteration": 1, "ppo.rollout": 1, "ppo.update": 1,
+                      **{name: 1 for name in UPDATE_PARTS},
                       **{name: HORIZON for name in ("ppo.act", "env.step", "ppo.episode_stats",
                                                     *ENV_PARTS)}}
     (it,), (roll,), (upd,) = by["ppo.iteration"], by["ppo.rollout"], by["ppo.update"]
@@ -100,3 +103,38 @@ def test_outputs_bitwise_with_and_without_the_profiler(runs):
     assert sorted(traced) == sorted(plain)
     for k in plain:
         assert torch.equal(traced[k], plain[k]), k
+
+
+def test_update_parts_open_once_per_mini_epoch_in_order(tmp_path):
+    """The fused update's K2, K3 and K4 calls each sit in their own span,
+    once a mini-epoch, in that order, inside ppo.update."""
+    epochs = 3
+    _, found = _iteration(_cfg(tmp_path, "plane", mini_epochs=epochs), profiled=True)
+    (upd,) = [s for s in found if s[0] == "ppo.update"]
+    parts = sorted((s for s in found if s[0] in UPDATE_PARTS), key=lambda s: s[1])
+    assert [s[0] for s in parts] == list(UPDATE_PARTS) * epochs
+    assert all(_inside(s, upd) for s in parts)
+    assert all(a[2] <= b[1] for a, b in zip(parts, parts[1:]))
+
+
+def test_bank_is_one_span_at_set_up(tmp_path):
+    """T1Standup builds its bank of settled fallen states inside env.bank,
+    once, in init_params; the step opens no such span."""
+    from booster_gym_torch.envs.standup import T1Standup
+    from booster_gym_torch.testing import write_t1_serial_mjcf, write_t1_serial_urdf
+
+    cfg = load_task_cfg("T1Standup")
+    cfg["env"]["num_envs"] = 2
+    cfg["standup"]["settle_rounds"] = 1
+    cfg["control"]["decimation"] = 2
+    cfg["asset"].update(file=write_t1_serial_urdf(tmp_path),
+                        mujoco_file=write_t1_serial_mjcf(tmp_path))
+    env = T1Standup(cfg, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        params = env.init_params(gen)
+        state, _, _ = env.reset_all(params, gen)
+        env.step(params, state, torch.zeros(2, 12), gen)
+    names = [e.name for e in prof.events()]
+    assert names.count("env.bank") == 1 and names.count("env.step") == 1
+    assert params.init_bank.q.shape == (2, 23)
