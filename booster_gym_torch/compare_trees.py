@@ -17,9 +17,9 @@ runs TREE's K2 at T = 24 (bf16 and f32, B = 4096 and 1000, testing.
 update_case's data) and saves its four outputs to OUT, with ms per call
 (CUDA events) and the device kernels per call; `gae-diff` says whether two
 such files are bitwise equal.  `k3` and `k3-diff` do the same for K3
-(grads_stats at T = 24, B = 4096 and 1000, bf16 and f32: the gradient,
-the metric sums, mu and logp), called as every tree takes it, without
-n_total.  `sass` builds TREE's K1 (the T1-shaped
+(grads_stats at T = 24, B = 4096 and 1000, bf16 and f32, at the T1 widths
+and at T1Standup's: the gradient, the metric sums, mu and logp), called as
+every tree takes it, without n_total.  `sass` builds TREE's K1 (the T1-shaped
 robot's sizes, its foot edge points) and its update library at the T1
 networks' widths and writes each library's machine code (cuobjdump -sass,
 every kernel, bf16 and f32) to OUT; `sass-diff` says whether two such
@@ -37,6 +37,9 @@ T1_SIZES = dict(NB=13, ND=12, NPT=56, NS=7, NF=2)
 UPDATE_SIZES = dict(NOBS=47, NPRIV=14, NACT=12, AH1=256, AH2=128, AH3=128, CH1=256, CH2=256,
                     CH3=128)
 KERNELS = ("control", "substep_kernel", "k4", "k2_critic", "terrain")
+# the update builds that k3 runs: (actions, observations, privileged
+# observations) of T1 (61-wide critic) and of T1Standup (420 / 434 wide)
+K3_WIDTHS = {"t1": (12, 47, 14), "standup": (12, 420, 14)}
 
 
 def use_tree(tree):
@@ -108,16 +111,18 @@ def k3(tree, out):
     from booster_gym_torch.testing import update_case
 
     res = {}
-    for dtype in ("bf16", "f32"):
-        for B in (4096, 1000):
-            fused, p, staged, prep, d = update_case(dtype, 24, B, "cuda", seed=B)
-            adv = d["adv"]
-            args = (staged, p, prep, adv, d["ret"], adv.mean(), 1.0 / (adv.std() + 1e-8), False)
-            g, st, mu, logp = fused.grads_stats(*args)
-            torch.cuda.synchronize()
-            res[f"{dtype}_{B}"] = [t.cpu() for t in (g, *st.values(), mu, logp)]
-            ms, _ = testing.time_cuda(lambda: fused.grads_stats(*args), 20)
-            print(tree, dtype, B, f"ms/call {ms:.4f}", flush=True)
+    for widths, dims in K3_WIDTHS.items():
+        for dtype in ("bf16", "f32"):
+            for B in (4096, 1000):
+                fused, p, staged, prep, d = update_case(dtype, 24, B, "cuda", seed=B, dims=dims)
+                adv = d["adv"]
+                args = (staged, p, prep, adv, d["ret"], adv.mean(), 1.0 / (adv.std() + 1e-8),
+                        False)
+                g, st, mu, logp = fused.grads_stats(*args)
+                torch.cuda.synchronize()
+                res[f"{widths}_{dtype}_{B}"] = [t.cpu() for t in (g, *st.values(), mu, logp)]
+                ms, _ = testing.time_cuda(lambda: fused.grads_stats(*args), 20)
+                print(tree, widths, dtype, B, f"ms/call {ms:.4f}", flush=True)
     torch.save(res, out)
 
 

@@ -34,24 +34,28 @@
 // (4), actor biases (4), critic weights (4), critic biases (4), logstd.
 // Each launch first copies the weights of `staged` into `wpad` (k_pad):
 // every layer [rup16(out)][rup16(in)], zero-padded, so that a row of 8
-// values is 16 aligned bytes that cp.async can fetch.
+// values is 16 aligned bytes that cp.async can fetch; a tile block's launch
+// (K3, K9, K10) also each layer's transpose [rup16(in)][rup16(out)] after
+// them, so that every weight chunk it stages is whole rows of one
+// row-major matrix, read the same way.
 //
 // What bounds them on this card.  K2 and K3 are bound by operations
 // (2.3e5 and 1.0e6 flop per sample against 0.1 to 0.4 KB).  K2 and K8 run
 // their own forward-only critic kernel, k2_critic (its design is at the
-// kernel).  K3's tile block (16 warps, one per SM; also K10's) keeps one
-// tile of samples (64 in bf16, 32 in f32 at the T1 networks' widths;
-// tile_rows halves it where the block would not fit, 32 and 16 at
-// T1Standup's 434-wide critic input) with every layer's activations in
-// shared memory; weights stream through L2 in chunks of 32 (bf16) or 16
-// (f32) reduction rows, double-buffered with cp.async, one block barrier per
-// chunk.  K3 (and K9) is three passes, all on the caller's stream:
+// kernel).  K3's tile block (one per SM; also K10's) keeps one tile of
+// samples (64 in bf16, 32 in f32 at the T1 networks' widths; tile_rows
+// halves it where the block would not fit, 32 and 16 at T1Standup's
+// 434-wide critic input) with every layer's activations in shared memory,
+// and is warp-specialised: a producer warp streams the weights from L2 in
+// chunks of 16 or 32 reduction rows through a ring of mbarrier-guarded
+// stages, as deep as the block's shared memory leaves room for, to two
+// groups of 8 warps, each taking half of every tile's rows (its schedule is
+// at gemm_epi).  K3 (and K9) is three passes, all on the caller's stream:
 //   pass 1 (k3_pass1)  per tile: forward, the per-row loss step, the input
 //                      gradients of both nets; every layer's input x_l and
-//                      output gradient dz_l leave as rows in type T, by bulk
-//                      copies that run on while the block computes, to a
-//                      scratch in device memory (2,400 values per row at
-//                      the T1 widths), and
+//                      output gradient dz_l leave as rows in type T, 16
+//                      bytes a thread and store, to a scratch in device
+//                      memory (2,400 values per row at the T1 widths), and
 //                      the per-row stats to the block's stat partial;
 //   pass 2 (k3_pass2)  the weight gradients dW_l = dz_l^T x_l as a split-K
 //                      product over the rows: a block owns one 128 x 128
@@ -63,11 +67,16 @@
 //   pass 3 (k3_reduce) the slab partials added in slab order.
 // The weight gradient is thus never added to device memory per tile (the
 // design before this one did: 273 M L2 reductions per call on 94 MB of
-// partials, most of its 4.7 ms).  What bounds K3 now is pass 1: one block
-// per SM runs its 14 products, their weight chunks from L2 (each tile
-// restages all weights, ~0.7 MB per 64 rows), the epilogues and the scratch
-// stores in lock step, so each of those costs about as much as the tensor
-// work; then pass 2's reads of the scratch (0.47 GB bf16 at 98,304 rows).
+// partials, most of its 4.7 ms).  What bounds K3 now is still pass 1, ~75 %
+// of a call.  A consumer warp's tile at the T1 widths (-DK3_CLOCKS=1,
+// NVIDIA H100 80GB HBM3, 700 W) is ~37 % products, ~21 % scratch stores
+// (1.9 GB a call at 393,216 rows), ~18 % waits on a full stage, ~12 %
+// epilogues (ELU's exp for every value) and ~7 % group barriers.  Each tile
+// restages all weights from L2 (~0.7 MB per 64 rows) through a ring only 3
+// stages deep at the T1 widths, and a stage frees only when both groups
+// have read it: the ring stays full, the groups run nearly together, and
+// one's epilogue seldom runs under the other's products.  Then pass 2's
+// reads of the scratch.
 // K4 is bound by bytes (four vectors read, four written); it is one launch
 // (k4_opt, its design is at the kernel).
 //
@@ -117,8 +126,11 @@
 constexpr HD int cmax(int a, int b) { return a > b ? a : b; }
 constexpr HD int rup(int x, int m) { return (x + m - 1) / m * m; }
 constexpr int NCRIT = NOBS + NPRIV;
-constexpr int NT = 512;                       // threads of a tile block (one per SM)
-constexpr int NW = NT / 32;                   // its warps
+// A tile block (one per SM): NG warp groups of NWG consumer warps, then one
+// producer warp
+constexpr int NG = 2, NWG = 8, GT = NWG * 32;  // groups, warps and threads a group
+constexpr int NW = NG * NWG;                  // consumer warps
+constexpr int NT = NG * GT + 32;              // threads of a tile block
 constexpr int K4_NT = 256;                    // threads of K4's blocks and the reduce
 constexpr int X0W = rup(NCRIT, 32);           // padded input width
 constexpr int DZ3W = rup(NACT, 16);           // padded width of the last layer's dz
@@ -139,42 +151,55 @@ struct Offs { int aW[4], ab[4], cW[4], cb[4], logstd; };
 
 // The bytes of a tile block's shared memory (Smem<T>::bytes, which
 // static_asserts the two equal) at tn samples a tile, for a compute type of
-// tsize bytes with CT's kc, st and pad
+// tsize bytes with a ring of st stages of kc reduction rows and CT's pad:
+// the activations, the ring, the biases, the f32 rows, then a full and an
+// empty mbarrier a stage
 constexpr size_t tile_bytes(int tn, int kc, int st, int pad, int tsize) {
-    const int kp = tsize == 4 ? kc + 1 : kc;
-    const int n_ws = cmax(256 * kp, kc * (256 + pad));
+    const int n_ws = kc * (256 + pad);
     const size_t n_t = (size_t)tn * (X0W + HB1 + HB2 + HB3 + HBA + HB2 + 6 * pad) + st * n_ws
                        + rup(NBIAS, 8);
     const size_t n_f = (size_t)tn * (NACT + 1 + NSTAT) + 2 * NACT;
-    return ((n_t * tsize + 127) / 128) * 128 + n_f * 4;
+    return ((n_t * tsize + 127) / 128) * 128 + n_f * 4 + 16 * st;
 }
-// A tile's samples: tn, halved while the block does not fit (down to 16).
-// The T1 networks keep 64 in bf16 and 32 in f32; a 434-wide critic input
-// takes 32 and 16.
+// A tile's samples: tn, halved while the block with a ring of two stages of
+// 32 (bf16) or 16 (f32) rows does not fit (down to 16).  The T1 networks
+// keep 64 in bf16 and 32 in f32; a 434-wide critic input takes 32 and 16.
 constexpr int tile_rows(int tn, int kc, int st, int pad, int tsize) {
     return tn <= 16 || tile_bytes(tn, kc, st, pad, tsize) <= SMEM_MAX
                ? tn : tile_rows(tn / 2, kc, st, pad, tsize);
 }
+// The ring's stages: as many chunks of kc rows as the rest of the block
+// leaves room for
+constexpr int ring_stages(int tn, int kc, int pad, int tsize, int st = 1) {
+    return tile_bytes(tn, kc, st + 1, pad, tsize) <= SMEM_MAX ? ring_stages(tn, kc, pad, tsize, st + 1)
+                                                              : st;
+}
 
 template <typename T> struct CT;
 // TN: samples in a tile (tile_rows); KC: reduction rows of a staged weight
-// chunk, ST of them in flight (more stages and shorter chunks measured
-// slower on the H100); PAD: what a shared-memory row stride adds to its
-// width (multiples of 16 bytes, and for bf16 an odd number of 16-byte
-// units, so the 8 rows an ldmatrix reads fall in different banks); VEC:
-// values in 16 bytes
+// chunk, ST of them in the ring (ring_stages: 3 in bf16 at the T1 widths, 7
+// at T1Standup's; chunks of 16 rows in bf16, twice the stages, measured
+// 1-4 % slower at the T1 widths, NVIDIA H100 80GB HBM3, 700 W); PAD: what
+// a shared-memory row stride adds to its width (multiples of 16 bytes, and
+// for bf16 an odd number of 16-byte units, so the 8 rows an ldmatrix reads
+// fall in different banks); VEC: values in 16 bytes
 template <> struct CT<float> {
-    static constexpr int KC = 16, ST = 2, PAD = 4, VEC = 4;
-    static constexpr int TN = tile_rows(32, KC, ST, PAD, 4);
+    static constexpr int KC = 16, PAD = 4, VEC = 4;
+    static constexpr int TN = tile_rows(32, KC, 2, PAD, 4);
+    static constexpr int ST = ring_stages(TN, KC, PAD, 4);
     static __device__ __forceinline__ float to_f(float x) { return x; }
     static __device__ __forceinline__ float from_f(float x) { return x; }
 };
 template <> struct CT<__nv_bfloat16> {
-    static constexpr int KC = 32, ST = 2, PAD = 8, VEC = 8;   // KC 32: swz
-    static constexpr int TN = tile_rows(64, KC, ST, PAD, 2);
+    static constexpr int KC = 32, PAD = 8, VEC = 8;
+    static constexpr int TN = tile_rows(64, KC, 2, PAD, 2);
+    static constexpr int ST = ring_stages(TN, KC, PAD, 2);
     static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
     static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
 };
+// ---- end of the build's sizes: from `#ifndef NOBS` to here the text is
+// plain C++ but for the CUDA qualifiers and the bf16 type
+
 // x rounded to T, as a float
 template <typename T> __device__ __forceinline__ float rnd(float x) {
     return CT<T>::to_f(CT<T>::from_f(x));
@@ -227,26 +252,28 @@ template <typename Net> constexpr HD int scr_xw(int l) { return l == 0 ? X0W : N
 template <typename Net> constexpr HD int scr_dzw(int l) { return l == 3 ? DZ3W : Net::out(l); }
 
 // ---------------------------------------------------------------------------
-// Shared memory of a tile block (K3's pass 1, K10).  Row
-// strides are the widths plus PAD.  The x of layers 1 and 3 share xa; z_l
-// holds the pre-activation and then, in the backward, dz of that layer; the
-// last layer's dz (dzl) lies in xb, free once the forward is done.
+// Shared memory of a tile block (K3's pass 1, K10).  Row strides are the
+// widths plus PAD.  The x of layers 1 and 3 share xa; z_l holds ELU' of the
+// pre-activation and then, in the backward, dz of that layer; the last
+// layer's dz (dzl) lies in xb, free once the forward is done.  Warp group g
+// owns rows [g TG, + TG) of every row buffer.
 template <typename T> struct Smem {
-    static constexpr int TN = CT<T>::TN, P = CT<T>::PAD;
+    static constexpr int TN = CT<T>::TN, TG = TN / NG, P = CT<T>::PAD, ST = CT<T>::ST;
     static constexpr int L0 = X0W + P, LZ1 = HB1 + P, LZ2 = HB2 + P, LZ3 = HB3 + P, LA = HBA + P,
                          LB = HB2 + P, LD = DZ3W + P;
-    // a staged chunk: FWD [CW][KP] or !FWD [KC][CW + PAD], ST of them; f32's
-    // FWD rows are KC + 1 apart, bf16's KC apart with their 16-byte units
-    // swizzled (swz)
-    static constexpr int KP = std::is_same<T, float>::value ? CT<T>::KC + 1 : CT<T>::KC;
-    static constexpr int n_ws = cmax(256 * KP, CT<T>::KC * (256 + P));
-    static constexpr size_t n_t = (size_t)TN * (L0 + LZ1 + LZ2 + LZ3 + LA + LB) + CT<T>::ST * n_ws
+    // a staged chunk: [KC][CW + PAD] (CW <= 256), ST of them
+    static constexpr int n_ws = CT<T>::KC * (256 + P);
+    static constexpr size_t n_t = (size_t)TN * (L0 + LZ1 + LZ2 + LZ3 + LA + LB) + ST * n_ws
                                   + rup(NBIAS, 8);
     static constexpr size_t n_f = (size_t)TN * (NACT + 1 + NSTAT) + 2 * NACT;
-    static constexpr size_t bytes = ((n_t * sizeof(T) + 127) / 128) * 128 + n_f * sizeof(float);
+    static constexpr size_t f_off = ((n_t * sizeof(T) + 127) / 128) * 128;
+    static constexpr size_t bar_off = f_off + n_f * sizeof(float);
+    static constexpr size_t bytes = bar_off + 16 * ST;
     T *x0, *z1, *z2, *z3, *xa, *xb, *dzl, *ws, *bias;
     float *mu, *val, *stat, *logstd, *var;
+    unsigned long long* bar;   // the ring's mbarriers: full[ST], then empty[ST]
     __device__ Smem(unsigned char* raw) {
+        bar = reinterpret_cast<unsigned long long*>(raw + bar_off);
         T* p = reinterpret_cast<T*>(raw);
         x0 = p; p += TN * L0;
         z1 = p; p += TN * LZ1;
@@ -255,9 +282,9 @@ template <typename T> struct Smem {
         xa = p; p += TN * LA;
         xb = p; p += TN * LB;
         dzl = xb;
-        ws = p; p += CT<T>::ST * n_ws;
+        ws = p; p += ST * n_ws;
         bias = p;
-        float* f = reinterpret_cast<float*>(raw + ((n_t * sizeof(T) + 127) / 128) * 128);
+        float* f = reinterpret_cast<float*>(raw + f_off);
         mu = f; f += TN * NACT;
         val = f; f += TN;
         stat = f; f += TN * NSTAT;
@@ -267,21 +294,43 @@ template <typename T> struct Smem {
 };
 static_assert(Smem<float>::bytes <= SMEM_MAX, "f32 tile exceeds a block's shared memory");
 static_assert(Smem<__nv_bfloat16>::bytes <= SMEM_MAX, "bf16 tile exceeds a block's shared memory");
-static_assert(Smem<float>::bytes == tile_bytes(CT<float>::TN, 16, 2, 4, 4)
-              && Smem<__nv_bfloat16>::bytes == tile_bytes(CT<__nv_bfloat16>::TN, 32, 2, 8, 2),
+static_assert(Smem<float>::bytes == tile_bytes(CT<float>::TN, 16, CT<float>::ST, 4, 4)
+              && Smem<__nv_bfloat16>::bytes
+                     == tile_bytes(CT<__nv_bfloat16>::TN, CT<__nv_bfloat16>::KC,
+                                   CT<__nv_bfloat16>::ST, 8, 2),
               "tile_bytes must be Smem's size");
 static_assert(Smem<float>::LD <= Smem<float>::LB && Smem<__nv_bfloat16>::LD <= Smem<__nv_bfloat16>::LB,
               "dzl must fit in xb");
+static_assert(Smem<float>::bar_off % 8 == 0 && Smem<__nv_bfloat16>::bar_off % 8 == 0,
+              "mbarriers are 8-byte aligned");
+static_assert(CT<float>::ST >= 2 && CT<__nv_bfloat16>::ST >= 2, "a ring of two stages at least");
+static_assert(Smem<__nv_bfloat16>::TG % 16 == 0 && Smem<float>::TG % NWG == 0,
+              "a group's rows: whole 16-row mma tiles (bf16), whole rows a warp (f32)");
 
 // ---------------------------------------------------------------------------
-// PTX: cp.async (16 or 4 bytes; src_bytes 0 fills zeros), ldmatrix, mma.sync
+// PTX: cp.async (16 or 4 bytes; src_bytes 0 fills zeros), ldmatrix, mbarriers, mma.sync
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ uint64_t policy_evict_first() {
-    uint64_t p;
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
-    return p;
+// Shared memory by address, for the bf16 epilogues (gemm_epi)
+__device__ __forceinline__ uint32_t lds_b32(uint32_t a) {
+    uint32_t v;
+    asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ float bf16_at(uint32_t a) {   // a bf16 value, as a float
+    unsigned short v;
+    asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(v) : "r"(a));
+    return __uint_as_float((uint32_t)v << 16);
+}
+__device__ __forceinline__ void sts_b32(uint32_t a, uint32_t v) {
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
+__device__ __forceinline__ void sts_f32(uint32_t a, float v) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(v));
+}
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+    return *reinterpret_cast<uint32_t*>(&v);
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -296,25 +345,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N> __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// shared -> global bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) on the async proxy: the thread goes on at once; its smem source
-// may be written again after bulk_wait_read, and a fence.proxy.async by the
-// writers (then a barrier) must come between their writes and the copy.  The
-// lines it writes are marked to leave L2 first: left to L2's own policy, the
-// 0.47 GB of scratch rows that stream through it cost pass 1 another 0.38 ms
-// (NVIDIA H100 80GB HBM3, 700 W, prof_update --variant)
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n"
-                 ::"l"(dst), "r"(smem_u32(src)), "r"(bytes), "l"(policy_evict_first()) : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm4(uint32_t* r, const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -324,10 +354,40 @@ __device__ __forceinline__ void ldsm4t(uint32_t* r, const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
-// The 16-byte unit u (of 4) of row c of a bf16 FWD chunk [CW][32] lies at
-// unit swz(c, u): the 8 rows an ldmatrix reads then fall in 8 different
-// bank groups, with no padding
-__device__ __forceinline__ int swz(int c, int u) { return u ^ ((c >> 1) & 3); }
+// mbarriers (shared::cta): init, arrive (release), arrive with an expected
+// byte count, and a wait for the phase of a parity (acquire; .cluster where
+// other blocks' writes complete on it)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+// an arrive on bar once every cp.async this thread has issued so far has
+// landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cta(uint32_t bar, uint32_t parity) {
+    uint32_t done = 0;
+    while (!done)
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
 // d += a b: a 16 x 16 (row), b 16 x 8 (col), d 16 x 8 f32.  With g = lane / 4
 // and t = lane % 4, d[0], d[1] are row g, columns 2t, 2t + 1; d[2], d[3] row
 // g + 8.
@@ -340,103 +400,284 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
 }
 
 // ---------------------------------------------------------------------------
-// For every sample n of the tile and every column c < CW = 32 J:
-//     epi(n, c, sum_{r < R} A[n * lda + r] * B[r][c])
-// FWD:  B[r][c] = Wp[c * ldw + r]   (r over inputs, c over outputs: x W^T)
-// !FWD: B[r][c] = Wp[r * ldw + c]   (r over outputs, c over inputs: dz W)
-// Wp is one layer of wpad, `rows` rows of ldw; R is a multiple of 16.  B is
-// staged through shared memory KC values of r at a time, ST chunks in
-// flight (cp.async), zero past Wp's rows and past R; A is read only below R.
-// epi sees columns past B's end (as 0) and must skip them.
-// f32: FMAs, a warp takes TN / NW samples, a lane every 32nd column.
+// The tile block's schedule (K3's pass 1, K9's, K10).  The producer warp
+// walks the block's tiles and, for each, the same products as the consumers,
+// staging every product's weight chunks (KC rows of W^T or W, Prod) from
+// wpad into a ring of ST stages with cp.async, each lane arriving on the
+// stage's "full" mbarrier once its copies have landed (cp.async.mbarrier.
+// arrive.noinc; bulk copies, a row each, measured slower).  It runs ahead of the
+// consumers across products and tiles, as far as the ring allows: before it
+// refills a stage it waits on the stage's "empty" mbarrier, on which every
+// consumer warp of both groups arrives when it has read the chunk.  So the
+// weights cross L2 once a tile, and the next product's and the next tile's
+// first chunks are in flight while the groups run their epilogues.
+//
+// The consumers are NG = 2 warp groups; group g takes rows [g TG, + TG) of
+// every tile, with a named barrier of its own (bar.sync 1 + g) where the
+// block used to synchronise, so one group's epilogues, loss step and row
+// stores can run while the other's products do.  Both groups start
+// together: with group 1 half the ring behind group 0, K3 took 0.6 % (T1
+// widths) and 4 % (434-wide critic) longer at 393,216 rows, NVIDIA H100
+// 80GB HBM3, 700 W.
+
+// Diagnostic builds only (-DK3_CLOCKS=1): lane 0 of every consumer warp
+// adds the clock cycles of each phase of its tiles (K3_PHASES in
+// prof_update.py: products, waits on a full stage, group barriers,
+// epilogues, the loss step, scratch stores, the x0 rows), the producer's
+// lane 0 its waits on an empty stage and its copies, to k3_clk[phase];
+// bg_k3_clocks reads and clears them.  The default build has none of it.
+#ifndef K3_CLOCKS
+#define K3_CLOCKS 0
+#endif
+enum { C_MMA, C_FULL, C_BAR, C_EPI, C_LOSS, C_STORE, C_X0, C_EMPTY, C_ISSUE, K3_NCLK };
+#if K3_CLOCKS
+__device__ unsigned long long k3_clk[K3_NCLK];
+#define K3_CLK(gp, k)                          \
+    do {                                       \
+        const long long now_ = clock64();      \
+        (gp).clk[k] += now_ - (gp).t;          \
+        (gp).t = now_;                         \
+    } while (0)
+#else
+#define K3_CLK(gp, k)
+#endif
+
+// A warp's place in a tile block: its group (NG for the producer), its
+// thread in the group, lane, warp in the group and the group's first row of
+// a tile; the ring's next stage and the parity of that stage's phase
+struct Grp {
+    int g, gtid, lane, warp, r0;
+    int stg = 0;
+    uint32_t ph = 0;
+#if K3_CLOCKS
+    long long t = 0;
+    unsigned long long clk[K3_NCLK] = {};
+#endif
+};
+template <typename T> __device__ __forceinline__ Grp grp_of(int tid) {
+    Grp gp;
+    gp.g = tid / GT;
+    gp.gtid = tid % GT;
+    gp.lane = tid & 31;
+    gp.warp = gp.gtid >> 5;
+    gp.r0 = gp.g * Smem<T>::TG;
+#if K3_CLOCKS
+    gp.t = clock64();
+#endif
+    return gp;
+}
+__device__ __forceinline__ void group_bar(Grp& gp) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gp.g), "n"(GT) : "memory");
+    K3_CLK(gp, C_BAR);
+}
+// ring mbarriers: full[s], then empty[s]
+template <typename T> __device__ __forceinline__ uint32_t full_bar(const Smem<T>& s, int st) {
+    return smem_u32(s.bar + st);
+}
+template <typename T> __device__ __forceinline__ uint32_t empty_bar(const Smem<T>& s, int st) {
+    return smem_u32(s.bar + CT<T>::ST + st);
+}
+// A warp's place in the ring while it walks a product, in registers (Grp
+// keeps it between products): the stage and the parity of its phase
+template <typename T> struct Cursor {
+    static constexpr int ST = CT<T>::ST;
+    uint32_t full0;   // full[0]; full[s] lies 8 s bytes on, empty[s] 8 (ST + s)
+    int stg;
+    uint32_t ph;
+    __device__ __forceinline__ Cursor(const Smem<T>& s, const Grp& gp)
+        : full0(full_bar(s, 0)), stg(gp.stg), ph(gp.ph) {}
+    __device__ __forceinline__ uint32_t full() const { return full0 + 8 * stg; }
+    __device__ __forceinline__ uint32_t empty() const { return full0 + 8 * (ST + stg); }
+    __device__ __forceinline__ void next() {
+        if (++stg == ST) {
+            stg = 0;
+            ph ^= 1;
+        }
+    }
+    __device__ __forceinline__ void save(Grp& gp) const {
+        gp.stg = stg;
+        gp.ph = ph;
+    }
+};
+// The ring's mbarriers: full counts the producer's 32 lanes (a cp.async
+// arrive each), empty every consumer warp
+template <typename T> __device__ __forceinline__ void ring_init(const Smem<T>& s) {
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < CT<T>::ST; ++st) {
+            mbar_init(full_bar(s, st), 32);
+            mbar_init(empty_bar(s, st), NW);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+}
+// The consumers' end: both groups are here (named barrier 3)
+__device__ __forceinline__ void groups_end() {
+    asm volatile("bar.sync 3, %0;\n" ::"n"(NG * GT) : "memory");
+}
+#if K3_CLOCKS
+__device__ __forceinline__ void clocks_out(const Grp& gp) {
+    if (gp.lane == 0)
+        for (int k = 0; k < K3_NCLK; ++k)
+            if (gp.clk[k]) atomicAdd(&k3_clk[k], gp.clk[k]);
+}
+#endif
+
+// One product of a tile: layer L of Net forward (x W^T, FWD) or its input
+// gradient (dz W); the producer stages its chunks and the consumers multiply
+// them from this one description.  Either is A B with B the row-major [R][LD]
+// matrix at wpad + M: the layer's padded W^T (FWD, [inp][outp], in wpad's
+// second half) or W (!FWD, [outp][inp]); R reduction rows; CW = 32 J >= LD
+// columns.
+template <typename Net, int L, bool FWD_> struct Prod {
+    static constexpr bool FWD = FWD_;
+    static constexpr int J = FWD ? (Net::out(L) + 31) / 32 : Net::in(L) / 32;
+    static constexpr int M = FWD ? NWPAD + Net::wp(L) : Net::wp(L);
+    static constexpr int LD = FWD ? Net::outp(L) : Net::inp(L);
+    static constexpr int R = FWD ? Net::inp(L) : Net::outp(L);
+};
+
+// The producer's part of a product P: for every chunk of KC reduction rows,
+// wait for the stage to be empty, then copy the chunk's rows [k0, k0 + KC)
+// of P's matrix (W^T for FWD, W for !FWD; rows past R are not copied) into
+// [KC][CW + PAD], 16 bytes a cp.async, the lanes along the rows, and arrive
+// on the stage's full mbarrier once this lane's copies have landed.
+// Columns past the row's LD values are not written: the consumers read them
+// only for outputs their epilogue skips.
+template <typename T, typename P>
+__device__ __forceinline__ void produce(const T* __restrict__ wpad, const Smem<T>& s, Grp& gp) {
+    constexpr int KC = CT<T>::KC, VEC = CT<T>::VEC, CP = P::J * 32 + CT<T>::PAD;
+    constexpr int WS = Smem<T>::n_ws, PR = P::LD / VEC;   // 16-byte pieces a row
+    // lane l < RPI LPR copies pieces l % LPR, + LPR, ... of rows l / LPR, +
+    // RPI, ...
+    constexpr int LPR = PR < 32 ? PR : 32, RPI = 32 / LPR;
+    constexpr int NCH = (P::R + KC - 1) / KC;
+    static_assert(PR % LPR == 0 && KC % RPI == 0, "a chunk's pieces over the lanes");
+    const T* M = wpad + P::M;
+    T* const ws = s.ws;
+    const int v0 = gp.lane % LPR, r0 = gp.lane / LPR;
+    Cursor<T> cur(s, gp);
+    for (int ch = 0; ch < NCH; ++ch) {
+        mbar_wait_cta(cur.empty(), cur.ph ^ 1);
+        K3_CLK(gp, C_EMPTY);
+        const int k0 = ch * KC, rows = P::R - k0 < KC ? P::R - k0 : KC;
+        T* const dst = ws + cur.stg * WS;
+        const T* const src = M + (size_t)(k0 + r0) * P::LD + v0 * VEC;
+        T* const to = dst + r0 * CP + v0 * VEC;
+#pragma unroll
+        for (int r = 0; r < KC; r += RPI)
+            if (r0 < RPI && r0 + r < rows)
+#pragma unroll
+                for (int v = 0; v < PR; v += LPR)
+                    cp_async16(to + r * CP + v * VEC, src + (size_t)r * P::LD + v * VEC, true);
+        cp_async_arrive(cur.full());
+        cur.next();
+        K3_CLK(gp, C_ISSUE);
+    }
+    cur.save(gp);
+}
+// a net's forward (layers 0-3) and its input gradients (layers 3-1), in the
+// consumers' order
+template <typename T, typename Net>
+__device__ __forceinline__ void produce_fwd(const T* __restrict__ wpad, const Smem<T>& s, Grp& gp) {
+    produce<T, Prod<Net, 0, true>>(wpad, s, gp);
+    produce<T, Prod<Net, 1, true>>(wpad, s, gp);
+    produce<T, Prod<Net, 2, true>>(wpad, s, gp);
+    produce<T, Prod<Net, 3, true>>(wpad, s, gp);
+}
+template <typename T, typename Net>
+__device__ __forceinline__ void produce_bwd(const T* __restrict__ wpad, const Smem<T>& s, Grp& gp) {
+    produce<T, Prod<Net, 3, false>>(wpad, s, gp);
+    produce<T, Prod<Net, 2, false>>(wpad, s, gp);
+    produce<T, Prod<Net, 1, false>>(wpad, s, gp);
+}
+
+// A consumer warp has read its chunk: it frees the stage (one arrive a
+// warp) and moves on in the ring
+template <typename T> __device__ __forceinline__ void release(Cursor<T>& cur, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(cur.empty());
+    cur.next();
+}
+
+// For every sample n of the group's rows of the tile and every column c < CW
+// = 32 J of product P:
+//     epi.out(n, c, sum_{r < R} A[n * lda + r] * B[r][c], epi.in(n, c))
+// with B staged by produce, from the ring; A is read only below R.  out sees
+// columns past B's end (as garbage) and must skip them.  bf16 takes two
+// neighbouring columns a call (in2, out2: one conversion and one store for
+// both, through the shared-memory accessors: K3 with bf16 through in and
+// out took 3.7 % (T1 widths) and 1.6 % (434-wide critic) longer at 393,216
+// rows, NVIDIA H100 80GB HBM3, 700 W).  The epilogue reads every input
+// first, then computes and writes: its loads would not pass the stores
+// otherwise (both shared memory), and each value would wait for the one
+// before.  The caller has made A's rows visible to the group (a group
+// barrier).
+// f32: FMAs, a warp takes TG / NWG samples, a lane every 32nd column.
 // bf16: mma.sync m16n8k16; warp w owns MT row tiles of 16 and NW8 column
 // tiles of 8, and its epilogue reads the accumulators where the mma left
-// them.
-template <typename T, int J, bool FWD, typename Epi>
-__device__ __forceinline__ void gemm_epi(const T* A, int lda, const T* __restrict__ Wp, int ldw,
-                                         int rows, int R, const Smem<T>& s, Epi epi) {
-    constexpr int TN = CT<T>::TN, KC = CT<T>::KC, CW = J * 32, VEC = CT<T>::VEC;
+// them.  Every value is the chain over ascending k that the tile's shape
+// does not change.
+template <typename T, typename P, typename Epi>
+__device__ __forceinline__ void gemm_epi(const T* A, int lda, Grp& gp, const Smem<T>& s,
+                                         const Epi& epi) {
+    constexpr int TG = Smem<T>::TG, KC = CT<T>::KC, CW = P::J * 32, R = P::R;
     constexpr bool F32 = std::is_same<T, float>::value;
-    constexpr int KP = Smem<T>::KP;                 // row stride of a [CW][KC] chunk
-    constexpr int CP = CW + CT<T>::PAD;             // row stride of a [KC][CW] chunk
-    constexpr int WS = Smem<T>::n_ws, ST = CT<T>::ST;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nch = (R + KC - 1) / KC;
-    auto stage = [&](int ch) {
-        T* dst = s.ws + (ch % ST) * WS;
-        const int k0 = ch * KC;
-        if (F32 && FWD) {
-            for (int idx = tid; idx < CW * KC; idx += NT) {
-                const int c = idx / KC, rr = idx % KC;
-                const bool ok = c < rows && k0 + rr < R;
-                cp_async4(dst + c * KP + rr, ok ? Wp + (size_t)c * ldw + k0 + rr : Wp, ok);
-            }
-        } else if (FWD) {
-            for (int idx = tid; idx < CW * (KC / VEC); idx += NT) {
-                const int c = idx / (KC / VEC), v = idx % (KC / VEC);
-                const bool ok = c < rows && k0 + v * VEC < R;
-                cp_async16(dst + c * KP + swz(c, v) * VEC,
-                           ok ? Wp + (size_t)c * ldw + k0 + v * VEC : Wp, ok);
-            }
-        } else {
-            for (int idx = tid; idx < KC * (CW / VEC); idx += NT) {
-                const int rr = idx / (CW / VEC), v = idx % (CW / VEC);
-                const bool ok = k0 + rr < R;
-                cp_async16(dst + rr * CP + v * VEC, ok ? Wp + (size_t)(k0 + rr) * ldw + v * VEC : Wp, ok);
-            }
-        }
-    };
-    // the previous product's reads of the chunk buffers and its epilogue's
-    // writes are done before anything here; this thread's bulk copies out of
-    // shared memory (store_rows) have read their rows before the first chunk's
-    // barrier, so the epilogue may overwrite them
-    __syncthreads();
-    for (int c = 0; c < ST - 1; ++c) {
-        if (c < nch) stage(c);
-        cp_async_commit();
-    }
+    constexpr int CP = CW + CT<T>::PAD;             // row stride of a staged chunk
+    constexpr int WS = Smem<T>::n_ws;
+    constexpr int NCH = (R + KC - 1) / KC;
+    const int lane = gp.lane, warp = gp.warp;
+    const T* const ws = s.ws;
+    Cursor<T> cur(s, gp);
     if constexpr (F32) {
-        constexpr int NS = TN / NW;
-        float acc[NS][J];
+        constexpr int NS = TG / NWG;
+        const int m0 = gp.r0 + warp * NS;
+        float acc[NS][P::J];
 #pragma unroll
         for (int i = 0; i < NS; ++i)
 #pragma unroll
-            for (int j = 0; j < J; ++j) acc[i][j] = 0.0f;
-        for (int ch = 0; ch < nch; ++ch) {
-            if (ch == 0) bulk_wait_read();
-            cp_async_wait<ST - 2>();
-            __syncthreads();
-            if (ch + ST - 1 < nch) stage(ch + ST - 1);
-            cp_async_commit();
-            const T* Ws = s.ws + (ch % ST) * WS;
+            for (int j = 0; j < P::J; ++j) acc[i][j] = 0.0f;
+        for (int ch = 0; ch < NCH; ++ch) {
+            K3_CLK(gp, C_MMA);
+            mbar_wait_cta(cur.full(), cur.ph);
+            K3_CLK(gp, C_FULL);
+            const T* Ws = ws + cur.stg * WS;
             const int k0 = ch * KC;
 #pragma unroll 4
             for (int rr = 0; rr < KC; ++rr) {
-                float a[NS], b[J];
+                float a[NS], b[P::J];
 #pragma unroll
-                for (int i = 0; i < NS; ++i) a[i] = A[(warp * NS + i) * lda + k0 + rr];
+                for (int i = 0; i < NS; ++i) a[i] = A[(m0 + i) * lda + k0 + rr];
 #pragma unroll
-                for (int j = 0; j < J; ++j) b[j] = FWD ? Ws[(lane + 32 * j) * KP + rr] : Ws[rr * CP + lane + 32 * j];
+                for (int j = 0; j < P::J; ++j) b[j] = Ws[rr * CP + lane + 32 * j];
 #pragma unroll
                 for (int i = 0; i < NS; ++i)
 #pragma unroll
-                    for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+                    for (int j = 0; j < P::J; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
             }
+            release(cur, lane);
         }
+        cur.save(gp);
+        K3_CLK(gp, C_MMA);
+        float v[NS][P::J];
 #pragma unroll
-        for (int j = 0; j < J; ++j)
+        for (int j = 0; j < P::J; ++j)
 #pragma unroll
-            for (int i = 0; i < NS; ++i) epi(warp * NS + i, lane + 32 * j, acc[i][j]);
+            for (int i = 0; i < NS; ++i) v[i][j] = epi.in(m0 + i, lane + 32 * j);
+#pragma unroll
+        for (int j = 0; j < P::J; ++j)
+#pragma unroll
+            for (int i = 0; i < NS; ++i) epi.out(m0 + i, lane + 32 * j, acc[i][j], v[i][j]);
     } else {
         // NCG column groups of NW8 8-wide tiles, NRG row groups of MT 16-row
-        // tiles; warps past NCG * NRG only stage and wait
-        constexpr int NW8 = CW >= 128 ? 4 : 2;
+        // tiles: 32 columns a warp where the rows leave enough warps; warps
+        // past NCG * NRG only wait and release
+        constexpr int NW8 = (CW / 32) * (TG / 16) >= NWG ? 4 : 2;
         constexpr int NCG = CW / (8 * NW8);
-        constexpr int NRG = (NW / NCG) < TN / 16 ? NW / NCG : TN / 16;
-        constexpr int MT = (TN / 16) / NRG;
-        static_assert(NCG * NRG <= NW && MT * NRG * 16 == TN, "warp tiling");
+        constexpr int NRG = (NWG / NCG) < TG / 16 ? NWG / NCG : TG / 16;
+        constexpr int MT = (TG / 16) / NRG;
+        static_assert(NCG * NRG <= NWG && MT * NRG * 16 == TG, "warp tiling");
         const bool works = warp < NCG * NRG;
-        const int m0 = (warp / NCG) * MT * 16, n0 = (warp % NCG) * NW8 * 8;
+        const int m0 = gp.r0 + (warp / NCG) * MT * 16, n0 = (warp % NCG) * NW8 * 8;
         float acc[MT][NW8][4];
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -445,143 +686,247 @@ __device__ __forceinline__ void gemm_epi(const T* A, int lda, const T* __restric
 #pragma unroll
                 for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
         // this lane's row and column within the 8 x 8 matrices of an ldmatrix
-        const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;   // A, !FWD B
-        const int fr = (lane & 7) + (lane >> 4) * 8, fc = ((lane >> 3) & 1) * 8;   // FWD B
-        for (int ch = 0; ch < nch; ++ch) {
-            if (ch == 0) bulk_wait_read();
-            cp_async_wait<ST - 2>();
-            __syncthreads();
-            if (ch + ST - 1 < nch) stage(ch + ST - 1);
-            cp_async_commit();
-            if (!works) continue;
-            const T* Ws = s.ws + (ch % ST) * WS;
-            const int k0 = ch * KC;
+        const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lc = (lane >> 4) * 8;
+        for (int ch = 0; ch < NCH; ++ch) {
+            K3_CLK(gp, C_MMA);
+            mbar_wait_cta(cur.full(), cur.ph);
+            K3_CLK(gp, C_FULL);
+            if (works) {
+                const T* Ws = ws + cur.stg * WS;
+                const int k0 = ch * KC;
 #pragma unroll
-            for (int kk = 0; kk < KC; kk += 16) {
-                if (k0 + kk >= R) break;
-                uint32_t a[MT][4];
+                for (int kk = 0; kk < KC; kk += 16) {
+                    if (k0 + kk >= R) break;
+                    uint32_t a[MT][4];
 #pragma unroll
-                for (int i = 0; i < MT; ++i) ldsm4(a[i], A + (m0 + 16 * i + lr) * lda + k0 + kk + lc);
+                    for (int i = 0; i < MT; ++i)
+                        ldsm4(a[i], A + (m0 + 16 * i + lr) * lda + k0 + kk + lc);
 #pragma unroll
-                for (int jp = 0; jp < NW8 / 2; ++jp) {
-                    uint32_t b[4];
-                    const int c = n0 + 16 * jp + fr;
-                    if (FWD) ldsm4(b, Ws + c * KP + swz(c, (kk + fc) / 8) * 8);
-                    else     ldsm4t(b, Ws + (kk + lr) * CP + n0 + 16 * jp + lc);
+                    for (int jp = 0; jp < NW8 / 2; ++jp) {
+                        uint32_t b[4];
+                        ldsm4t(b, Ws + (kk + lr) * CP + n0 + 16 * jp + lc);
 #pragma unroll
-                    for (int i = 0; i < MT; ++i) {
-                        mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
-                        mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+                        for (int i = 0; i < MT; ++i) {
+                            mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+                            mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+                        }
                     }
                 }
             }
+            release(cur, lane);
         }
+        cur.save(gp);
+        K3_CLK(gp, C_MMA);
         if (works) {
+            // acc[i][j][2 h], [2 h + 1]: row g + 8 h, columns 2 t and 2 t + 1
             const int g = lane >> 2, t = lane & 3;
+            float2 v[MT][NW8][2];
 #pragma unroll
             for (int i = 0; i < MT; ++i)
 #pragma unroll
                 for (int j = 0; j < NW8; ++j)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        epi(m0 + 16 * i + g + (e >> 1) * 8, n0 + 8 * j + 2 * t + (e & 1), acc[i][j][e]);
+                    for (int h = 0; h < 2; ++h)
+                        v[i][j][h] = epi.in2(m0 + 16 * i + g + 8 * h, n0 + 8 * j + 2 * t);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int j = 0; j < NW8; ++j)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        epi.out2(m0 + 16 * i + g + 8 * h, n0 + 8 * j + 2 * t,
+                                 make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]), v[i][j][h]);
         }
     }
+    K3_CLK(gp, C_EPI);
 }
 
-// Rows [row0, row0 + TN) of the tile buffer S (stride lds) into G [n][W],
-// rows past n left out: thread r copies row r with one bulk copy, which runs
-// on while the block goes on (the next product waits for its reads).
-template <typename T>
-__device__ __forceinline__ void store_rows(const T* S, int lds, T* __restrict__ G, int W, long row0,
-                                           int n) {
-    fence_proxy_async();
-    __syncthreads();
-    const int r = threadIdx.x;
-    if (r < CT<T>::TN && row0 + r < n) bulk_store(G + (row0 + r) * W, S + r * lds, W * (int)sizeof(T));
+// The group's rows [row0 + r0, + TG) of the tile buffer S (stride lds) into
+// G [n][W], rows past n left out, after a group barrier (which also makes
+// the rows visible to the group's next product): the group's threads copy
+// 16 bytes each at a time, the rows being contiguous in G, and store them
+// marked to leave L2 first (st.global.cs: left to L2's own policy, the 0.47
+// GB of scratch rows at 98,304 rows that stream through it cost pass 1
+// another 0.38 ms, NVIDIA H100 80GB HBM3, 700 W).  Each value is in the
+// thread's registers before the store, so the rows may be written again
+// once every thread of the group is past a later barrier.  S is read by a
+// plain load (ld.shared by address: K3 took 1.8 % (T1 widths) and 4.4 %
+// (434-wide critic) longer at 393,216 rows, NVIDIA H100 80GB HBM3, 700 W).
+template <typename T, int W>
+__device__ __forceinline__ void store_rows(const T* S, int lds, T* __restrict__ G, long row0, int n,
+                                           Grp& gp) {
+    constexpr int TG = Smem<T>::TG, VEC = CT<T>::VEC, units = W / VEC;
+    group_bar(gp);
+    const long first = row0 + gp.r0;
+    const int rows = n - first < TG ? (int)(n - first) : TG;
+    T* const g = G + first * W;
+    const T* const sr = S + gp.r0 * lds;
+    for (int u = gp.gtid; u < rows * units; u += GT) {
+        const int r = u / units, c = (u % units) * VEC;
+        __stcs(reinterpret_cast<int4*>(g + r * W + c), *reinterpret_cast<const int4*>(sr + r * lds + c));
+    }
+    K3_CLK(gp, C_STORE);
+}
+// After a hidden layer: its x rows to the scratch (K3's pass 1), or (K10,
+// scr null) only the barrier before the next product reads them
+template <typename T, int W>
+__device__ __forceinline__ void rows_out(const T* S, int lds, T* scr, int off, long row0, int n,
+                                         Grp& gp) {
+    if (scr) store_rows<T, W>(S, lds, scr + (size_t)off * n, row0, n, gp);
+    else group_bar(gp);
 }
 
-// One dense layer L of Net: z = round_T(x W^T) + b in T; hidden layers keep z
-// and ELU(z) (both T), the last layer writes z as f32 to outf[n * ldo + o].
-template <typename T, typename Net, int L>
-__device__ __forceinline__ void layer_fwd(const Smem<T>& s, const T* X, int ldx,
-                                          const T* __restrict__ wpad, T* Z, int ldz, T* Xn,
-                                          int ldn, float* outf, int ldo) {
-    constexpr int OUT = Net::out(L);
-    constexpr bool LAST = L == 3;
-    const T* b = s.bias + bias_off<Net>(L);
-    gemm_epi<T, (OUT + 31) / 32, true>(X, ldx, wpad + Net::wp(L), Net::inp(L), Net::outp(L),
-                                       Net::inp(L), s, [&](int n, int o, float acc) {
-        if (o >= OUT) return;
-        const float z = rnd<T>(rnd<T>(acc) + CT<T>::to_f(b[o]));
+// A layer's epilogue: z = round_T(round_T(acc) + b) in T; a hidden layer
+// writes ELU(z) and, for its input gradient, ELU'(z) = round_T(z > 0 ? 1 :
+// exp(z)) (both T) from the one exp(z), the last writes z as f32 to
+// outf[n * ldo + o].  exp(z) is formed whatever the sign: written as a
+// conditional, nvcc branches around it per value, and the branches run one
+// after another.
+template <typename T, int OUT, bool LAST> struct FwdEpi {
+    const T* b;
+    T *Z, *Xn;
+    float* outf;
+    int ldz, ldn, ldo;
+    uint32_t bs, zs, xs, fs;   // b, Z, Xn, outf as shared addresses (out2)
+    __device__ __forceinline__ FwdEpi(const T* b_, T* Z_, T* Xn_, float* outf_, int ldz_, int ldn_,
+                                      int ldo_)
+        : b(b_), Z(Z_), Xn(Xn_), outf(outf_), ldz(ldz_), ldn(ldn_), ldo(ldo_), bs(smem_u32(b_)),
+          zs(smem_u32(Z_)), xs(smem_u32(Xn_)), fs(smem_u32(outf_)) {}
+    __device__ __forceinline__ float in(int, int o) const {
+        return !LAST || o < OUT ? CT<T>::to_f(b[o]) : 0.0f;
+    }
+    __device__ __forceinline__ void out(int n, int o, float acc, float bo) const {
+        if (LAST && o >= OUT) return;
+        const float z = rnd<T>(rnd<T>(acc) + bo);
         if (LAST) {
             outf[n * ldo + o] = z;
         } else {
-            Z[n * ldz + o] = CT<T>::from_f(z);
-            Xn[n * ldn + o] = CT<T>::from_f(z > 0.0f ? z : expf(z) - 1.0f);
+            const float e = expf(z);
+            Z[n * ldz + o] = CT<T>::from_f(z > 0.0f ? 1.0f : e);
+            Xn[n * ldn + o] = CT<T>::from_f(z > 0.0f ? z : e - 1.0f);
         }
-    });
-}
+    }
+    // bf16, columns o and o + 1 (o even; a hidden layer's width is a multiple
+    // of 32): out's values, one conversion and one store for both
+    __device__ __forceinline__ float2 in2(int, int o) const {
+        return make_float2(!LAST || o < OUT ? bf16_at(bs + 2 * o) : 0.0f,
+                           !LAST || o + 1 < OUT ? bf16_at(bs + 2 * o + 2) : 0.0f);
+    }
+    __device__ __forceinline__ void out2(int n, int o, float2 acc, float2 bo) const {
+        if (LAST && o >= OUT) return;
+        const float2 r = __bfloat1622float2(__floats2bfloat162_rn(acc.x, acc.y));
+        const __nv_bfloat162 zh = __floats2bfloat162_rn(r.x + bo.x, r.y + bo.y);
+        const float2 z = __bfloat1622float2(zh);
+        if (LAST) {
+            sts_f32(fs + 4 * (n * ldo + o), z.x);
+            if (o + 1 < OUT) sts_f32(fs + 4 * (n * ldo + o + 1), z.y);
+        } else {
+            const float ex = expf(z.x), ey = expf(z.y);
+            sts_b32(zs + 2 * (n * ldz + o),
+                    bf2_bits(__floats2bfloat162_rn(z.x > 0.0f ? 1.0f : ex, z.y > 0.0f ? 1.0f : ey)));
+            sts_b32(xs + 2 * (n * ldn + o), bf2_bits(__floats2bfloat162_rn(
+                                                z.x > 0.0f ? z.x : ex - 1.0f, z.y > 0.0f ? z.y : ey - 1.0f)));
+        }
+    }
+};
 
-// The forward of one net on the tile in s.x0; with a scratch (K3's pass 1)
-// each hidden layer's output x_l (the next layer's input) also goes to its
-// rows there.  (Not inlined, like net_bwd: each then gets registers of its
-// own, and the one giant function they would make spills.)
-template <typename T, typename Net>
-__device__ __noinline__ void net_fwd(const Smem<T>& s, const T* __restrict__ wpad, float* outf,
-                                     T* scr, long row0, int n) {
-    using S = Smem<T>;
-    layer_fwd<T, Net, 0>(s, s.x0, S::L0, wpad, s.z1, S::LZ1, s.xa, S::LA, nullptr, 0);
-    if (scr) store_rows<T>(s.xa, S::LA, scr + (size_t)scr_x<Net>(1) * n, Net::H1, row0, n);
-    layer_fwd<T, Net, 1>(s, s.xa, S::LA, wpad, s.z2, S::LZ2, s.xb, S::LB, nullptr, 0);
-    if (scr) store_rows<T>(s.xb, S::LB, scr + (size_t)scr_x<Net>(2) * n, Net::H2, row0, n);
-    layer_fwd<T, Net, 2>(s, s.xb, S::LB, wpad, s.z3, S::LZ3, s.xa, S::LA, nullptr, 0);
-    if (scr) store_rows<T>(s.xa, S::LA, scr + (size_t)scr_x<Net>(3) * n, Net::H3, row0, n);
-    layer_fwd<T, Net, 3>(s, s.xa, S::LA, wpad, nullptr, 0, nullptr, 0, outf, Net::DO);
-}
-
-// dz_prev = round_T(dz W) * ELU'(z_prev) of layer L, written over z_prev
+// One dense layer L of Net (FwdEpi)
 template <typename T, typename Net, int L>
-__device__ __forceinline__ void layer_bwd_input(const Smem<T>& s, const T* DZ, int ldd,
-                                                const T* __restrict__ wpad, T* Zp, int ldp) {
-    constexpr int IN = Net::in(L);
-    gemm_epi<T, IN / 32, false>(DZ, ldd, wpad + Net::wp(L), Net::inp(L), Net::outp(L),
-                                Net::outp(L), s, [&](int n, int k, float acc) {
-        const float dh = rnd<T>(acc);
-        const float z = CT<T>::to_f(Zp[n * ldp + k]);
-        const float g = rnd<T>(z > 0.0f ? 1.0f : expf(z));
-        Zp[n * ldp + k] = CT<T>::from_f(dh * g);
-    });
+__device__ __forceinline__ void layer_fwd(const Smem<T>& s, Grp& gp, const T* X, int ldx, T* Z,
+                                          int ldz, T* Xn, int ldn, float* outf, int ldo) {
+    const FwdEpi<T, Net::out(L), L == 3> epi(s.bias + bias_off<Net>(L), Z, Xn, outf, ldz, ldn, ldo);
+    gemm_epi<T, Prod<Net, L, true>>(X, ldx, gp, s, epi);
+}
+
+// The forward of one net on the group's rows of the tile in s.x0; with a
+// scratch (K3's pass 1) each hidden layer's output x_l (the next layer's
+// input) also goes to its rows there.  The last layer's outputs are the
+// group's after a group barrier.  (Not inlined, like net_bwd: each then
+// gets registers of its own, and the one giant function they would make
+// spills.)
+template <typename T, typename Net>
+__device__ __noinline__ void net_fwd(const Smem<T>& s, Grp& gp, float* outf, T* scr, long row0,
+                                     int n) {
+    using S = Smem<T>;
+    layer_fwd<T, Net, 0>(s, gp, s.x0, S::L0, s.z1, S::LZ1, s.xa, S::LA, nullptr, 0);
+    rows_out<T, Net::H1>(s.xa, S::LA, scr, scr_x<Net>(1), row0, n, gp);
+    layer_fwd<T, Net, 1>(s, gp, s.xa, S::LA, s.z2, S::LZ2, s.xb, S::LB, nullptr, 0);
+    rows_out<T, Net::H2>(s.xb, S::LB, scr, scr_x<Net>(2), row0, n, gp);
+    layer_fwd<T, Net, 2>(s, gp, s.xb, S::LB, s.z3, S::LZ3, s.xa, S::LA, nullptr, 0);
+    rows_out<T, Net::H3>(s.xa, S::LA, scr, scr_x<Net>(3), row0, n, gp);
+    layer_fwd<T, Net, 3>(s, gp, s.xa, S::LA, nullptr, 0, nullptr, 0, outf, Net::DO);
+    group_bar(gp);
+}
+
+// An input gradient's epilogue: dz_prev = round_T(round_T(acc) * g) with g
+// = ELU'(z_prev) as the forward's epilogue left it, written over it
+template <typename T> struct BwdEpi {
+    T* Zp;
+    int ldp;
+    uint32_t zs;   // Zp as a shared address (in2, out2)
+    __device__ __forceinline__ BwdEpi(T* Zp_, int ldp_) : Zp(Zp_), ldp(ldp_), zs(smem_u32(Zp_)) {}
+    __device__ __forceinline__ float in(int n, int k) const { return CT<T>::to_f(Zp[n * ldp + k]); }
+    __device__ __forceinline__ void out(int n, int k, float acc, float g) const {
+        Zp[n * ldp + k] = CT<T>::from_f(rnd<T>(acc) * g);
+    }
+    // bf16, columns k and k + 1 (k even): out's values, one load, conversion
+    // and store for both
+    __device__ __forceinline__ float2 in2(int n, int k) const {
+        const uint32_t v = lds_b32(zs + 2 * (n * ldp + k));
+        return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+    }
+    __device__ __forceinline__ void out2(int n, int k, float2 acc, float2 g) const {
+        const float2 dh = __bfloat1622float2(__floats2bfloat162_rn(acc.x, acc.y));
+        sts_b32(zs + 2 * (n * ldp + k), bf2_bits(__floats2bfloat162_rn(dh.x * g.x, dh.y * g.y)));
+    }
+};
+
+// The input gradient of layer L of Net (BwdEpi)
+template <typename T, typename Net, int L>
+__device__ __forceinline__ void layer_bwd_input(const Smem<T>& s, Grp& gp, const T* DZ, int ldd,
+                                                T* Zp, int ldp) {
+    gemm_epi<T, Prod<Net, L, false>>(DZ, ldd, gp, s, BwdEpi<T>(Zp, ldp));
 }
 
 // The input gradients of one net from the last layer's dz in s.dzl; every
 // layer's dz goes to its scratch rows, for pass 2's weight gradients.
 template <typename T, typename Net>
-__device__ __noinline__ void net_bwd(const Smem<T>& s, const T* __restrict__ wpad, T* scr,
-                                     long row0, int n) {
+__device__ __noinline__ void net_bwd(const Smem<T>& s, Grp& gp, T* scr, long row0, int n) {
     using S = Smem<T>;
-    store_rows<T>(s.dzl, S::LD, scr + (size_t)scr_dz<Net>(3) * n, DZ3W, row0, n);
-    layer_bwd_input<T, Net, 3>(s, s.dzl, S::LD, wpad, s.z3, S::LZ3);
-    store_rows<T>(s.z3, S::LZ3, scr + (size_t)scr_dz<Net>(2) * n, Net::H3, row0, n);
-    layer_bwd_input<T, Net, 2>(s, s.z3, S::LZ3, wpad, s.z2, S::LZ2);
-    store_rows<T>(s.z2, S::LZ2, scr + (size_t)scr_dz<Net>(1) * n, Net::H2, row0, n);
-    layer_bwd_input<T, Net, 1>(s, s.z2, S::LZ2, wpad, s.z1, S::LZ1);
-    store_rows<T>(s.z1, S::LZ1, scr + (size_t)scr_dz<Net>(0) * n, Net::H1, row0, n);
+    store_rows<T, DZ3W>(s.dzl, S::LD, scr + (size_t)scr_dz<Net>(3) * n, row0, n, gp);
+    layer_bwd_input<T, Net, 3>(s, gp, s.dzl, S::LD, s.z3, S::LZ3);
+    store_rows<T, Net::H3>(s.z3, S::LZ3, scr + (size_t)scr_dz<Net>(2) * n, row0, n, gp);
+    layer_bwd_input<T, Net, 2>(s, gp, s.z3, S::LZ3, s.z2, S::LZ2);
+    store_rows<T, Net::H2>(s.z2, S::LZ2, scr + (size_t)scr_dz<Net>(1) * n, row0, n, gp);
+    layer_bwd_input<T, Net, 1>(s, gp, s.z2, S::LZ2, s.z1, S::LZ1);
+    store_rows<T, Net::H1>(s.z1, S::LZ1, scr + (size_t)scr_dz<Net>(0) * n, row0, n, gp);
 }
 
-// rows [tile * TN, tile * TN + TN) of obsc into s.x0, zero past n_rows and
-// past NCRIT
+// the group's rows of rows [tile * TN, tile * TN + TN) of obsc into s.x0,
+// zero past n_rows and past NCRIT
 template <typename T>
 __device__ __forceinline__ void load_x0(const Smem<T>& s, const T* __restrict__ obsc, int tile,
-                                        int n_rows) {
-    constexpr int TN = CT<T>::TN;
-    for (int idx = threadIdx.x; idx < TN * X0W; idx += NT) {
-        const int n = idx / X0W, c = idx % X0W;
-        const long row = (long)tile * TN + n;
-        T v = CT<T>::from_f(0.0f);
-        if (row < n_rows && c < NCRIT) v = obsc[row * NCRIT + c];
-        s.x0[n * Smem<T>::L0 + c] = v;
+                                        int n_rows, Grp& gp) {
+    // the loads of 8 values a thread first, then their stores: each load's
+    // latency once a batch
+    constexpr int TN = CT<T>::TN, TG = Smem<T>::TG, NV = (TG * X0W + GT - 1) / GT, NB = 8;
+#pragma unroll
+    for (int j0 = 0; j0 < NV; j0 += NB) {
+        T v[NB];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const int idx = gp.gtid + (j0 + j) * GT, n = gp.r0 + idx / X0W, c = idx % X0W;
+            const long row = (long)tile * TN + n;
+            v[j] = CT<T>::from_f(0.0f);
+            if (idx < TG * X0W && row < n_rows && c < NCRIT) v[j] = obsc[row * NCRIT + c];
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const int idx = gp.gtid + (j0 + j) * GT;
+            if (idx < TG * X0W) s.x0[(gp.r0 + idx / X0W) * Smem<T>::L0 + idx % X0W] = v[j];
+        }
     }
+    K3_CLK(gp, C_X0);
 }
 
 // logstd (f32, from p) and exp(2 logstd) into shared memory
@@ -604,32 +949,34 @@ __device__ __forceinline__ void load_bias(const Smem<T>& s, const T* __restrict_
             s.bias[bias_off<Net>(l) + o] = staged[ob[l] + o];
 }
 
-// Row tid's log-prob of its action act[0 .. NACT) under N(s.mu row, exp(logstd));
+// Row r's log-prob of its action act[0 .. NACT) under N(s.mu row, exp(logstd));
 // fills mu and diff = act - mu.  K3 and K10 both go through this.
 template <typename T>
-__device__ __forceinline__ float row_logp(const Smem<T>& s, int tid, const float* __restrict__ act,
+__device__ __forceinline__ float row_logp(const Smem<T>& s, int r, const float* __restrict__ act,
                                           float* mu, float* diff) {
     float logp = 0.0f;
 #pragma unroll
     for (int k = 0; k < NACT; ++k) {
-        mu[k] = s.mu[tid * NACT + k];
+        mu[k] = s.mu[r * NACT + k];
         diff[k] = act[k] - mu[k];
         logp += -0.5f * diff[k] * diff[k] / s.var[k] - s.logstd[k] - 0.5f * LOG2PI;
     }
     return logp;
 }
-
 // ---------------------------------------------------------------------------
 // Every launch's first kernel: the weights of `staged` into the zero-padded
-// layer layout of wpad (NWPAD values).
+// layer layout of wpad (NWPAD values), and for a tile block's launch (n =
+// 2 NWPAD) each layer transposed after them, [rup16(in)][rup16(out)] at
+// NWPAD + its offset: the rows that its forward's chunks stage.
 template <typename T, typename Net>
-__device__ __forceinline__ void pad_net(int i, const T* __restrict__ staged, const int* oW,
-                                        T* __restrict__ wpad) {
+__device__ __forceinline__ void pad_net(int i, bool tr, const T* __restrict__ staged,
+                                        const int* oW, T* __restrict__ wpad) {
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
-        const int w0 = Net::wp(l), inp = Net::inp(l);
-        if (i >= w0 && i < w0 + Net::outp(l) * inp) {
-            const int o = (i - w0) / inp, k = (i - w0) % inp;
+        const int w0 = Net::wp(l), inp = Net::inp(l), outp = Net::outp(l);
+        if (i >= w0 && i < w0 + outp * inp) {
+            const int o = tr ? (i - w0) % outp : (i - w0) / inp;
+            const int k = tr ? (i - w0) / outp : (i - w0) % inp;
             wpad[i] = (o < Net::out(l) && k < Net::in(l)) ? staged[oW[l] + o * Net::in(l) + k]
                                                           : CT<T>::from_f(0.0f);
         }
@@ -638,11 +985,14 @@ __device__ __forceinline__ void pad_net(int i, const T* __restrict__ staged, con
 
 template <typename T>
 __global__ void __launch_bounds__(K4_NT) k_pad(const T* __restrict__ staged, Offs offs,
-                                              T* __restrict__ wpad) {
+                                              T* __restrict__ wpad, int n) {
     const int i = blockIdx.x * K4_NT + threadIdx.x;
-    if (i >= NWPAD) return;
-    if (i < ActorNet::end) pad_net<T, ActorNet>(i, staged, offs.aW, wpad);
-    else pad_net<T, CriticNet>(i, staged, offs.cW, wpad);
+    if (i >= n) return;
+    const bool tr = i >= NWPAD;
+    const int j = tr ? i - NWPAD : i;
+    T* const w = tr ? wpad + NWPAD : wpad;
+    if (j < ActorNet::end) pad_net<T, ActorNet>(j, tr, staged, offs.aW, w);
+    else pad_net<T, CriticNet>(j, tr, staged, offs.cW, w);
 }
 
 // ---------------------------------------------------------------------------
@@ -780,21 +1130,6 @@ __device__ __forceinline__ uint32_t mapa(uint32_t a, int r) {
 __device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
     asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
                  ::"r"(addr), "r"(v), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-    uint32_t done = 0;
-    while (!done)
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 // A warp group's columns [rank outs, + outs) of rows [0, TG) of a layer's
 // outputs at gx + off to the other blocks' same group (rx[r]: that group's
@@ -1298,7 +1633,9 @@ k2_critic(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
 // the same for the critic; x_l and dz_l of every layer go to the scratch
 // (see ScratchOf), the per-sample sums (value loss, actor loss, both
 // bound-loss halves, sum (mu - mu_old)^2 per action, dlogstd per action) to
-// part_stats[blockIdx.x * NSTAT + slot].
+// part_stats[blockIdx.x * NSTAT + slot].  The producer warp stages the
+// weights of those products, tile after tile; each warp group takes its
+// rows of every tile (the tile block's schedule, above).
 //
 // The loss means divide by n_total while the mask keeps the local row count
 // n (a data-parallel rank passes the global count; K3 and K9 alike).
@@ -1321,34 +1658,49 @@ k3_pass1(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
     extern __shared__ __align__(128) unsigned char smem_raw[];
     Smem<T> s(smem_raw);
     using S = Smem<T>;
-    constexpr int TN = CT<T>::TN;
+    constexpr int TN = CT<T>::TN, TG = S::TG;
     const int tid = threadIdx.x;
     T* scr = static_cast<T*>(a.scratch);
     for (int i = tid; i < TN * NSTAT; i += NT) s.stat[i] = 0.0f;
     load_logstd<T>(s, a.p, offs.logstd);
     load_bias<T, ActorNet>(s, staged, offs.ab);
     load_bias<T, CriticNet>(s, staged, offs.cb);
+    ring_init<T>(s);
+    __syncthreads();
+    const int ntiles = (a.n + TN - 1) / TN;
+    Grp gp = grp_of<T>(tid);
+    if (gp.g == NG) {   // the producer warp
+        for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+            produce_fwd<T, ActorNet>(wpad, s, gp);
+            produce_bwd<T, ActorNet>(wpad, s, gp);
+            produce_fwd<T, CriticNet>(wpad, s, gp);
+            produce_bwd<T, CriticNet>(wpad, s, gp);
+        }
+#if K3_CLOCKS
+        clocks_out(gp);
+#endif
+        return;
+    }
     const float mean = ANCHOR ? 0.0f : a.norm[0], rstd = ANCHOR ? 1.0f : a.norm[1];
     const float inv_n = 1.0f / (float)a.n_total;
-    const int ntiles = (a.n + TN - 1) / TN;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        __syncthreads();
-        load_x0<T>(s, obsc, tile, a.n);
+        load_x0<T>(s, obsc, tile, a.n, gp);
         const long row0 = (long)tile * TN;
-        store_rows<T>(s.x0, S::L0, scr, X0W, row0, a.n);
-        const long gi = row0 + tid;
-        const bool valid = tid < TN && gi < a.n;
+        store_rows<T, X0W>(s.x0, S::L0, scr, row0, a.n, gp);
+        // the group's thread r < TG takes row r0 + r in the loss steps
+        const int r = gp.r0 + gp.gtid;
+        const long gi = row0 + r;
+        const bool valid = gp.gtid < TG && gi < a.n;
 
         // ---- actor
-        net_fwd<T, ActorNet>(s, wpad, s.mu, scr, row0, a.n);
-        __syncthreads();
-        if (tid < TN) {
-            T* dz = s.dzl + tid * S::LD;
+        net_fwd<T, ActorNet>(s, gp, s.mu, scr, row0, a.n);
+        if (gp.gtid < TG) {
+            T* dz = s.dzl + r * S::LD;
             if (valid) {
-                float* st = s.stat + tid * NSTAT;
+                float* st = s.stat + r * NSTAT;
                 const float adv = ANCHOR ? a.adv[gi] : (a.adv[gi] - mean) * rstd;
                 float diff[NACT], mu[NACT];
-                const float logp = row_logp<T>(s, tid, a.act + gi * NACT, mu, diff);
+                const float logp = row_logp<T>(s, r, a.act + gi * NACT, mu, diff);
                 // self_old: the old policy is this forward itself
                 const float old_lp = (!ANCHOR && a.self_old) ? logp : a.old_logp[gi];
                 const float ratio = expf(logp - old_lp);
@@ -1387,37 +1739,43 @@ k3_pass1(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
                 for (int k = 0; k < DZ3W; ++k) dz[k] = CT<T>::from_f(0.0f);
             }
         }
-        net_bwd<T, ActorNet>(s, wpad, scr, row0, a.n);
+        K3_CLK(gp, C_LOSS);
+        net_bwd<T, ActorNet>(s, gp, scr, row0, a.n);
 
-        // ---- critic
-        net_fwd<T, CriticNet>(s, wpad, s.val, scr, row0, a.n);
-        __syncthreads();
-        if (tid < TN) {
-            T* dz = s.dzl + tid * S::LD;
+        // ---- critic (its first epilogue writes z1, whose rows the group may
+        // still be storing)
+        group_bar(gp);
+        net_fwd<T, CriticNet>(s, gp, s.val, scr, row0, a.n);
+        if (gp.gtid < TG) {
+            T* dz = s.dzl + r * S::LD;
 #pragma unroll
             for (int k = 1; k < DZ3W; ++k) dz[k] = CT<T>::from_f(0.0f);
             float dval = 0.0f;
             if (valid) {
-                const float e = s.val[tid] - a.ret[gi];
+                const float e = s.val[r] - a.ret[gi];
                 dval = 2.0f * e * inv_n;
-                if constexpr (ANCHOR) static_cast<T*>(a.val_t)[gi] = CT<T>::from_f(s.val[tid]);
-                else s.stat[tid * NSTAT] += e * e;
+                if constexpr (ANCHOR) static_cast<T*>(a.val_t)[gi] = CT<T>::from_f(s.val[r]);
+                else s.stat[r * NSTAT] += e * e;
             }
             dz[0] = CT<T>::from_f(dval);
         }
-        net_bwd<T, CriticNet>(s, wpad, scr, row0, a.n);
+        K3_CLK(gp, C_LOSS);
+        net_bwd<T, CriticNet>(s, gp, scr, row0, a.n);
     }
-    bulk_wait();
-    __syncthreads();
+    groups_end();
     if (tid < NSTAT) {
         float sum = 0.0f;
         for (int n = 0; n < TN; ++n) sum += s.stat[n * NSTAT + tid];
         a.part_stats[blockIdx.x * NSTAT + tid] = sum;
     }
+#if K3_CLOCKS
+    clocks_out(gp);
+#endif
 }
 
 // K10: the actor forward and the log-prob of rows [0, n) of obsc through K3's
-// own device code (net_fwd<ActorNet>, row_logp); mu (f32) and logp out.
+// own device code (net_fwd<ActorNet>, row_logp) and schedule; mu (f32) and
+// logp out.
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 k10_policy_logp(const T* __restrict__ staged, const T* __restrict__ wpad, Offs offs,
@@ -1426,25 +1784,34 @@ k10_policy_logp(const T* __restrict__ staged, const T* __restrict__ wpad, Offs o
                 float* __restrict__ logp_out) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     Smem<T> s(smem_raw);
-    constexpr int TN = CT<T>::TN;
+    constexpr int TN = CT<T>::TN, TG = Smem<T>::TG;
     const int tid = threadIdx.x;
     load_logstd<T>(s, p, offs.logstd);
     load_bias<T, ActorNet>(s, staged, offs.ab);
+    ring_init<T>(s);
+    __syncthreads();
     const int ntiles = (n + TN - 1) / TN;
+    Grp gp = grp_of<T>(tid);
+    if (gp.g == NG) {   // the producer warp
+        for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+            produce_fwd<T, ActorNet>(wpad, s, gp);
+        return;
+    }
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        __syncthreads();
-        load_x0<T>(s, obsc, tile, n);
-        net_fwd<T, ActorNet>(s, wpad, s.mu, nullptr, 0, 0);
-        __syncthreads();
-        const long gi = (long)tile * TN + tid;
-        if (tid < TN && gi < n) {
+        load_x0<T>(s, obsc, tile, n, gp);
+        group_bar(gp);
+        net_fwd<T, ActorNet>(s, gp, s.mu, nullptr, 0, 0);
+        const int r = gp.r0 + gp.gtid;
+        const long gi = (long)tile * TN + r;
+        if (gp.gtid < TG && gi < n) {
             float diff[NACT], mu[NACT];
-            const float logp = row_logp<T>(s, tid, act + gi * NACT, mu, diff);
+            const float logp = row_logp<T>(s, r, act + gi * NACT, mu, diff);
 #pragma unroll
             for (int k = 0; k < NACT; ++k) mu_out[gi * NACT + k] = mu[k];
             logp_out[gi] = logp;
         }
     }
+    groups_end();
 }
 
 // ---------------------------------------------------------------------------
@@ -1836,8 +2203,10 @@ static Offs make_offs(const int* o) {
     } while (0)
 
 template <typename T>
-static int pad_launch(const void* staged, const Offs& f, void* wpad, cudaStream_t st) {
-    k_pad<T><<<(NWPAD + K4_NT - 1) / K4_NT, K4_NT, 0, st>>>((const T*)staged, f, (T*)wpad);
+static int pad_launch(const void* staged, const Offs& f, void* wpad, cudaStream_t st,
+                      bool transposed) {
+    const int n = transposed ? 2 * NWPAD : NWPAD;
+    k_pad<T><<<(n + K4_NT - 1) / K4_NT, K4_NT, 0, st>>>((const T*)staged, f, (T*)wpad, n);
     return (int)cudaGetLastError();
 }
 
@@ -1884,7 +2253,7 @@ static int gae_launch(const void* staged, const int* offs, void* wpad, const voi
     const Offs f = make_offs(offs);
     auto mark = [&](int i) { return ev ? cudaEventRecord((cudaEvent_t)ev[i], st) : cudaSuccess; };
     CHECK(mark(0));
-    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
+    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st, false));
     CHECK(mark(1));
     CHECK((cudaError_t)(critic_launch<T, true>(staged, f, wpad, obsc, a, nblk, st)));
     CHECK(mark(2));
@@ -1899,7 +2268,7 @@ static int values_launch(const void* staged, const int* offs, void* wpad, const 
     K2Args a = {};
     a.values = values;
     a.n_rows = n_rows;
-    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
+    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st, false));
     return critic_launch<T, false>(staged, f, wpad, obsc, a, nblk, st);
 }
 
@@ -1915,7 +2284,7 @@ static int grads_stats_launch(const void* staged, const int* offs, void* wpad, c
     CHECK((cudaError_t)allow_smem(k3_pass1<T, ANCHOR>, Smem<T>::bytes));
     CHECK((cudaError_t)allow_smem(k3_pass2<T>, P2<T>::bytes));
     CHECK(mark(0));
-    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
+    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st, true));
     k3_pass1<T, ANCHOR><<<nblk, NT, Smem<T>::bytes, st>>>((const T*)staged, (const T*)wpad, f,
                                                           (const T*)obsc, a);
     CHECK(cudaGetLastError());
@@ -1938,7 +2307,7 @@ static int policy_logp_launch(const void* staged, const int* offs, void* wpad, c
     cudaStream_t st = (cudaStream_t)stream;
     const Offs f = make_offs(offs);
     CHECK((cudaError_t)allow_smem(k10_policy_logp<T>, Smem<T>::bytes));
-    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st));
+    CHECK((cudaError_t)pad_launch<T>(staged, f, wpad, st, true));
     k10_policy_logp<T><<<nblk, NT, Smem<T>::bytes, st>>>(
         (const T*)staged, (const T*)wpad, f, (const T*)obsc, p, act, n, mu, logp);
     return (int)cudaGetLastError();
@@ -1970,7 +2339,7 @@ template <typename T>
 static int info(int* out) {
     using C = Crit<T>;
     out[0] = CT<T>::TN;
-    out[1] = NWPAD;
+    out[1] = 2 * NWPAD;
     out[2] = SCR_WIDTH;
     out[3] = P2_TILES;
     out[4] = KR;
@@ -2024,8 +2393,18 @@ int bg_k2_clocks(unsigned long long* out) {
 }
 #endif
 
+#if K3_CLOCKS
+// The tile block's phase clocks (k3_pass1, K9's and K10's) summed over
+// warps since the last call, then cleared: out[K3_NCLK]
+int bg_k3_clocks(unsigned long long* out) {
+    CHECK(cudaMemcpyFromSymbol(out, k3_clk, sizeof(k3_clk)));
+    static const unsigned long long zeros[K3_NCLK] = {};
+    return (int)cudaMemcpyToSymbol(k3_clk, zeros, sizeof(k3_clk));
+}
+#endif
+
 // out[N_INFO + 32]: samples per tile of a tile block, padded weight values
-// (wpad), scratch values per row, pass-2 tiles, pass-2 rows per step, the
+// (wpad: the layers and their transposes), scratch values per row, pass-2 tiles, pass-2 rows per step, the
 // shared memory of a tile block and of a pass-2 block, K3's pass-1 and
 // pass-2 resident blocks per SM; K2's and K8's rows per tile, blocks per
 // cluster, most planes (T + 1) of values in shared memory, threads per block
@@ -2049,7 +2428,7 @@ int bg_critic_info(int bf16, int planes, int* out) {
     return planes ? critic_info<float, true>(planes, out) : critic_info<float, false>(0, out);
 }
 
-// wpad: [NWPAD] of type T scratch; part: [2 * ceil(B / rows per tile) *
+// wpad: [2 NWPAD] of type T scratch (K2 uses the first NWPAD); part: [2 * ceil(B / rows per tile) *
 // blocks per cluster * warp groups] f32 scratch; count: one unsigned, 0 before the first
 // call (each call leaves it 0); spill: for T + 1 > max_planes, [nblk * (T + 1 -
 // max_planes) * rows per tile / blocks per cluster] f32 scratch, else null; nblk:

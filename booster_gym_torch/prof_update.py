@@ -23,7 +23,8 @@ kernels per call under torch.profiler (a variant with no -D sizes, e.g.
 `--variant default:`, gives the default build's beside them).
 --split adds a record of K2 part by part (k2_split): CUDA events between its
 device kernels, and each kernel's device time and count under
-torch.profiler.
+torch.profiler, with its phase clocks (k2_clocks), and one of K3's pass-1
+phase clocks (k3_clocks).
 
 It runs on the card unless --device cpu is given, and raises without CUDA.
 On the CPU the wrappers run their plain versions, launch nothing, and the
@@ -200,6 +201,48 @@ def k2_clocks(net, d, calls=5):
     return {p: clocks[i] / warps for i, p in enumerate(K2_PHASES)}
 
 
+# The tile block's phases (K3's pass 1): a consumer warp's products (mma.sync
+# and ldmatrix), its waits on a full stage of the weight ring, its group's
+# barriers, the epilogues, the loss steps, the scratch stores (issue and the
+# wait for their reads) and the x0 rows; then the producer warp's waits on an
+# empty stage and its copies
+K3_PHASES = ("products", "full_wait", "group_bar", "epilogue", "loss", "stores", "x0")
+K3_PRODUCER = ("empty_wait", "copies")
+CONSUMER_WARPS = 16   # a tile block's consumer warps (csrc/update.cu: NG x NWG)
+
+
+def k3_clocks(net, d, calls=5):
+    """Cycles per phase of K3's pass 1 from a -DK3_CLOCKS=1 build of
+    csrc/update.cu: per consumer warp and tile (K3_PHASES; a tile's 16
+    consumer warps each add theirs) and per tile for the producer warp
+    (K3_PRODUCER).  On the card only."""
+    import ctypes
+
+    from booster_gym_torch import kernel_build
+    from booster_gym_torch.algo.update_kernel import SOURCE, FusedUpdate
+
+    v = FusedUpdate(net, clip_ratio=0.2, bound_coef=10.0)
+    v.sizes["K3_CLOCKS"] = 1
+    v.build()
+    lib = ctypes.CDLL(kernel_build.library_path(SOURCE, v.sizes))
+    names = K3_PHASES + K3_PRODUCER
+    clocks = (ctypes.c_ulonglong * len(names))()
+    read = lambda: lib.bg_k3_clocks(ctypes.cast(clocks, ctypes.c_void_p))
+    grads_stats = _calls(v, d)["grads_stats"]
+    grads_stats()
+    torch.cuda.synchronize()
+    read()
+    for _ in range(calls):
+        grads_stats()
+    torch.cuda.synchronize()
+    if read() != 0:
+        raise RuntimeError("reading K3's phase clocks failed")
+    tiles = calls * -(-d["adv"].numel() // v.info(d["p"].device)["tile"])
+    out = {p: clocks[i] / (tiles * CONSUMER_WARPS) for i, p in enumerate(K3_PHASES)}
+    out.update({p: clocks[len(K3_PHASES) + i] / tiles for i, p in enumerate(K3_PRODUCER)})
+    return out
+
+
 def _time(fn, iters, cuda):
     """ms per call after WARMUP calls: CUDA events on the card, the host
     clock on the CPU; returns (ms, the last call's outputs)."""
@@ -242,7 +285,7 @@ def main(argv=None):
                         help="the kernels each --variant build times, e.g. K2,K8")
     parser.add_argument("--split", action="store_true",
                         help="also time K2 part by part (k2_split) and read its phase clocks "
-                             "(k2_clocks), on the card")
+                             "(k2_clocks) and K3's pass-1 phase clocks (k3_clocks), on the card")
     args = parser.parse_args(argv)
 
     from booster_gym_torch import kernel_build
@@ -287,6 +330,10 @@ def main(argv=None):
         rec = {"kernel": "K2", "split": k2_split(fused, d), "T": args.T, "B": args.B,
                "dtype": args.dtype, "card": card,
                "cycles_per_warp_tile": k2_clocks(net, d)}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+        rec = {"kernel": "K3", "pass": 1, "T": args.T, "B": args.B, "dtype": args.dtype,
+               "task": args.task, "card": card, "cycles_per_warp_tile": k3_clocks(net, d)}
         print(json.dumps(rec), flush=True)
         records.append(rec)
 

@@ -84,7 +84,8 @@ Phases, in order; any failure exits non-zero:
      weight copy, pass 1, pass 2 and the reduce per call), its scratch and
      peak device memory, and beside pass 2 the eight torch.matmul products
      of its shapes on the same rows (a yardstick; no PyTorch call computes
-     K3's whole function, so its library_ms is null); K2 part by part the
+     K3's whole function, so its library_ms is null), at N = 98,304 and
+     again at the benchmark cells' N = 393,216; K2 part by part the
      same way (the weight copy and the critic kernel, one each per call);
   7. resume, play and export, the flat path's configuration with the fused
      update under a logs/ root of its own, after a full collection of the
@@ -123,7 +124,8 @@ Phases, in order; any failure exits non-zero:
      actor on the card; 8b' T1StandupFT resumes that checkpoint for one
      iteration; 8c T1Serial, 1 iteration at 4096 envs; then every kernel
      at the new widths timed beside its bound and plain version (K8-K10
-     through prof_update);
+     through prof_update), and K3 pass by pass at T1Standup's widths at
+     the benchmark cells' N = 393,216, as in phase 6;
   9. the sampling MPC (booster_gym_torch.mpc) at its defaults (K = 256
      samples, H = 16 control steps, decimation 10) on the T1-shaped
      stand-in on the plane, its rollout one K1 launch per control step (32
@@ -704,6 +706,47 @@ def check_pass2(fused, g, n, label):
     return worst
 
 
+def compare_k3(fused, args, tol, n, tag):
+    """K3 (grads_stats) on `args` over n rows against its plain version on
+    the card: launched twice, the second call must repeat the first
+    bitwise, and both must agree with grads_stats_plain within `tol`;
+    then pass 2 against pass 1's scratch rows.  Returns the largest abs
+    error of the gradient."""
+    import torch
+
+    self_old = args[-1]
+    g, st, mu, logp = fused.grads_stats(*args)
+    g2, st2, _, _ = fused.grads_stats(*args)
+    g_p, st_p, mu_p, logp_p = fused.grads_stats_plain(*args)
+    torch.cuda.synchronize()
+    rerun = float((g - g2).abs().max())
+    e_g = max(rel_err(g[w:w + o * i], g_p[w:w + o * i])
+              for net in ("actor", "critic") for w, _, o, i in fused.layers[net])
+    e_b = max(rel_err(g[b:b + o], g_p[b:b + o])
+              for net in ("actor", "critic") for _, b, o, _ in fused.layers[net])
+    e_ls = rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice])
+    e_mu, e_lp = rel_err(mu, mu_p), rel_err(logp, logp_p)
+    # the actor-loss sum cancels (normalised advantages, and with
+    # self_old the ratio is 1), so it is held to a share of sum |terms|
+    e_st = max((abs(float(st[k]) - float(st_p[k]))
+                - (1e-2 * tol["stat"] * n if k == "al" else 1e-6))
+               / max(abs(float(st_p[k])), 1e-30) for k in ("vl", "al", "bhi", "blo"))
+    kl = float(st["klsq"].abs().max()) if self_old else rel_err(st["klsq"], st_p["klsq"])
+    log(f"  K3 {tag} self_old={int(self_old)}: rel err per leaf: weights {e_g:.2e} biases "
+        f"{e_b:.2e} (tol {tol['grad']:.1e}) dlogstd {e_ls:.2e}; mu {e_mu:.2e} logp "
+        f"{e_lp:.2e} (tol {tol['val']:.1e}); sums, past their atol, {max(e_st, 0.0):.2e} "
+        f"(tol {tol['stat']:.1e}); "
+        f"klsq {'max abs' if self_old else 'rel err'} {kl:.2e}; run-to-run max abs "
+        f"diff {rerun:.1e}")
+    require(max(e_g, e_b) <= tol["grad"] and e_ls <= 10 * tol["grad"]
+            and e_mu <= tol["val"] and e_lp <= 10 * tol["val"] and e_st <= tol["stat"],
+            f"K3 disagrees with its plain version ({tag}, self_old={self_old})")
+    require(kl == 0.0 if self_old else kl <= 10 * tol["stat"], f"K3 klsq ({tag})")
+    require(rerun == 0.0, f"K3 does not repeat bitwise ({tag})")
+    check_pass2(fused, g, n, f"K3 {tag} self_old={int(self_old)}")
+    return float((g - g_p).abs().max())
+
+
 def compare_update_kernels(dtype, B, T=24, dims=None):
     """K2, K3 (both old-policy modes) and K4 against their plain versions
     on the card at [T, B], for a network of `dims` (actions, observations,
@@ -739,39 +782,8 @@ def compare_update_kernels(dtype, B, T=24, dims=None):
     worst["K2"] = max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2]))
 
     mean, rstd = d["adv"].mean(), 1.0 / (d["adv"].std() + 1e-8)
-    worst["K3"] = 0.0
-    for self_old in (False, True):
-        args = (staged, p, prep, d["adv"], d["ret"], mean, rstd, self_old)
-        g, st, mu, logp = fused.grads_stats(*args)
-        g2, st2, _, _ = fused.grads_stats(*args)
-        g_p, st_p, mu_p, logp_p = fused.grads_stats_plain(*args)
-        torch.cuda.synchronize()
-        rerun = float((g - g2).abs().max())
-        e_g = max(rel_err(g[w:w + o * i], g_p[w:w + o * i])
-                  for net in ("actor", "critic") for w, _, o, i in fused.layers[net])
-        e_b = max(rel_err(g[b:b + o], g_p[b:b + o])
-                  for net in ("actor", "critic") for _, b, o, _ in fused.layers[net])
-        e_ls = rel_err(g[fused.logstd_slice], g_p[fused.logstd_slice])
-        e_mu, e_lp = rel_err(mu, mu_p), rel_err(logp, logp_p)
-        # the actor-loss sum cancels (normalised advantages, and with
-        # self_old the ratio is 1), so it is held to a share of sum |terms|
-        e_st = max((abs(float(st[k]) - float(st_p[k]))
-                    - (1e-2 * tol["stat"] * T * B if k == "al" else 1e-6))
-                   / max(abs(float(st_p[k])), 1e-30) for k in ("vl", "al", "bhi", "blo"))
-        kl = float(st["klsq"].abs().max()) if self_old else rel_err(st["klsq"], st_p["klsq"])
-        log(f"  K3 {tag} self_old={int(self_old)}: rel err per leaf: weights {e_g:.2e} biases "
-            f"{e_b:.2e} (tol {tol['grad']:.1e}) dlogstd {e_ls:.2e}; mu {e_mu:.2e} logp "
-            f"{e_lp:.2e} (tol {tol['val']:.1e}); sums, past their atol, {max(e_st, 0.0):.2e} "
-            f"(tol {tol['stat']:.1e}); "
-            f"klsq {'max abs' if self_old else 'rel err'} {kl:.2e}; run-to-run max abs "
-            f"diff {rerun:.1e}")
-        require(max(e_g, e_b) <= tol["grad"] and e_ls <= 10 * tol["grad"]
-                and e_mu <= tol["val"] and e_lp <= 10 * tol["val"] and e_st <= tol["stat"],
-                f"K3 disagrees with its plain version ({tag}, self_old={self_old})")
-        require(kl == 0.0 if self_old else kl <= 10 * tol["stat"], f"K3 klsq ({tag})")
-        require(rerun == 0.0, f"K3 does not repeat bitwise ({tag})")
-        check_pass2(fused, g, T * B, f"K3 {tag} self_old={int(self_old)}")
-        worst["K3"] = max(worst["K3"], float((g - g_p).abs().max()))
+    worst["K3"] = max(compare_k3(fused, (staged, p, prep, d["adv"], d["ret"], mean, rstd, self_old),
+                                 tol, T * B, tag) for self_old in (False, True))
 
     gr, m, v, lr = adam_inputs(p, seed=B)
     out = fused.opt_stage(gr, p, m, v, 7, lr, **ADAM)
@@ -907,18 +919,19 @@ def compare_anchor_kernels(dtype, B, T=24, dims=None):
             "K10": max(float((mu10 - mu10_p).abs().max()), float((logp10 - logp10_p).abs().max()))}
 
 
-def time_k3_passes(card, fused, args, n, reps=20):
-    """K3's passes at the main path's shapes: the CUDA-event time of pass
-    1 (with the weight copy), pass 2 and the reduce within whole calls
-    (events recorded between the passes), the device time and the count of
-    each kernel under torch.profiler, and, as the yardstick beside pass 2
-    (never on the path), the CUDA-event time of the eight torch.matmul
-    products dz_l^T x_l on pass 1's own rows, at the weight gradients'
-    shapes; then the peak device memory of a first call with a fresh
-    scratch."""
+def time_k3_passes(card, fused, args, n, reps=20, dims=None):
+    """K3's passes at n rows of a network of `dims` (T1's by default): the
+    CUDA-event time of pass 1 (with the weight copy), pass 2 and the reduce
+    within whole calls (events recorded between the passes), the device time
+    and the count of each kernel under torch.profiler, and, as the yardstick
+    beside pass 2 (never on the path), the CUDA-event time of the eight
+    torch.matmul products dz_l^T x_l on pass 1's own rows, at the weight
+    gradients' shapes; then the peak device memory of a first call with a
+    fresh scratch."""
     import torch
 
-    from booster_gym_torch.testing import device_ms, per_call, seeded_network, time_cuda
+    from booster_gym_torch.testing import (T1_DIMS, device_ms, per_call, seeded_network,
+                                           time_cuda)
 
     fused.grads_stats(*args)
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
@@ -940,7 +953,8 @@ def time_k3_passes(card, fused, args, n, reps=20):
     pairs = [(dz.T, x) for x, dz in views.values()]
     pass2_library_ms, _ = time_cuda(lambda: [torch.matmul(a, b) for a, b in pairs], reps)
     # a FusedUpdate of the same geometry with no scratch yet
-    fresh = type(fused)(seeded_network("bf16", "cuda", 1), fused.clip_ratio, fused.bound_coef)
+    fresh = type(fused)(seeded_network("bf16", "cuda", 1, dims or T1_DIMS), fused.clip_ratio,
+                        fused.bound_coef)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -950,7 +964,8 @@ def time_k3_passes(card, fused, args, n, reps=20):
     peak = torch.cuda.max_memory_allocated() - base
     sc = fresh.k3_scratch(torch.device("cuda"), n)
     scratch = sc["rows"].numel() * sc["rows"].element_size() + sc["part"].numel() * 4
-    log(f"K3 passes at N={n} bf16 [{card}]: CUDA events between the passes of whole calls: "
+    log(f"K3 passes at N={n} bf16, {fused.num_crit}-wide critic [{card}]: CUDA events between "
+        f"the passes of whole calls: "
         f"pass 1 {events['pass1']:.4f} ms (with the weight copy), pass 2 {events['pass2']:.4f} "
         f"ms, reduce {events['reduce']:.4f} ms; device time per kernel (torch.profiler): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
@@ -963,6 +978,23 @@ def time_k3_passes(card, fused, args, n, reps=20):
             "reduce_ms": events["reduce"], "pass2_library_ms": pass2_library_ms,
             "device_ms": dev, "device_kernels": kernels, "scratch_bytes": scratch,
             "peak_bytes": peak}
+
+
+# the benchmark cells' envs: K3 runs on T x CELL_B rows there
+CELL_B = 16384
+
+
+def cells_k3_passes(card, dims=None):
+    """K3 at the benchmark cells' N = 24 x CELL_B = 393,216 rows, for a
+    network of `dims` (T1's by default): its bitwise repeat and its plain
+    version (compare_k3, bf16), then time_k3_passes."""
+    from booster_gym_torch.testing import T1_DIMS
+
+    T = 24
+    fused, k3_args = update_plains(T, CELL_B, dims)[:2]
+    tag = f"bf16 N={T * CELL_B}" + ("" if (dims or T1_DIMS) == T1_DIMS else f" dims {dims}")
+    compare_k3(fused, k3_args, TOL_UPDATE["bf16"], T * CELL_B, tag)
+    return time_k3_passes(card, fused, k3_args, T * CELL_B, dims=dims)
 
 
 def time_k2_parts(card, T=24, B=4096):
@@ -1022,8 +1054,8 @@ def update_plains(T, B, dims=None):
 
 
 def time_update_kernels(card, launches, max_err, prof):
-    """The `kernels` entries of K2-K4 and K8-K10 at the main path's shapes
-    (bf16, T = 24, B = 4096): time per call, bound and work from
+    """The `kernels` entries of K2-K4 and K8-K10 at T = 24, B = 4096, bf16
+    (the benchmark cells run B = 16384: cells_k3_passes): time per call, bound and work from
     prof_update's records `prof` (phase 4c), beside the plain version's
     time, measured here; for K3 also the passes (time_k3_passes), with
     the torch.matmul yardstick of pass 2 beside them."""
@@ -1032,6 +1064,7 @@ def time_update_kernels(card, launches, max_err, prof):
     T, B = 24, 4096
     fused, k3_args, adam, plains = update_plains(T, B)
     passes = time_k3_passes(card, fused, k3_args, T * B)
+    passes["cells"] = cells_k3_passes(card)
     k2_parts = time_k2_parts(card)
     k4 = time_k4(card, fused, *adam, prof["K4"])
     entries = []
@@ -1663,6 +1696,8 @@ def phase8_timing(card, ctx, trained, err):
                 "launches": launches, "max_abs_err": err[(kname, task)], "ms": rec["ms"],
                 "plain_ms": plain_ms, "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None, "n_params": rec["n_params"]})
+            if kname == "K3" and task == "T1Standup":
+                entries[-1]["passes"] = {"cells": cells_k3_passes(card, task_dims(task))}
     return entries
 
 

@@ -5,9 +5,11 @@ pass 3 adds the slabs in order.
 
 Here on the CPU: the row plan (slabs of whole pass-2 steps that cover the
 rows once, in order), the scratch layout that csrc/update.cu states against
-the layer widths and FusedUpdate.cut_scratch's views of it, and pass
-2's plain version (the slab-by-slab sums) against the one-product weight
-gradients of _loss_grads.  The tests marked `cuda` hold the layout that the
+the layer widths and FusedUpdate.cut_scratch's views of it, pass 1's tile
+block as csrc/update.cu sizes it from the widths (tile rows, the weight
+ring's chunk and depth; its constexprs compiled with the host's g++), and
+pass 2's plain version (the slab-by-slab sums) against the one-product
+weight gradients of _loss_grads.  The tests marked `cuda` hold the layout that the
 kernel library reports to that statement, both kernels against
 their plain versions on the card at N = 98,304 and at a ragged N, repeat
 them bitwise, and check pass 2 against pass 1's own scratch rows; they skip
@@ -15,10 +17,14 @@ without a card.  This file imports nothing of JAX (`pytest --noconftest -m
 cuda` runs it on the card).
 """
 
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
+from booster_gym_torch import kernel_build
 from booster_gym_torch.algo import update_kernel as uk
 from booster_gym_torch.testing import anchor_case, seeded_network, update_case
 
@@ -103,6 +109,47 @@ def test_scratch_layout_follows_the_layer_widths():
     _, width, tiles = spec_layout(layers)
     assert width == 64 + 2 * (64 + 32 + 96) + 16 + 2 * (128 + 64 + 32) + 16
     assert tiles == 4 + 4                                     # one 128 x 128 tile a layer
+
+
+def source_tile_shape(sizes, tmp_path):
+    """(TN, ST) of csrc/update.cu's tile block for bf16 and then f32 at these
+    -D sizes: the build's sizes (the text from `#ifndef NOBS` to the line
+    that ends them), compiled for the host with the CUDA qualifiers and the
+    bf16 type stubbed."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    src = open(kernel_build.source_path(uk.SOURCE)).read()
+    part = src[src.index("#ifndef NOBS"):src.index("// ---- end of the build's sizes")]
+    stub = ("#include <cstddef>\n#include <cstdio>\n#include <type_traits>\n"
+            "#define __host__\n#define __device__\n#define __forceinline__ inline\n"
+            "struct __nv_bfloat16 { unsigned short x; };\ninline float __bfloat162float(__nv_bfloat16) { return 0; }\n"
+            "inline __nv_bfloat16 __float2bfloat16_rn(float) { return {}; }\n")
+    show = "".join(f'printf("%d %d ", CT<{t}>::TN, CT<{t}>::ST);' for t in ("__nv_bfloat16", "float"))
+    cpp, exe = tmp_path / "tile.cpp", tmp_path / "tile"
+    cpp.write_text(stub + part + "int main() { " + show + " }\n")
+    subprocess.run([cxx, "-std=c++17", *[f"-D{k}={v}" for k, v in sizes.items()], str(cpp),
+                    "-o", str(exe)], check=True)
+    out = [int(v) for v in subprocess.run([str(exe)], check=True, capture_output=True,
+                                          text=True).stdout.split()]
+    return tuple(out[:2]), tuple(out[2:])
+
+
+@pytest.mark.parametrize("dims,bf16,f32", [
+    # T1: 64-row tiles, a ring of 3 chunks
+    ((12, 47, 14), (64, 3), (32, 3)),
+    # T1Standup's 434-wide critic input: 32-row tiles, 7 chunks
+    ((12, 420, 14), (32, 7), (16, 7)),
+    # T1Serial's 23 actions: 64-row tiles, 2 chunks in bf16
+    ((23, 80, 14), (64, 2), (32, 3)),
+])
+def test_tile_block_picks_its_ring_from_the_widths(dims, bf16, f32, tmp_path):
+    """K3's pass 1 keeps the tile rows of tile_rows (the order in which a
+    block adds its stat partials rests on them) and fills the rest of the
+    block's shared memory with the weight ring: as many chunks as fit."""
+    fused = seeded_network("bf16", "cpu", 0, dims)
+    sizes = uk.FusedUpdate(fused, 0.2, 10.0).sizes
+    assert source_tile_shape(sizes, tmp_path) == (bf16, f32)
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
